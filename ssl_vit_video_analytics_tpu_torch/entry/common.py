@@ -40,7 +40,8 @@ def compute_dtype_from(cfg: dict, device: torch.device) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(name, torch.float32)
 
 
-def dataset_from_cfg(cfg: dict, split_file: str, mode: str) -> ClipDataset:
+def dataset_from_cfg(cfg: dict, split_file: str, mode: str,
+                     seed: int | None = None) -> ClipDataset:
     d = cfg["dataset"]
     return ClipDataset(
         split_file=split_file,
@@ -48,7 +49,7 @@ def dataset_from_cfg(cfg: dict, split_file: str, mode: str) -> ClipDataset:
         clip_len=int(d.get("clip_len", 16)),
         stride=int(d.get("stride", 2)),
         image_size=int(d.get("image_size", 112)),
-        seed=int(cfg.get("seed", 42)),
+        seed=int(seed if seed is not None else cfg.get("seed", 42)),
         backend=str(d.get("backend", "packed")),
     )
 

@@ -1,0 +1,208 @@
+"""SSL pipeline B CLI: pixel-reconstruction VideoMAE pretraining
+(counterpart of the JAX package's ``entry/train_ssl_mae.py``; reference:
+src/train_ssl_mae.py).
+
+TinyViT stage-3 features + tube mask (default 0.9) + norm-pix masked MSE,
+AdamW with warmup-cosine schedule, gradient accumulation and non-finite
+skip, bf16 compute on the card, throughput (clips/s) + ETA logging,
+encoder-only checkpoints every ``save_every`` epochs (full ones with
+``training.save_full``). One device; the multi-device knobs raise.
+
+    python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae \\
+        --config configs/ssl_mae.yaml --device cuda
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..models.mae import TinyVideoMAE
+from ..models.tiny_vit import tiny_vit_21m_variant
+from ..train.finetune_engine import init_model
+from ..train.mae_engine import make_pixel_mae_step, wrap_accum_and_skip
+from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
+from ..utils.checkpoint import save_checkpoint
+from ..utils.io import ensure_dir
+from ..utils.prng import set_seed
+from . import common
+
+
+def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None) -> TinyVideoMAE:
+    """The pipeline-B model of ``cfg`` with torch's default init (see
+    ``init_model`` for the flax-like seeded init)."""
+    m = cfg["model"]
+    remat_stages = m.get("remat_stages")
+    encoder = tiny_vit_21m_variant(
+        use_checkpoint=bool(m.get("use_checkpoint", True)), dtype=dtype,
+        attn_impl=attn_impl,
+        embed_dims=tuple(m.get("embed_dims", (96, 192, 384, 576))),
+        remat_stages=tuple(remat_stages) if remat_stages is not None else None,
+        num_stages=3,
+    )
+    return TinyVideoMAE(
+        encoder,
+        clip_len=int(cfg["dataset"]["clip_len"]),
+        img_size=int(cfg["dataset"]["image_size"]),
+        patch_size=8,
+        decoder_embed_dim=int(m["decoder_embed_dim"]),
+        decoder_depth=int(m["decoder_depth"]),
+        decoder_num_heads=int(m["decoder_num_heads"]),
+        dtype=dtype,
+        attn_impl=attn_impl,
+        decoder_moe_experts=int(m.get("decoder_moe_experts", 0) or 0),
+    )
+
+
+def _refuse_unported(cfg: dict) -> None:
+    """The JAX entry's multi-device and tracing knobs are not ported yet."""
+    dev = cfg.get("device", {})
+    knobs = {
+        "device.model_parallel": int(dev.get("model_parallel", 1) or 1) > 1,
+        "device.pipeline_parallel": int(dev.get("pipeline_parallel", 1) or 1) > 1,
+        "device.expert_parallel": int(dev.get("expert_parallel", 1) or 1) > 1,
+        "model.sequence_parallel": bool(cfg.get("model", {}).get("sequence_parallel")
+                                        or dev.get("sequence_parallel")),
+        "device.data_parallel": (not isinstance(dev.get("data_parallel", "auto"), (bool, str))
+                                 and int(dev.get("data_parallel") or 1) > 1),
+    }
+    for knob, on in knobs.items():
+        if on:
+            raise NotImplementedError(
+                f"{knob} is not ported yet: multi-GPU training arrives with ROADMAP "
+                "queue 1, item 15 (this entry runs on one device)")
+    if cfg.get("logging", {}).get("profile_dir"):
+        raise NotImplementedError("logging.profile_dir is not ported yet: tracing the "
+                                  "train step arrives with ROADMAP queue 1, item 8")
+    if cfg.get("dataset", {}).get("device_resident", "auto") not in (
+            "auto", False, 0, "false", "off"):
+        raise NotImplementedError("dataset.device_resident is not ported yet: the "
+                                  "device-resident split arrives with ROADMAP queue 1, "
+                                  "item 8 (auto keeps the host loader)")
+
+
+def run(cfg: dict, log=print, max_steps: int | None = None,
+        device: str | torch.device | None = None, on_step=None) -> dict:
+    """Train. ``device``: argument, else ``device.name``, else cuda.
+    ``on_step(global_step, state, metrics)`` is called after every step."""
+    device = common.device_from(cfg, device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda requested but torch.cuda.is_available() is "
+                           "false; pass --device cpu to run on the CPU")
+    _refuse_unported(cfg)
+    seed = int(cfg.get("seed", 42))
+    init_gen = set_seed(seed)
+    dtype = common.compute_dtype_from(cfg, device)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    log(f"[INFO] ssl_mae: device={device} ({name}) dtype={str(dtype).replace('torch.', '')}")
+    if cfg.get("logging", {}).get("tensorboard", False):
+        log("[WARN] TensorBoard logging is not ported; skipping")
+
+    ds = common.dataset_from_cfg(cfg, common.split_path(cfg, cfg["dataset"]["train_split"]),
+                                 "ssl", seed=seed)
+    tr = cfg["training"]
+    B = int(tr["batch_size"])
+    T = ds.clip_len
+    S = ds.image_size
+    steps_per_epoch = max(1, len(ds) // B)
+    epochs = int(tr["epochs"])
+
+    model = build_model(cfg, dtype)
+    init_model(model, init_gen)
+    model.to(device)
+    L = (S // 8) ** 2
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[INFO] model params: {n_params / 1e6:.2f}M, tokens/frame={L}")
+
+    sched = warmup_cosine_schedule(
+        float(tr.get("lr", 5e-4)),
+        int(tr.get("warmup_epochs", 0)) * steps_per_epoch,
+        epochs * steps_per_epoch,
+        float(tr.get("min_lr", 0.0)),
+    )
+    # pipeline B never clips unless the config asks (a 1.0 clip froze it,
+    # see the JAX entry)
+    tx = make_optimizer(model.parameters(), sched,
+                        weight_decay=float(tr.get("weight_decay", 0.05)),
+                        grad_clip=(float(tr["clip_grad_norm"])
+                                   if tr.get("clip_grad_norm") is not None else None))
+    tx = wrap_accum_and_skip(tx, accum_steps=int(tr.get("accumulation_steps", 1)))
+    state = create_train_state(model, tx)
+    ssl = cfg.get("ssl", {})
+    step_fn = make_pixel_mae_step(model, mask_ratio=float(ssl.get("mask_ratio", 0.9)),
+                                  patch_size=8,
+                                  norm_pix_loss=bool(ssl.get("norm_pix_loss", True)),
+                                  compute_dtype=dtype)
+    step_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    save_dir = tr.get("save_dir", "results/tinymae_v1")
+    ensure_dir(save_dir)
+    log_interval = int(tr.get("log_interval", 20))
+    save_every = int(tr.get("save_every", 10))
+
+    global_step = 0
+    t_start = time.perf_counter()
+    last_loss = float("nan")
+    for epoch in range(1, epochs + 1):
+        t_ep = time.perf_counter()
+        seen = 0
+        metrics = None
+        # device scalars, fetched once per epoch (the per-step loss is
+        # tube-mask noise; the epoch mean is the summary)
+        epoch_losses = []
+        for step, batch in enumerate(
+                common.epoch_batches(ds, B, shuffle=True, seed=seed, epoch=epoch,
+                                     device=device), 1):
+            state, metrics = step_fn(state, batch, step_gen)
+            epoch_losses.append(metrics["loss"])
+            global_step += 1
+            seen += B
+            if on_step is not None:
+                on_step(global_step, state, metrics)
+            if step % log_interval == 0:
+                last_loss = float(metrics["loss"])  # waits for the device
+                dt = time.perf_counter() - t_ep
+                ips = seen / max(dt, 1e-9)
+                eta = (steps_per_epoch - step) * (dt / step)
+                log(f"[INFO] ep={epoch} step={step}/{steps_per_epoch} "
+                    f"loss={last_loss:.4f} pred_std={float(metrics['pred_std']):.4f} "
+                    f"gnorm={float(metrics['grad_norm']):.2e} "
+                    f"clips/s={ips:.1f} eta={eta:.0f}s")
+                if float(metrics["collapse"]) > 0:
+                    log("[WARN:pred_std_low] possible representation collapse")
+            if max_steps is not None and global_step >= max_steps:
+                break
+        if metrics is not None:
+            last_loss = float(metrics["loss"])
+        loss_mean = (float(torch.stack(epoch_losses).mean())
+                     if epoch_losses else float("nan"))
+        log(f"[INFO] epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s "
+            f"loss={last_loss:.4f} loss_mean={loss_mean:.4f}")
+        if epoch % save_every == 0 or epoch == epochs:
+            sd = model.state_dict()
+            # encoder-only checkpoint, like the reference
+            path = save_checkpoint(save_dir, f"ckpt_epoch_{epoch}",
+                                   {k: v for k, v in sd.items() if k.startswith("encoder.")})
+            log(f"[INFO] saved encoder checkpoint: {path}")
+            if bool(tr.get("save_full", False)):
+                path = save_checkpoint(save_dir, f"ckpt_full_epoch_{epoch}", sd)
+                log(f"[INFO] saved full checkpoint: {path}")
+        if max_steps is not None and global_step >= max_steps:
+            break
+
+    total = time.perf_counter() - t_start
+    return {"steps": global_step, "seconds": total, "last_loss": last_loss}
+
+
+def main():
+    p = common.make_parser("VideoMAE SSL pretraining (pipeline B)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: device.name of the config, else cuda)")
+    args = p.parse_args()
+    cfg = common.load_merged_config(args, "configs/ssl_mae.yaml")
+    logger = common.make_logger(cfg, "train_ssl_mae")
+    run(cfg, log=logger.log, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

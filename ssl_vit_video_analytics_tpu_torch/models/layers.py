@@ -1,17 +1,30 @@
-"""Building blocks of the MobileViT backbone (counterparts of the JAX
-package's ``models/layers.py``).
+"""Building blocks of the MobileViT and TinyViT backbones and the MAE decoder
+(counterparts of the JAX package's ``models/layers.py``).
 
 Parameters are kept in fp32 and cast to the module's compute ``dtype`` at
 use, as flax's ``dtype=`` does: convs and dense layers run in ``dtype``,
 BatchNorm and LayerNorm normalize in fp32 and return ``dtype``. Convolutional
 modules take and return NCHW tensors (cuDNN's layout); the transformer
-modules take tokens ``[B, L, D]``. Only inference is ported: a module in
-training mode raises (see :func:`require_eval`).
+modules take tokens ``[B, L, D]``.
+
+Training mode follows flax, not torch:
+- BatchNorm normalizes with the biased batch variance and updates its
+  running statistics as ``0.9 * old + 0.1 * batch`` with the BIASED
+  variance (torch's own update uses the unbiased one). Inside
+  :func:`frozen_bn_stats` of a module (its recompute under activation
+  checkpointing) it normalizes with the batch statistics and updates
+  nothing, as ``nn.remat`` does not re-mutate.
+- Stochastic depth takes its decisions as an argument: a per-sample keep
+  tensor (0 or ``1/keep_prob``) drawn by the caller from an explicit
+  generator, so a recompute sees the same decisions and tests can inject
+  them. A module in training with a drop rate but no decisions raises.
 
 Traps kept from the reference: flax's ``nn.gelu`` is the tanh approximation,
 LayerNorm and BatchNorm use eps 1e-5.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -19,45 +32,91 @@ from torch import nn
 
 from ..ops.attention import attention_packed
 
-
-def require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "only inference is ported so far: call .eval() (train-mode layers "
-            "arrive with the pipeline-B train step, ROADMAP queue 1, item 3)")
-
-
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
+               update_stats: bool = True) -> torch.Tensor:
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=bn.eps)`` over NCHW, with
+    fp32 statistics and parameters.
+
+    Eval: normalizes in fp32. Training: batch statistics, and with
+    ``update_stats`` the running mean and (biased) variance move 0.1 of the
+    way to them. A bf16 input is normalized by torch's
+    mixed-dtype kernel (fp32 statistics, bf16 output, as flax's
+    ``dtype=bfloat16``) so that autograd saves the bf16 activation, not an
+    fp32 copy of it.
+    """
+    if not training:
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            False, 0.0, bn.eps)
+    # torch updates copies of the statistics: autograd saves the tensors it
+    # is given, and the recompute of a checkpointed region must save as many
+    mean, var = bn.running_mean.clone(), bn.running_var.clone()
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 0.1, bn.eps)
+    if update_stats:
+        with torch.no_grad():
+            # torch moved the variance toward the UNBIASED batch variance
+            # (n/(n-1) times the biased one); take it back to the biased one
+            n = x.numel() // x.shape[1]
+            old = 0.9 * bn.running_var
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_((var - old) * ((n - 1) / n) + old)
+    return y
+
+
 class ConvBNAct(nn.Module):
-    """Conv -> BatchNorm (running statistics) -> SiLU (optional), NCHW.
+    """Conv -> BatchNorm -> SiLU (optional), NCHW.
 
     The JAX package's stride-2 stem runs as ``StemConvS2D`` (space-to-depth)
     for the TPU's matrix unit; that is the same math as this symmetric pad-1
-    3x3 stride-2 conv with the same kernel.
+    3x3 stride-2 conv with the same kernel. ``bn_zero_init`` is flax's
+    ``bn_scale_init=zeros`` (the last BN of a residual MBConv).
     """
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, act: bool = True, dtype: torch.dtype = torch.float32):
+                 groups: int = 1, act: bool = True, dtype: torch.dtype = torch.float32,
+                 bn_zero_init: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
                               padding=kernel // 2, groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn_zero_init = bn_zero_init
+        if bn_zero_init:
+            nn.init.zeros_(self.bn.weight)
         self.act = act
         self.dtype = dtype
+        self.update_stats = True  # off inside frozen_bn_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
         x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), None, c.stride,
                      c.padding, c.dilation, c.groups)
-        x = F.batch_norm(x.float(), self.bn.running_mean, self.bn.running_var,
-                         self.bn.weight, self.bn.bias, False, 0.0,
-                         self.bn.eps).to(self.dtype)
+        x = batch_norm(x, self.bn, self.training, self.update_stats).to(self.dtype)
         return F.silu(x) if self.act else x
+
+
+@contextlib.contextmanager
+def frozen_bn_stats(module: nn.Module, frozen: bool = True):
+    """Inside this context, train-mode BatchNorm in ``module``'s ConvBNActs
+    updates no running statistics (with ``frozen``)."""
+    convs = [m for m in module.modules() if isinstance(m, ConvBNAct)]
+    prev = [m.update_stats for m in convs]
+    for m in convs:
+        m.update_stats = not frozen
+    try:
+        yield
+    finally:
+        for m, p in zip(convs, prev):
+            m.update_stats = p
 
 
 class InvertedResidual(nn.Module):
@@ -79,16 +138,30 @@ class InvertedResidual(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth: the identity at eval."""
+    """Per-sample stochastic depth (timm ``DropPath``), with the decisions
+    passed in: ``keep`` is ``[N]``, 0 for a dropped sample and
+    ``1/(1-rate)`` for a kept one (see :meth:`draw`)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rate:
-            require_eval(self)
-        return x
+    def draw(self, n: int, generator: torch.Generator,
+             device: torch.device | None = None) -> torch.Tensor | None:
+        """This module's decisions for ``n`` samples, or None at rate 0."""
+        if not self.rate:
+            return None
+        keep_prob = 1.0 - self.rate
+        kept = torch.rand(n, generator=generator, device=generator.device) < keep_prob
+        return (kept.float() / keep_prob).to(device or generator.device)
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
+        if not (self.rate and self.training):
+            return x
+        if keep is None:
+            raise ValueError(f"DropPath(rate={self.rate}) in training needs its "
+                             "decisions: pass keep from draw() (explicit generator)")
+        return x * keep.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 class Mlp(nn.Module):
@@ -101,15 +174,61 @@ class Mlp(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(linear(x, self.fc1, self.dtype), approximate="tanh")
-        return linear(x, self.fc2, self.dtype)
+        return linear(gelu(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation over NCHW, bias-free denses
+    (ref: src/models/tiny_vit.py:20-34)."""
+
+    def __init__(self, ch: int, reduction: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(ch, ch // reduction, bias=False)
+        self.fc2 = nn.Linear(ch // reduction, ch, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.mean(dim=(2, 3))
+        y = torch.sigmoid(linear(torch.relu(linear(y, self.fc1, self.dtype)),
+                                 self.fc2, self.dtype))
+        return x * y[:, :, None, None]
+
+
+class MBConv(nn.Module):
+    """TinyViT's MBConv over NCHW: expand -> dw -> SE -> project, GELU
+    activations (ref: src/models/tiny_vit.py:36-56). The final BN scale is
+    zero-initialised on residual blocks only, as in the JAX package
+    (models/layers.py:234-249): on a non-residual block it locks training."""
+
+    def __init__(self, in_ch: int, features: int, expand: int = 4, stride: int = 1,
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        mid = int(in_ch * expand)
+        self.use_res = stride == 1 and in_ch == features
+        self.expand = ConvBNAct(in_ch, mid, kernel=1, act=False, dtype=dtype)
+        self.dw = ConvBNAct(mid, mid, kernel=3, stride=stride, groups=mid, act=False,
+                            dtype=dtype)
+        self.se = SELayer(mid, dtype=dtype)
+        self.project = ConvBNAct(mid, features, kernel=1, act=False, dtype=dtype,
+                                 bn_zero_init=self.use_res)
+        self.drop_path = DropPath(drop_path if self.use_res else 0.0)
+
+    def draw_drop_path(self, n: int, generator: torch.Generator, device=None):
+        return self.drop_path.draw(n, generator, device)
+
+    def forward(self, x: torch.Tensor, keep: torch.Tensor | None = None) -> torch.Tensor:
+        y = self.se(gelu(self.dw(gelu(self.expand(x)))))
+        y = self.project(y)
+        return x + self.drop_path(y, keep) if self.use_res else y
 
 
 class MultiHeadAttention(nn.Module):
     """Fused-QKV multi-head self-attention over ``[B, L, D]``.
 
     The thirds of the fused qkv output go to the packed attention entry as
-    strided ``[B, L, H*d]`` views: no head split, no copy.
+    strided ``[B, L, H*d]`` views: no head split, no copy. The head width is
+    ``dim // num_heads``, so ``H*d`` may be narrower than ``dim`` (as flax's
+    ``key_dim``).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
@@ -117,8 +236,8 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = nn.Linear(dim, 3 * num_heads * self.head_dim)
+        self.proj = nn.Linear(num_heads * self.head_dim, dim)
         self.dtype = dtype
         self.attn_impl = attn_impl
 
@@ -131,13 +250,15 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x))."""
+    """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x)). The two
+    residual branches have their own stochastic-depth decisions."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, dtype: torch.dtype = torch.float32,
+                 attn_impl: str | None = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, num_heads, dtype=dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype=dtype, attn_impl=attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
         self.drop_path = DropPath(drop_path)
@@ -147,6 +268,30 @@ class TransformerBlock(nn.Module):
         return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                             ln.eps).to(self.dtype)
 
+    def draw_drop_path(self, n: int, generator: torch.Generator, device=None):
+        if not self.drop_path.rate:
+            return None
+        return (self.drop_path.draw(n, generator, device),
+                self.drop_path.draw(n, generator, device))
+
+    def forward(self, x: torch.Tensor, keep: tuple | None = None) -> torch.Tensor:
+        k_attn, k_mlp = keep if keep is not None else (None, None)
+        x = x + self.drop_path(self.attn(self._norm(x, self.norm1)), k_attn)
+        return x + self.drop_path(self.mlp(self._norm(x, self.norm2)), k_mlp)
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of pre-norm TransformerBlocks (flax names ``block{i}``)."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32, attn_impl: str | None = None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio, dtype=dtype,
+                             attn_impl=attn_impl)
+            for _ in range(depth))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self._norm(x, self.norm1)))
-        return x + self.drop_path(self.mlp(self._norm(x, self.norm2)))
+        for blk in self.blocks:
+            x = blk(x)
+        return x

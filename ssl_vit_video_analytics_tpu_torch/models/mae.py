@@ -1,0 +1,83 @@
+"""Pixel-space TinyVideoMAE, pipeline B (counterpart of the JAX package's
+``models/mae.py:TinyVideoMAE``; ref: src/models/mae_vit_adapter.py:5-116).
+
+Frames folded into the batch -> TinyViT stage-3 features ``[BT, 14, 14,
+384]`` -> linear to the decoder width -> factorized temporal ``[1, T, 1, D]``
++ spatial ``[1, 1, 196, D]`` position embeddings -> mask-token substitution
+(masking happens AFTER encoding; the encoder sees every frame) ->
+full-sequence transformer decoder over T*196 = 3136 tokens -> per-patch
+pixel head (8*8*3 = 192). Returns the full ``[B, N, 192]`` prediction; the
+loss masks with weights.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import TransformerEncoder, linear
+from .tiny_vit import TinyViT
+
+
+class TinyVideoMAE(nn.Module):
+    """Pixel-reconstruction VideoMAE over TinyViT stage-3 features."""
+
+    def __init__(self, encoder: TinyViT, clip_len: int = 16, img_size: int = 112,
+                 patch_size: int = 8, decoder_embed_dim: int = 384, decoder_depth: int = 4,
+                 decoder_num_heads: int = 6, dtype: torch.dtype = torch.float32,
+                 attn_impl: str | None = None, decoder_moe_experts: int = 0):
+        super().__init__()
+        if decoder_moe_experts:
+            raise NotImplementedError(
+                "the MoE decoder (model.decoder_moe_experts) is not ported yet: it "
+                "arrives with the opt-in extras, ROADMAP queue 1, item 15")
+        if len(encoder.stages) < 3:
+            raise ValueError("TinyVideoMAE taps TinyViT stage 3: build it with num_stages >= 3")
+        D = decoder_embed_dim
+        self.num_patches = (img_size // patch_size) ** 2
+        self.decoder_embed_dim = D
+        self.dtype = dtype
+        self.encoder = encoder
+        self.enc_to_dec = nn.Linear(encoder.embed_dims[2], D)
+        self.temporal_pos_embed = nn.Parameter(torch.zeros(1, clip_len, 1, D))
+        self.spatial_pos_embed = nn.Parameter(torch.zeros(1, 1, self.num_patches, D))
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, D))
+        for p in (self.temporal_pos_embed, self.spatial_pos_embed, self.mask_token):
+            nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04)  # flax truncated_normal(0.02)
+        self.decoder = TransformerEncoder(D, decoder_depth, decoder_num_heads, mlp_ratio=4.0,
+                                          dtype=dtype, attn_impl=attn_impl)
+        self.decoder_norm = nn.LayerNorm(D, eps=1e-5)
+        self.decoder_pred = nn.Linear(D, patch_size ** 2 * 3)
+
+    def draw_drop_path(self, batch: int, frames: int, generator: torch.Generator,
+                       device=None) -> list:
+        """The encoder's stochastic-depth decisions for ``batch`` clips of
+        ``frames`` frames (the decoder has none)."""
+        return self.encoder.draw_drop_path(batch * frames, generator, device, stage_limit=3)
+
+    def embed_tokens(self, clip: torch.Tensor, mask: torch.Tensor,
+                     drop: list | None = None) -> torch.Tensor:
+        """Encode -> project to the decoder width -> position embeddings ->
+        mask-token substitution. Returns ``[B, T*L, D]``."""
+        B, T, H, W, C = clip.shape
+        L, D = self.num_patches, self.decoder_embed_dim
+        latent = self.encoder.forward_stage3(clip.reshape(B * T, H, W, C), drop)
+        latent = latent.reshape(B * T, latent.shape[1] * latent.shape[2], latent.shape[3])
+        x = linear(latent, self.enc_to_dec, self.dtype).reshape(B, T, L, D)
+        x = x + (self.temporal_pos_embed[:, :T] + self.spatial_pos_embed).to(x.dtype)
+        m = mask.reshape(B, T, L, 1).to(x.dtype)
+        x = x * (1.0 - m) + self.mask_token.to(x.dtype)[:, None] * m
+        return x.reshape(B, T * L, D)
+
+    def predict_pixels(self, x: torch.Tensor) -> torch.Tensor:
+        """Final LayerNorm + pixel head."""
+        ln = self.decoder_norm
+        x = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+        return linear(x.to(self.dtype), self.decoder_pred, self.dtype)
+
+    def forward(self, clip: torch.Tensor, mask: torch.Tensor,
+                drop: list | None = None) -> torch.Tensor:
+        """clip ``[B, T, H, W, 3]`` float; mask ``[B, T, L]`` bool (True =
+        masked); drop: the encoder's decisions (:meth:`draw_drop_path`).
+        Returns pred ``[B, T*L, patch_size**2 * 3]``."""
+        return self.predict_pixels(self.decoder(self.embed_tokens(clip, mask, drop)))

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ConvBNAct, InvertedResidual, TransformerBlock, require_eval
+from .layers import ConvBNAct, InvertedResidual, TransformerBlock
 
 
 class MobileViTBlock(nn.Module):
@@ -77,7 +77,6 @@ class MobileViTBackbone(nn.Module):
         self.head = ConvBNAct(160, embed_dim, kernel=1, dtype=d)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        require_eval(self)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         for stage in (self.stem, self.s1_0, self.s1_1, self.s2_0, self.s2_1,
                       self.mvit1_ir, self.mvit1, self.mvit2_ir, self.mvit2,

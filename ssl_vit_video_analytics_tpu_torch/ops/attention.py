@@ -1,12 +1,14 @@
 """Scaled dot-product attention with a selectable implementation.
 
 Counterpart of ``ssl_vit_video_analytics_tpu/ops/attention.py``. The JAX
-package's ``"xla"``/``"pallas"`` switch becomes ``"plain"``/``"kernel"``:
+package's ``"xla"``/``"pallas"`` switch becomes ``"plain"``/``"kernel"``;
+both go through the autograd Function ``flash_attention.FlashAttention``:
 
-- ``kernel`` (the default): the flash-attention wrapper, which runs the
-  Hopper kernel K1 on a CUDA tensor and its plain version on a CPU tensor.
-- ``plain``: the plain PyTorch version on any device. On a CUDA tensor it is
-  taken only when a caller names it (tests, the kernel-vs-plain check).
+- ``kernel`` (the default): K1 forward and K2 backward on a CUDA tensor,
+  their plain versions on a CPU tensor.
+- ``plain``: the plain PyTorch forward and backward on any device. On a CUDA
+  tensor it is taken only when a caller names it (tests, the kernel-vs-plain
+  checks).
 
 Layouts are the JAX package's: ``[B, L, H, Dh]`` for :func:`sdpa`, packed
 ``[B, L, H*Dh]`` for :func:`attention_packed`.
@@ -15,24 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_packed, flash_attention_plain
-
-IMPLS = ("kernel", "plain")
-
-
-def resolve_impl(impl: str | None) -> str:
-    impl = impl or "kernel"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown attention impl {impl!r} (expected one of {IMPLS})")
-    return impl
+from .flash_attention import flash_attention_packed
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int, impl: str | None = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(Dh)) v over packed ``[B, L, H*Dh]`` inputs."""
-    if resolve_impl(impl) == "plain":
-        return flash_attention_plain(q, k, v, num_heads)[0]
-    return flash_attention_packed(q, k, v, num_heads)
+    """softmax(q k^T / sqrt(Dh)) v over packed ``[B, L, H*Dh]`` inputs;
+    ``impl`` None is ``"kernel"``."""
+    return flash_attention_packed(q, k, v, num_heads, impl or "kernel")
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

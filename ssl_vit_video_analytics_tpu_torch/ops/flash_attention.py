@@ -1,24 +1,30 @@
-"""Flash-attention forward over packed heads: the Hopper kernel K1 and its
-plain PyTorch version.
+"""Flash attention over packed heads: the Hopper kernels K1 (forward) and
+K2 (backward), their plain PyTorch versions, and the autograd Function that
+joins them.
 
 Counterpart of ``ssl_vit_video_analytics_tpu/ops/flash_attention.py``. The
 TPU module tiles for VMEM and the MXU's 128 lanes (``_plan``, ``_gbatch``,
 ``_groups``, ``_expand_heads``); none of that carries over. The Hopper
-kernel (``csrc/flash_fwd.cu``) picks its own tiles and walks K/V with an
-online softmax, so it has no sequence-length ceiling and needs no padding.
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles:
+K1 walks K/V with an online softmax, so it has no sequence-length ceiling
+and needs no padding; K2 splits the backward into a dK/dV pass over key
+tiles and a dQ pass over query tiles, so that no two CTAs write one output.
 
 Layout is the JAX package's: q ``[B, Lq, H*d]``, k/v ``[B, Lk, H*d]``, head
 ``h`` owns columns ``[h*d, (h+1)*d)``. The thirds of a fused qkv projection
 are passed as strided views (row stride ``3*H*d``) without a copy.
 
-Dispatch is by device only: a CPU tensor goes through
-:func:`flash_attention_plain`; a CUDA tensor launches the kernel or raises.
-There is no fallback from the kernel to the plain version.
+Dispatch is by device only: a CPU tensor goes through the plain version; a
+CUDA tensor launches the kernel or raises. There is no fallback from a
+kernel to its plain version. :class:`FlashAttention` (the counterpart of
+``_make_core``'s ``jax.custom_vjp``) runs K1 forward and K2 backward, or,
+with ``impl="plain"``, the plain forward and the plain backward.
 
-The kernel is built from the package's sources with ``nvcc`` at first use,
-into ``build/kernels/`` at the repo root, keyed by a hash of the source and
-flags, and loaded with ``ctypes``: the source has a plain C interface, so
-no PyTorch headers are compiled.
+The kernels are built from the package's sources with ``nvcc`` at first use,
+into ``build/kernels/`` at the repo root, one library per source, all
+sources compiled at once, each keyed by a hash of its source and flags, and
+loaded with ``ctypes``: the sources have a plain C interface, so no PyTorch
+headers are compiled.
 """
 from __future__ import annotations
 
@@ -34,12 +40,14 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
 SUPPORTED_HEAD_DIMS = (32, 40, 48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"flash_fwd": _CSRC / "flash_fwd.cu", "flash_bwd": _CSRC / "flash_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +65,9 @@ class LaunchCounter:
 
 # K1 launches in this process (one per launch, added where it launches)
 launches = LaunchCounter()
+# K2 calls in this process (one per call of the wrapper that launches its
+# two kernels, dK/dV and dQ, added where it launches them)
+bwd_launches = LaunchCounter()
 
 
 @dataclass
@@ -81,39 +92,60 @@ def _find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> KernelLibrary:
-    """Compile ``csrc/flash_fwd.cu`` into ``BUILD_DIR`` (if not already
-    built there) and load it."""
+def build() -> dict[str, KernelLibrary]:
+    """Compile every source of ``SOURCES`` not yet built in ``BUILD_DIR``
+    (one ``nvcc`` process each, all started together) and load them."""
     return _build(BUILD_DIR)
 
 
 @functools.lru_cache(maxsize=None)
-def _build(build_dir: Path) -> KernelLibrary:
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = build_dir / f"flash_fwd_{key}.so"
-    seconds, log = 0.0, ""
-    if not so_path.exists():
-        build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = build_dir / f".flash_fwd_{key}.{os.getpid()}.so"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so_path)  # atomic: a concurrent build sees a whole file
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so_path))
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssl_vit_flash_fwd.argtypes = [
+def _build(build_dir: Path) -> dict[str, KernelLibrary]:
+    jobs = {}
+    for name, source in SOURCES.items():
+        key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        so_path = build_dir / f"{name}_{key}.so"
+        proc = tmp = None
+        if not so_path.exists():
+            build_dir.mkdir(parents=True, exist_ok=True)
+            tmp = build_dir / f".{name}_{key}.{os.getpid()}.so"
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (so_path, tmp, proc, time.perf_counter())
+    libs = {}
+    try:
+        for name, (so_path, tmp, proc, t0) in jobs.items():
+            seconds, log = 0.0, ""
+            if proc is not None:
+                log = proc.communicate()[0]
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(map(str, proc.args))}\n{log}")
+                os.replace(tmp, so_path)  # atomic: a concurrent build sees a whole file
+            libs[name] = KernelLibrary(ctypes.CDLL(str(so_path)), so_path, seconds, log)
+    finally:  # a failed build leaves no compiler running
+        for _, _, proc, _ in jobs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    fwd = libs["flash_fwd"].lib
+    fwd.ssl_vit_flash_fwd.argtypes = [
         i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-        i64, i64, i64, i64, i64, i64, ctypes.c_float, vp]
-    lib.ssl_vit_flash_fwd.restype = i32
-    lib.ssl_vit_cuda_error_string.argtypes = [i32]
-    lib.ssl_vit_cuda_error_string.restype = ctypes.c_char_p
-    return KernelLibrary(lib, so_path, seconds, log)
+        i64, i64, i64, i64, i64, i64, f32, vp]
+    fwd.ssl_vit_flash_fwd.restype = i32
+    fwd.ssl_vit_cuda_error_string.argtypes = [i32]
+    fwd.ssl_vit_cuda_error_string.restype = ctypes.c_char_p
+    bwd = libs["flash_bwd"].lib
+    bwd.ssl_vit_flash_bwd.argtypes = [
+        i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+        i64, i64, i64, i64, i64, i64, i64, i64, f32, vp]
+    bwd.ssl_vit_flash_bwd.restype = i32
+    bwd.ssl_vit_flash_bwd_error_string.argtypes = [i32]
+    bwd.ssl_vit_flash_bwd_error_string.restype = ctypes.c_char_p
+    return libs
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,6 +166,46 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhlm,bmhd->blhd", probs, v.reshape(B, Lk, H, d))
     return out.reshape(B, Lq, HD).to(q.dtype), lse.transpose(1, 2).contiguous()
+
+
+def softmax_grad_rowsum(dout: torch.Tensor, out: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """``D = rowsum(dO * O)`` per head, fp32 ``[B, Lq, H]`` (the XLA op that
+    ``_fa_bwd_impl`` computes before its kernel)."""
+    B, Lq, HD = out.shape
+    return (dout.float() * out.float()).reshape(B, Lq, num_heads, HD // num_heads).sum(-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                              num_heads: int
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K2: the explicit backward formulas in fp32, with ``lse``
+    the logsumexp of the scaled logits (K1's convention):
+    ``P = exp(S - lse)``, ``dP = dO V^T``, ``dS = P * (dP - D)``,
+    ``dQ = dS K scale``, ``dK = dS^T Q scale``, ``dV = P^T dO``.
+
+    Returns ``(dq, dk, dv)`` in the dtypes of ``q, k, v``.
+    """
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    H = num_heads
+    d = HD // H
+    scale = 1.0 / math.sqrt(d)
+    qh = q.reshape(B, Lq, H, d).float()
+    kh = k.reshape(B, Lk, H, d).float()
+    vh = v.reshape(B, Lk, H, d).float()
+    doh = dout.reshape(B, Lq, H, d).float()
+    delta = softmax_grad_rowsum(dout, out, H).transpose(1, 2)[..., None]  # [B, H, Lq, 1]
+    s = torch.einsum("blhd,bmhd->bhlm", qh, kh) * scale
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    dp = torch.einsum("blhd,bmhd->bhlm", doh, vh)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, kh) * scale
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qh) * scale
+    dv = torch.einsum("bhlm,blhd->bmhd", p, doh)
+    return (dq.reshape(B, Lq, HD).to(q.dtype), dk.reshape(B, Lk, HD).to(k.dtype),
+            dv.reshape(B, Lk, HD).to(v.dtype))
 
 
 def _check_kernel_args(q, k, v, num_heads):
@@ -165,6 +237,11 @@ def _check_kernel_args(q, k, v, num_heads):
     return B, Lq, k.shape[1], HD, d
 
 
+def _check_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {t.device}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: ``(out [B, Lq, H*d], lse [B, Lq, H] fp32)`` over packed q/k/v.
@@ -175,14 +252,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
+    _check_cuda(q)
     B, Lq, Lk, HD, d = _check_kernel_args(q, k, v, num_heads)
     out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Lq, num_heads), dtype=torch.float32, device=q.device)
     if Lq == 0 or B == 0:
         return out, lse
-    kl = build()
+    kl = build()["flash_fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = kl.lib.ssl_vit_flash_fwd(
@@ -197,8 +273,86 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           num_heads: int) -> torch.Tensor:
-    """Attention output ``[B, Lq, H*d]`` over packed q/k/v (see module doc)."""
-    return flash_attention_fwd(q, k, v, num_heads)[0]
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                        num_heads: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2: ``(dq, dk, dv)`` in the input dtype, from K1's ``out`` and ``lse``
+    and the output gradient ``dout``.
 
+    CPU tensors go through :func:`flash_attention_bwd_plain`. CUDA tensors
+    launch the kernel's two passes on the current stream; anything the
+    kernel does not take raises.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, num_heads)
+    _check_cuda(q)
+    B, Lq, Lk, HD, d = _check_kernel_args(q, k, v, num_heads)
+    if dout.shape != q.shape or out.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} and out "
+                         f"{tuple(out.shape)} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, Lq, num_heads) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [B, Lq, H] = {(B, Lq, num_heads)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if dout.stride(2) != 1:
+        dout = dout.contiguous()  # autograd may hand an expanded gradient
+    lse = lse.contiguous()
+    delta = softmax_grad_rowsum(dout, out, num_heads)
+    dq = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, HD), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Lk, HD), dtype=v.dtype, device=q.device)
+    if Lq == 0 or B == 0:
+        return dq, dk.zero_(), dv.zero_()
+    kl = build()["flash_bwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = kl.lib.ssl_vit_flash_bwd(
+            _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, num_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+            1.0 / math.sqrt(d), stream)
+    if err != 0:
+        msg = kl.lib.ssl_vit_flash_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_bwd launch failed: {msg} (cudaError {err})")
+    bwd_launches.count += 1
+    return dq, dk, dv
+
+
+IMPLS = ("kernel", "plain")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention over packed q/k/v with its own backward (the counterpart of
+    ``_make_core``'s ``jax.custom_vjp``). Saves q, k, v, out and lse.
+
+    ``impl="kernel"``: K1 forward, K2 backward (their plain versions for CPU
+    tensors). ``impl="plain"``: the plain forward and plain backward on any
+    device.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, impl: str):
+        fwd = flash_attention_plain if impl == "plain" else flash_attention_fwd
+        out, lse = fwd(q, k, v, num_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.impl = num_heads, impl
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if ctx.impl == "plain" else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int, impl: str = "kernel") -> torch.Tensor:
+    """Attention output ``[B, Lq, H*d]`` over packed q/k/v (see module doc),
+    differentiable through :class:`FlashAttention`."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} (expected one of {IMPLS})")
+    return FlashAttention.apply(q, k, v, num_heads, impl)

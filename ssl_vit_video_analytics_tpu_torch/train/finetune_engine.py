@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from ..models.classifier import VideoClassifier
+from ..models.layers import ConvBNAct
 from ..models.mobilevit import MobileViTBackbone
 
 # flax's lecun_normal: truncated normal (+-2 std) rescaled to unit variance
@@ -19,8 +20,8 @@ def build_model(num_classes: int, embed_dim: int, dtype: torch.dtype = torch.flo
     :func:`init_model` for the flax-like seeded init)."""
     if backbone in ("tinyvit", "tinyvit_21m"):
         raise NotImplementedError(
-            f"backbone={backbone!r} is not ported yet: it arrives with the TinyViT "
-            "encoder (ROADMAP queue 1, item 5)")
+            f"backbone={backbone!r} is not ported yet: TinyViTBackbone arrives with "
+            "the finetune path (ROADMAP queue 1, item 9)")
     if backbone not in ("mobilevit_s", "mobilevit"):
         raise ValueError(f"[ERROR] Unknown backbone={backbone}")
     return VideoClassifier(MobileViTBackbone(embed_dim, dtype), num_classes).eval()
@@ -34,18 +35,28 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 @torch.no_grad()
 def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize ``model`` in place as flax initializes the JAX model:
-    lecun-normal conv/dense kernels, zero biases, unit BN/LN scales, BN
-    running mean 0 and variance 1. Draws from ``generator``."""
+    lecun-normal conv/dense kernels, zero biases, unit BN/LN scales (zero BN
+    scale where a ``ConvBNAct`` asks for it: residual MBConvs), BN running
+    mean 0 and variance 1, and ``truncated_normal(0.02)`` (within +-0.04)
+    for the MAE's position embeddings and mask token. Draws from
+    ``generator``."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
             _lecun_normal_(m.weight, fan_in, generator)
         elif isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.weight.shape[1], generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
             if isinstance(m, nn.BatchNorm2d):
                 m.reset_running_stats()
+        for name, p in m.named_parameters(recurse=False):
+            if name in ("temporal_pos_embed", "spatial_pos_embed", "mask_token"):
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+    for m in model.modules():  # after their BatchNorm2d children got scale 1
+        if isinstance(m, ConvBNAct) and m.bn_zero_init:
+            nn.init.zeros_(m.bn.weight)
     return model

@@ -1,0 +1,175 @@
+"""Train state and optimizer (the pipeline-B part of the JAX package's
+``train/state.py``, and the transforms ``train/mae_engine.wrap_accum_and_skip``
+stacks).
+
+The JAX package keeps params, BatchNorm statistics and the optax state in
+one immutable PyTree. Here the model module holds the params (fp32) and the
+BatchNorm statistics (buffers, updated in place by the train-mode forward),
+and an optimizer object holds its own state; :class:`TrainState` ties them
+to the step count. The optimizer stack is optax's, transform by transform:
+
+- :class:`AdamW` is ``optax.chain(clip_by_global_norm?, adamw(schedule))``:
+  one param group, so weight decay falls on EVERY param (BN and LN scales,
+  position embeddings), as optax's ``adamw`` does; the learning rate is the
+  schedule read at the count of updates applied so far (pre-increment), so
+  the first update of a warm-up run has lr 0. ``torch.optim.AdamW`` does
+  the arithmetic: its decoupled decay and ``eps`` outside the square root
+  are optax's math.
+- :class:`ApplyIfFinite` is ``optax.apply_if_finite``: a non-finite gradient
+  leaves params, moments and the count untouched.
+- :class:`MultiSteps` is ``optax.MultiSteps``: the running mean of k
+  gradients goes to the inner transform on every k-th call; params change
+  only then. Unlike optax, whose accumulator keeps a NaN once it has seen
+  one (``(1 - emit) * acc``), the accumulator restarts from zeros after
+  every k-th call, so one non-finite microbatch skips one update, not all
+  later ones.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                           min_lr: float = 0.0) -> Callable[[int], float]:
+    """Linear warmup from 0 then cosine decay to ``min_lr``:
+    ``optax.warmup_cosine_decay_schedule`` with the JAX package's guards."""
+    if warmup_steps >= total_steps:
+        warmup_steps = max(total_steps - 1, 0)
+    warmup_steps = max(warmup_steps, 1)
+    decay_steps = max(total_steps, warmup_steps + 1) - warmup_steps
+    alpha = 0.0 if base_lr == 0.0 else min_lr / base_lr
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return base_lr * min(max(count, 0), warmup_steps) / warmup_steps
+        t = min(count - warmup_steps, decay_steps)
+        return base_lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / decay_steps)) + alpha)
+
+    return schedule
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all entries, fp32, on the device."""
+    return torch.linalg.vector_norm(torch.stack([t.float().norm() for t in tensors]))
+
+
+def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
+    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip)?, adamw(learning_rate,
+    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` over ``params``."""
+
+    def __init__(self, params, learning_rate: float | Callable[[int], float],
+                 weight_decay: float = 0.05, grad_clip: float | None = None):
+        self.params = list(params)
+        self.schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+        self.grad_clip = grad_clip
+        self.count = 0  # updates applied
+        self.opt = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=weight_decay)
+
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        if self.grad_clip is not None and self.grad_clip > 0:
+            norm = global_norm(grads)
+            factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                                 self.grad_clip / norm)
+            grads = [g * factor for g in grads]
+        self.opt.param_groups[0]["lr"] = float(self.schedule(self.count))
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.opt.step()
+        for p in self.params:
+            p.grad = None
+        self.count += 1
+        return True
+
+
+class ApplyIfFinite:
+    """``optax.apply_if_finite(inner, max_consecutive_errors)``."""
+
+    def __init__(self, inner, max_consecutive_errors: int = 10_000):
+        self.inner = inner
+        self.max_consecutive_errors = max_consecutive_errors
+        self.notfinite_count = 0
+        self.total_notfinite = 0
+
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        finite = all_finite(grads)
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        self.total_notfinite += 0 if finite else 1
+        if finite or self.notfinite_count > self.max_consecutive_errors:
+            return self.inner.update(grads)
+        return False
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` with the gradient
+    mean (Welford's running mean, as optax), restarting after each update."""
+
+    def __init__(self, inner, every_k: int):
+        self.inner = inner
+        self.every_k = every_k
+        self.mini_step = 0
+        self.acc: list[torch.Tensor] | None = None
+
+    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+        if self.acc is None:
+            self.acc = [torch.zeros_like(g) for g in grads]
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / (n + 1))
+        if self.mini_step < self.every_k - 1:
+            self.mini_step += 1
+            return False
+        applied = self.inner.update(self.acc)
+        self.mini_step = 0
+        for a in self.acc:
+            a.zero_()
+        return applied
+
+
+def make_optimizer(params, learning_rate: float | Callable[[int], float],
+                   weight_decay: float = 0.05, grad_clip: float | None = None) -> AdamW:
+    """AdamW + opt-in global-norm clip (None: no clipping; pipeline B never
+    clips)."""
+    return AdamW(params, learning_rate, weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+def adamw_of(tx) -> AdamW:
+    """The :class:`AdamW` at the bottom of a wrapped optimizer."""
+    while not isinstance(tx, AdamW):
+        tx = tx.inner
+    return tx
+
+
+@dataclass
+class TrainState:
+    """``step`` counts train-step calls (skipped or not, as the JAX state's
+    ``step``); ``model`` holds params and BatchNorm statistics; ``tx`` is the
+    optimizer over ``model``'s params."""
+    step: int
+    model: nn.Module
+    tx: object
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        return adamw_of(self.tx).params
+
+
+def create_train_state(model: nn.Module, tx) -> TrainState:
+    return TrainState(step=0, model=model, tx=tx)
+
+
+def apply_updates(state: TrainState, grads: Sequence[torch.Tensor]) -> bool:
+    """One optimizer call with ``grads`` (aligned with ``state.params``);
+    the step count always advances. Returns whether params changed."""
+    applied = state.tx.update(grads)
+    state.step += 1
+    return applied

@@ -10,6 +10,10 @@ ported module, given the port module's own ``state_dict`` as a template. The lay
 - Dense kernel ``[I, O]`` -> Linear weight ``[O, I]``
 - BatchNorm ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
   ``running_mean/running_var``; LayerNorm ``scale/bias`` -> ``weight/bias``
+- raw parameters (``temporal_pos_embed``, ``spatial_pos_embed``,
+  ``mask_token``) keep their name and shape
+
+:func:`mae_state_dict_from_flax` does it for a pipeline-B ``TinyVideoMAE``.
 
 Every flax leaf must land on a port tensor of the same shape and every port
 tensor must be filled, or the converter raises. An ``.npz`` of flax leaves
@@ -29,22 +33,31 @@ _FIXED_NAMES = {
     "Conv_0": "conv", "BatchNorm_0": "bn",
     "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
     "MultiHeadAttention_0": "attn", "Mlp_0": "mlp",
-    "Dense_0": "fc1", "Dense_1": "fc2",
+    "Dense_0": "fc1", "Dense_1": "fc2", "SELayer_0": "se",
 }
-_INVERTED_RESIDUAL = ("expand", "dw", "project")
+# numbered flax names -> the port's ModuleLists
+_NUMBERED = (("tblock", "tblocks"), ("mbconv", "mbconvs"), ("block", "blocks"),
+             ("stage", "stages"))
+# the ConvBNAct_i of a module, by how many it has
+_INVERTED_RESIDUAL = ("expand", "dw", "project")  # also TinyViT's MBConv
 _MOBILEVIT_BLOCK = ("local_conv", "local_proj", "fuse_proj", "fuse_conv")
+_PATCH_EMBED = ("conv1", "conv2")
+_RAW_PARAMS = ("temporal_pos_embed", "spatial_pos_embed", "mask_token")
 
 
 def _module_name(name: str, siblings: Mapping) -> str:
     if name in _FIXED_NAMES:
         return _FIXED_NAMES[name]
-    m = re.fullmatch(r"tblock(\d+)", name)
-    if m:
-        return f"tblocks.{m.group(1)}"
+    for flax_prefix, port_list in _NUMBERED:
+        m = re.fullmatch(flax_prefix + r"(\d+)", name)
+        if m:
+            return f"{port_list}.{m.group(1)}"
     m = re.fullmatch(r"ConvBNAct_(\d+)", name)
     if m:
-        # a MobileViT block has four ConvBNActs, an inverted residual three
-        names = _MOBILEVIT_BLOCK if "ConvBNAct_3" in siblings else _INVERTED_RESIDUAL
+        # a MobileViT block has four ConvBNActs, an inverted residual and an
+        # MBConv three, TinyViT's patch embedding two
+        names = (_MOBILEVIT_BLOCK if "ConvBNAct_3" in siblings
+                 else _INVERTED_RESIDUAL if "ConvBNAct_2" in siblings else _PATCH_EMBED)
         return names[int(m.group(1))]
     return name
 
@@ -52,6 +65,8 @@ def _module_name(name: str, siblings: Mapping) -> str:
 def _convert_leaf(collection: str, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if collection == "batch_stats":
         return {"mean": "running_mean", "var": "running_var"}[name], arr
+    if name in _RAW_PARAMS:
+        return name, arr
     if name == "kernel" and arr.ndim == 4:
         return "weight", arr.transpose(3, 2, 0, 1)
     if name == "kernel" and arr.ndim == 2:
@@ -108,6 +123,38 @@ def classifier_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tenso
     embed_dim, num_classes = np.shape(variables["params"]["head"]["kernel"])
     template = build_model(int(num_classes), int(embed_dim)).state_dict()
     return state_dict_from_flax(variables, template)
+
+
+def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``TinyVideoMAE`` variables -> the port's ``state_dict``.
+
+    The widths, depths, clip length and image size are read off the flax
+    tree; head counts do not change any tensor's shape."""
+    from ..models.mae import TinyVideoMAE
+    from ..models.tiny_vit import TinyViT
+
+    params = variables["params"]
+    enc = params["encoder"]
+    dims = [np.shape(enc["patch_embed"]["ConvBNAct_1"]["BatchNorm_0"]["scale"])[0]]
+    depths = []
+    for i in range(3):
+        stage = enc[f"stage{i}"]
+        if i > 0:
+            dims.append(np.shape(stage["down"]["ConvBNAct_2"]["BatchNorm_0"]["scale"])[0])
+        depths.append(sum(1 for n in stage if re.fullmatch(r"(mbconv|tblock)\d+", n)))
+    D = np.shape(params["enc_to_dec"]["kernel"])[1]
+    clip_len = np.shape(params["temporal_pos_embed"])[1]
+    num_patches = np.shape(params["spatial_pos_embed"])[2]
+    patch = int(round((np.shape(params["decoder_pred"]["kernel"])[1] / 3) ** 0.5))
+    encoder = TinyViT(embed_dims=dims, depths=depths, num_heads=(1, 1, 1),
+                      use_checkpoint=False, num_stages=3)
+    model = TinyVideoMAE(encoder, clip_len=int(clip_len),
+                         img_size=int(round(num_patches ** 0.5)) * patch,
+                         patch_size=patch, decoder_embed_dim=int(D),
+                         decoder_depth=sum(1 for n in params["decoder"]
+                                           if re.fullmatch(r"block\d+", n)),
+                         decoder_num_heads=1)
+    return state_dict_from_flax(variables, model.state_dict())
 
 
 def flatten_variables(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:

@@ -53,6 +53,7 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 import ssl_vit_video_analytics_tpu_torch as pkg
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.run_dynamic")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae")
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
@@ -61,6 +62,10 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"entry/train_ssl_mae.py", "models/tiny_vit.py", "models/mae.py",
+            "train/mae_engine.py", "train/state.py", "train/losses.py", "ops/patchify.py",
+            "data/masking.py", "utils/checkpoint.py", "utils/metrics.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
@@ -90,3 +95,22 @@ def test_chip_smoke_slice_config_is_configs_dynamic_yaml():
     for section, values in chip_smoke.DYNAMIC_YAML.items():
         for key, value in values.items():
             assert yml[section][key] == value, (section, key)
+
+
+def test_chip_smoke_pipeline_b_config_is_configs_ssl_mae_yaml():
+    """chip_smoke.py's spelled-out pipeline-B config must stay what
+    configs/ssl_mae.yaml (over configs/base.yaml) says."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    yml = load_yaml(os.path.join(REPO, "configs", "ssl_mae.yaml"))
+    base = load_yaml(os.path.join(REPO, "configs", "base.yaml"))
+    for section, values in chip_smoke.SSL_MAE_YAML.items():
+        assert set(values) == set(yml[section]) - {"train_split", "save_dir"}, section
+        for key, value in values.items():
+            assert yml[section][key] == value, (section, key)
+    assert chip_smoke.BASE_YAML["seed"] == base["seed"]
+    for section in ("device", "dataset"):
+        for key, value in chip_smoke.BASE_YAML[section].items():
+            assert base[section][key] == value, (section, key)
+            assert key not in yml.get(section, {}), (section, key)

@@ -1,14 +1,20 @@
-"""The flash-attention forward kernel (K1) on the card, against its plain
-PyTorch version on the same CUDA tensors.
+"""The flash-attention kernels on the card, forward (K1) and backward (K2),
+against their plain PyTorch versions on the same CUDA tensors, and the
+autograd Function that joins them.
 
 This file imports torch and the port only, so it runs on a machine without
 JAX; the repo's conftest imports JAX, so on the card run it as
 
     python -m pytest tests/test_torch_port_kernel_cuda.py --noconftest -q -p no:cacheprovider
 
-Without a CUDA card every test skips (the kernel has no CPU mode).
-Tolerances: 1e-4 on out and lse in fp32 (TF32 off); 2e-2 in bf16 against
-the plain fp32 attention of the same bf16-rounded inputs.
+Without a CUDA card every test skips (the kernels have no CPU mode).
+Tolerances: K1, 1e-4 on out and lse in fp32 (TF32 off); 2e-2 in bf16 against
+the plain fp32 attention of the same bf16-rounded inputs. K2, the max abs
+error of each gradient over that gradient's max magnitude (but not less
+than 1e-2 of the largest of the three: over a single key dQ and dK are
+zero in exact arithmetic and rounding noise in both versions): 1e-4 in
+fp32 (sums of up to a few hundred fp32 terms in another order); 2e-2 in
+bf16 (one bf16 rounding of the output, 2^-8 relative, plus bf16 out in D).
 """
 import pytest
 import torch
@@ -78,3 +84,82 @@ def test_attention_module_goes_through_the_kernel(dev):
         ref = mha(x)
     assert fa.launches.count == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=5e-2, rtol=0)
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor, scale: float = 0.0) -> float:
+    """Max abs error over the reference's max magnitude, or over ``scale``
+    where that is larger (a gradient that is zero in exact arithmetic, as
+    dQ and dK over a single key, is rounding noise in both versions)."""
+    return float((got.float() - ref).abs().max() / max(float(ref.abs().max()), scale, 1e-30))
+
+
+# ragged Lq and Lk (not multiples of the 64-row tiles or the 32-key tile),
+# Lq != Lk both ways, one-row and one-key edges, every supported head dim
+@pytest.mark.parametrize("B,Lq,Lk,H,d", [
+    (2, 196, 196, 3, 32), (2, 64, 64, 4, 40), (3, 100, 300, 2, 48), (2, 65, 33, 2, 64),
+    (1, 1, 1, 1, 32), (2, 7, 129, 2, 64), (1, 130, 5, 3, 40),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
+    q, k, v = _strided_qkv(dev, B, Lq, Lk, H, d, dtype, seed=1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    dout = torch.randn(B, Lq, H * d, device=dev, generator=g).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, H)
+    before = fa.bwd_launches.count
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, H)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches.count == before + 1
+    refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                        dout.float(), H)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = 1e-2 * max(float(r.abs().max()) for r in refs)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == dtype and got.shape == ref.shape and got.is_contiguous(), name
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, ref, scale) <= tol, (name, _rel_err(got, ref, scale))
+
+
+def test_backward_kernel_refuses_instead_of_falling_back(dev):
+    q, k, v = _strided_qkv(dev, 1, 8, 8, 2, 32, torch.float32)
+    out, lse = fa.flash_attention_fwd(q, k, v, 2)
+    dout = torch.ones_like(out)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half(), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 8, 4, device=dev), dout, 4)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, out, lse.double(), dout, 2)
+    with pytest.raises(ValueError, match="must match q"):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout[:, :4], 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_gradients_flow_through_the_kernels(dev, dtype):
+    """The attention op on CUDA tensors is differentiable: its output has a
+    graph back to q/k/v, and a MultiHeadAttention's input and weights get
+    the gradients of the plain path, through K1 forward and K2 backward."""
+    B, L, H, d = 4, 100, 6, 32
+    qkv = torch.randn(B, L, 3 * H * d, device=dev).to(dtype).requires_grad_(True)
+    hd = H * d
+    out = fa.flash_attention_packed(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], H)
+    assert out.requires_grad
+    out.float().square().sum().backward()
+    assert qkv.grad is not None and qkv.grad.float().abs().max() > 0
+
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(hd, H, dtype=dtype).to(dev)
+    x = torch.randn(B, L, hd, device=dev)
+    grads = {}
+    for impl in ("kernel", "plain"):
+        mha.attn_impl = impl
+        mha.zero_grad()
+        xi = x.clone().requires_grad_(True)
+        before = (fa.launches.count, fa.bwd_launches.count)
+        mha(xi).float().square().mean().backward()
+        counts = (fa.launches.count - before[0], fa.bwd_launches.count - before[1])
+        assert counts == ((1, 1) if impl == "kernel" else (0, 0)), (impl, counts)
+        grads[impl] = [xi.grad] + [p.grad for p in mha.parameters()]
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, ref in zip(grads["kernel"], grads["plain"]):
+        assert got.abs().max() > 0
+        assert _rel_err(got, ref.float()) <= tol

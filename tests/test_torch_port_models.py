@@ -87,10 +87,14 @@ def test_build_model_names_the_roadmap_item_for_unported_backbones():
         teng.build_model(4, 32, backbone="tinyvit")
     with pytest.raises(ValueError, match="Unknown backbone"):
         teng.build_model(4, 32, backbone="resnet")
+    # train mode is ported (pipeline-B slice): batch statistics, and the
+    # running ones move
     model = teng.build_model(4, 32)
     model.train()
-    with pytest.raises(NotImplementedError, match="inference"):
-        model(torch.zeros(1, 1, 32, 32, 3))
+    before = model.backbone.stem.bn.running_mean.clone()
+    logits = model(torch.rand(1, 2, 32, 32, 3))
+    assert logits.shape == (1, 4) and torch.isfinite(logits).all()
+    assert not torch.equal(model.backbone.stem.bn.running_mean, before)
 
 
 def test_init_model_is_seeded():
