@@ -6,18 +6,24 @@
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
-2. build: the flash-attention kernels K1 (forward) and K2 (backward) built
-   from the repo's sources into build/kernels/, one nvcc each, in parallel;
+2. build: every kernel of the port, flash attention K1 (forward) and K2
+   (backward), the depthwise conv P1 and the unary chain P2, built from the
+   repo's sources into build/kernels/, one nvcc each, all in parallel;
    seconds, and registers and spills from ptxas.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
    card, at the serving slice's shapes and at the pipeline-B shapes, in fp32
    (TF32 off, tolerance 1e-4 on out and lse) and in bf16 (against the plain
    fp32 attention of the same bf16-rounded inputs, tolerance 2e-2); the
-   time per call of each.
+   time per call of each, of PyTorch's scaled_dot_product_attention on the
+   same inputs (and which of its backends ran), and the bound: the larger
+   of 4*B*H*Lq*Lk*d flops over the peak (989 TFLOP/s bf16, 67 fp32) and
+   the bytes in and out over 3.35 TB/s.
 4. K2 vs plain: the backward kernel against the plain fp32 backward of the
    same inputs (and K1's out and lse), at the same shapes, in fp32 (max abs
    error of each gradient over its max magnitude, tolerance 1e-4) and bf16
-   (2e-2); the time per call of each.
+   (2e-2); the time per call of each, of the backward of
+   scaled_dot_product_attention (autograd.grad on a retained forward), and
+   the bound with 10*B*H*Lq*Lk*d flops.
 5. train step, kernel vs plain: the full-width TinyVideoMAE (configs/
    ssl_mae.yaml widths) at B=2 clips in fp32, TF32 off, the same weights,
    mask and drop-path decisions through the kernels and through the plain
@@ -35,12 +41,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    runs must be a positive multiple of 6 (3 MobileViT blocks x depth 2). One
    batch is checked against the same weights run in fp32 through the plain
    path on the CPU.
+8. P1 vs plain, and the probe_dw entry: the depthwise kernel against its
+   plain version in fp32 at [2, 56*56, 384] (TF32 off, 1e-5 abs) and in
+   bf16 at 8 images and on the 256 images that the probe's bench times
+   (1e-5 plus one bf16 ulp of the output: the two fp32 sums round once
+   each); then the port's scripts.probe_dw.run(256, "bench"): the kernel's,
+   the plain version's and cuDNN's grouped conv times (forward and input
+   gradient) and the bound.
+9. P2 vs plain, and the probe_exp entry: the unary-chain kernel against its
+   plain version for each op and working type at 896x6272, n = 4 (the
+   remainder loop only), 64 (the main loop only) and 516 (both; the
+   probe's length), fp32 1e-5 of the largest magnitude, bf16 two ulps of
+   each element; then the port's scripts.probe_exp.run(): times at n = 4
+   and 516, the per-application slope against its bound, and the plain
+   version's.
 
-Kernel launch counts are set to 0 just before each path (train, serving) is
-driven and read just after. The line before the last lists the kernels;
-the last line is {"ok": true, "device": {...}}. Without a CUDA card, or
-without the rest of the repo beside this file, it exits non-zero and prints
-no result.
+Every kernel launch count is set to 0 just before each path (train,
+serving, each probe) is driven and read just after. The line before the
+last lists the kernels, each with its launches on every path, its time,
+the plain version's, the library call's and the bound; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
+the repo beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -58,6 +79,12 @@ K1_TPU = "ssl_vit_video_analytics_tpu/ops/flash_attention.py:147"
 K1_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/flash_fwd.cu"
 K2_TPU = "ssl_vit_video_analytics_tpu/ops/flash_attention.py:214"
 K2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/flash_bwd.cu"
+P1_TPU = "scripts/probe_dw.py:31"
+P1_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/dw3x3.cu"
+P2_TPU = "scripts/probe_exp.py:35"
+P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
+PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
+         "probe_exp")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -103,10 +130,39 @@ KERNEL_SHAPES = [
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
+TOL_DW_FP32 = 1e-5                 # abs; bf16: this plus one ulp of the output
+TOL_CHAIN_FP32 = 1e-5              # of the largest magnitude; bf16: two ulps
+CHAIN_CHECK_N = (4, 64, 516)  # probe_exp.LO, 8 trips of its main loop, probe_exp.HI
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def counters() -> dict:
+    """Every kernel's launch counter, by the kernel's name in the last line."""
+    from ssl_vit_video_analytics_tpu_torch.ops import depthwise, unary_chain
+    from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+            "dw3x3": depthwise.launches, "unary_chain": unary_chain.launches}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {name: c.count for name, c in counters().items()}
+
+
+def bf16_ulp(t):
+    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+    import torch
+
+    mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def nvidia_smi_line() -> str:
@@ -116,29 +172,69 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn) -> float:
+    """Milliseconds per call on the card: CUDA events around 20 calls
+    after 3 warm-up calls (the port's probe timer)."""
     import torch
 
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    from ssl_vit_video_analytics_tpu_torch.scripts import time_ms as card_time_ms
+
+    return card_time_ms(fn, torch.device("cuda", 0), iters=20)
+
+
+def heads(t, H: int):
+    """Packed ``[B, L, H*d]`` as the ``[B, H, L, d]`` view that
+    scaled_dot_product_attention takes."""
+    return t.unflatten(-1, (H, t.shape[-1] // H)).transpose(1, 2)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def attention_bound(B, Lq, Lk, H, d, dtype, backward: bool) -> tuple[float, str]:
+    """Least time of one attention call on an H100: 4*B*H*Lq*Lk*d flops
+    forward, 10*... backward, at the bf16 tensor-core or the fp32 peak, or
+    every input read and output written once at 3.35 TB/s (forward: q, k, v
+    in, out and lse out; backward: q, k, v, out, dout and lse in, dq, dk, dv
+    out), whichever is longer."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.scripts import (
+        BF16_TENSOR_FLOP_PER_S, FP32_FLOP_PER_S, bound_ms)
+
+    # bytes of one sequence position of a packed tensor, over the batch
+    row = B * H * d * (2 if dtype == torch.bfloat16 else 4)
+    if backward:
+        flops, moved = 10 * B * H * Lq * Lk * d, (4 * Lq + 4 * Lk) * row
+    else:
+        flops, moved = 4 * B * H * Lq * Lk * d, (2 * Lq + 2 * Lk) * row
+    peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    return bound_ms(moved + B * Lq * H * 4, flops, peak)
+
+
+def summed(rows: list[dict]) -> dict:
+    """Times summed over the pipeline-B shapes; bound_by is that of the
+    largest bound."""
+    out = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms",
+                                                      "bound_ms")}
+    out["bound_by"] = max(rows, key=lambda r: r["bound_ms"])["bound_by"]
+    return out
 
 
 def phase_kernel(fa, dev) -> dict:
     import torch
+    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
-    sums = {"ms": 0.0, "plain_ms": 0.0}
+    train_rows = []
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
         hd = H * d
         # strided thirds of a fused projection, as MultiHeadAttention passes them
@@ -157,23 +253,33 @@ def phase_kernel(fa, dev) -> dict:
                   and err_out <= tol and err_lse <= tol)
             ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, H))
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, H))
+            qh, kh, vh = heads(q, H), heads(k, H), heads(v, H)
+            lib_out = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
+            lib_err = (lib_out.float().flatten(2) - ref_out).abs().max().item()
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=False)
             emit({"phase": "kernel_vs_plain", "shape": name, "B": B, "Lq": Lq, "Lk": Lk,
                   "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
                   "err_out": err_out, "err_lse": err_lse, "tol": tol,
-                  "ms": ms, "plain_ms": plain_ms, "ok": ok})
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "sdpa_backend": sdpa_backend(qh, kh, vh), "library_err_out": lib_err,
+                  "bound_ms": bound[0], "bound_by": bound[1], "ok": ok})
             if not ok:
                 raise AssertionError(f"K1 disagrees with the plain version at {name} "
                                      f"{dtype}: out {err_out}, lse {err_lse} > {tol}")
             max_err = max(max_err, err_out, err_lse)
             if name in TRAIN_SHAPES and dtype == torch.bfloat16:
-                sums["ms"] += ms
-                sums["plain_ms"] += plain_ms
-    return {"max_abs_err": max_err, **sums}
+                train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": bound[0], "bound_by": bound[1]})
+            del lib_out
+    return {"max_abs_err": max_err, **summed(train_rows)}
 
 
-def phase_build(fa) -> dict:
+def phase_build() -> dict:
+    from ssl_vit_video_analytics_tpu_torch.ops import kernel_build
+
     t0 = time.perf_counter()
-    libs = fa.build()
+    libs = kernel_build.build()
     seconds = time.perf_counter() - t0
     out = {"phase": "build", "seconds": seconds}
     for name, kl in libs.items():
@@ -181,16 +287,42 @@ def phase_build(fa) -> dict:
                      "library": os.path.relpath(kl.path, ROOT),
                      "ptxas": ptxas_summary(kl.ptxas_log)}
     emit(out)
+    if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}:
+        raise AssertionError(f"built {sorted(libs)}, not the four kernel sources")
     return out
+
+
+# one mangled template argument: bf16, float, an int, a bool
+_TEMPLATE_ARG = re.compile(r"(1\d__nv_bfloat16)|(f)|Li(\d+)E|Lb([01])E")
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel template instantiation: the
+    length-prefixed identifier ending in ``_kernel`` that opens the
+    template arguments."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        # the length prefix may follow other digits of a hashed namespace
+        lengths = (int(m.group()[i:]) for i in range(len(m.group())))
+        for name in (mangled[m.end():m.end() + n] for n in lengths):
+            rest = mangled[m.end() + len(name):]
+            if name.endswith("_kernel") and rest.startswith("I"):
+                break
+        else:
+            continue
+        args = re.match(r"I(\w*?)EE", rest)
+        parts = ["bf16" if bf16 else "f32" if f else i if i else b
+                 for bf16, f, i, b in _TEMPLATE_ARG.findall(args.group(1) + "E")]
+        return f"{name}<{','.join(parts)}>"
+    return mangled
 
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel instantiation: registers, spill stores/loads."""
     rows, kernel = [], "?"
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_\w+?_kernel)I(\w+?)Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = f"{m.group(1)}<{'bf16' if 'bfloat16' in m.group(2) else 'f32'},{m.group(3)}>"
+            kernel = kernel_label(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             rows.append(f"{kernel}: spill {m.group(1)}/{m.group(2)}")
@@ -207,12 +339,13 @@ def rel_err(got, ref) -> float:
 
 def phase_backward(fa, dev) -> dict:
     import torch
+    import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(1)
     max_abs, max_rel = 0.0, 0.0
-    sums = {"ms": 0.0, "plain_ms": 0.0}
+    train_rows = []
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
         hd = H * d
         qkv = torch.randn(B, Lq, 3 * hd, device=dev, generator=g)
@@ -233,19 +366,30 @@ def phase_backward(fa, dev) -> dict:
                   and all(a.shape == b.shape and a.dtype == dtype for a, b in zip(grads, refs)))
             ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout, H))
             plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, H))
+            # the library's backward, on a forward retained for it
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            views = [heads(t, H) for t in leaves]
+            lib_out = F.scaled_dot_product_attention(*views)
+            dout_h = heads(dout, H)
+            library_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_h,
+                                                             retain_graph=True))
+            backend = sdpa_backend(*views)
+            bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=True)
             emit({"phase": "k2_vs_plain", "shape": name, "B": B, "Lq": Lq, "Lk": Lk,
                   "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
                   "rel_err": errs, "max_abs_err": abs_err, "tol": tol,
-                  "ms": ms, "plain_ms": plain_ms, "ok": ok})
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "sdpa_backend": backend, "bound_ms": bound[0], "bound_by": bound[1],
+                  "ok": ok})
             if not ok:
                 raise AssertionError(f"K2 disagrees with the plain backward at {name} "
                                      f"{dtype}: {errs} > {tol}")
             max_abs, max_rel = max(max_abs, abs_err), max(max_rel, *errs.values())
             if name in TRAIN_SHAPES and dtype == torch.bfloat16:
-                sums["ms"] += ms
-                sums["plain_ms"] += plain_ms
-            del grads, refs
-    return {"max_abs_err": max_abs, "max_rel_err": max_rel, **sums}
+                train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                                   "bound_ms": bound[0], "bound_by": bound[1]})
+            del grads, refs, lib_out, leaves, views
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
 
 
 def ssl_mae_cfg(split: str, save_dir: str) -> dict:
@@ -366,6 +510,9 @@ def phase_train(fa, dev) -> dict:
             now = time.perf_counter()
             count = adamw_of(state.tx).count
             due = i % k == 0
+            launched = read_counts()
+            for name, n in launched.items():
+                totals[name] += n
             steps.append({"step": i, "includes_setup": i == 1,
                           "loss": float(metrics["loss"]),
                           "gnorm": float(metrics["grad_norm"]),
@@ -374,25 +521,27 @@ def phase_train(fa, dev) -> dict:
                           "step_ms": 1e3 * (now - last["t"]),
                           "clips_per_s": B / (now - last["t"]),
                           "model_tflop_per_s": flops_per_clip * B / (now - last["t"]) / 1e12,
-                          "k1_calls": fa.launches.count, "k2_calls": fa.bwd_launches.count,
+                          "k1_calls": launched["flash_attention_fwd"],
+                          "k2_calls": launched["flash_attention_bwd"],
                           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
             emit({"phase": "train_step", **steps[-1]})
             final["model"], final["count"] = state.model, count
-            fa.launches.reset()
-            fa.bwd_launches.reset()
+            reset_counts()
             torch.cuda.reset_peak_memory_stats()
             last["count"] = count
             last["t"] = time.perf_counter()
 
         torch.cuda.reset_peak_memory_stats()
         lines = []
-        fa.launches.reset()
-        fa.bwd_launches.reset()
+        totals = dict.fromkeys(counters(), 0)
+        reset_counts()
         last["t"] = t0 = time.perf_counter()
         out = train_ssl_mae.run(cfg, log=lines.append, max_steps=TRAIN_STEPS,
                                 on_step=on_step)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        for name, n in read_counts().items():  # anything after the last step
+            totals[name] += n
     finite = all(bool(torch.isfinite(p).all()) for p in final["model"].parameters())
     summary = {"phase": "train", "steps": out["steps"], "seconds": seconds,
                "last_loss": out["last_loss"], "updates_applied": final["count"],
@@ -404,7 +553,7 @@ def phase_train(fa, dev) -> dict:
         raise AssertionError(f"train: {out['steps']} steps; kernel calls off in {bad}")
     if not (finite and final["count"] >= 1 and all(math.isfinite(s["loss"]) for s in steps)):
         raise AssertionError(f"train: non-finite result or no update applied: {summary}")
-    return {"k1": sum(s["k1_calls"] for s in steps), "k2": sum(s["k2_calls"] for s in steps)}
+    return totals
 
 
 def slice_cfg(split: str, save_dir: str, impl: str) -> dict:
@@ -455,19 +604,20 @@ def phase_slice(fa, dev) -> dict:
         rows_by_impl = {}
         for impl in ("streaming", "batched"):
             cfg = slice_cfg(splits["val"], os.path.join(tmp, f"out_{impl}"), impl)
-            fa.launches.reset()
+            reset_counts()
             t0 = time.perf_counter()
             out = run_dynamic.run(cfg, mode="early_exit", log=lambda m: None)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches[impl] = fa.launches.count
+            launches[impl] = read_counts()
+            k1 = launches[impl]["flash_attention_fwd"]
             rows = out["rows"]
             check_rows(rows, impl)
-            if launches[impl] <= 0 or launches[impl] % 6:
-                raise AssertionError(f"{impl}: K1 launched {launches[impl]} times, "
+            if k1 <= 0 or k1 % 6:
+                raise AssertionError(f"{impl}: K1 launched {k1} times, "
                                      "not a positive multiple of 6")
             rows_by_impl[impl] = rows
-            emit({"phase": "slice", "impl": impl, "k1_launches": launches[impl],
+            emit({"phase": "slice", "impl": impl, "k1_launches": k1,
                   "seconds": seconds,
                   "avg_latency_ms": {r["threshold"]: float(r["avg_latency_ms"]) for r in rows},
                   "avg_frames": {r["threshold"]: float(r["avg_frames"]) for r in rows},
@@ -520,6 +670,106 @@ def phase_slice(fa, dev) -> dict:
     return launches
 
 
+def phase_dw(dev) -> dict:
+    """P1 against its plain version, then the probe_dw entry point."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.ops import depthwise
+    from ssl_vit_video_analytics_tpu_torch.scripts import probe_dw
+
+    torch.backends.cudnn.allow_tf32 = False
+    H, W = probe_dw.H, probe_dw.W
+    max_err = 0.0
+    # the check shape, a small bf16 batch, and the inputs that
+    # probe_dw.run(256, "bench") times (seed 0)
+    for dtype, N, seed in ((torch.float32, 2, 1), (torch.bfloat16, 8, 1),
+                           (torch.bfloat16, 256, 0)):
+        x, w = probe_dw.inputs(N, dtype, dev, seed=seed)
+        out = depthwise.dw3x3(x, w, H, W)
+        torch.cuda.synchronize()
+        ref = depthwise.dw3x3_plain(x, w, H, W)
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        tol = TOL_DW_FP32
+        if dtype == torch.bfloat16:  # each fp32 sum rounds once to bf16
+            tol = tol + bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
+        ok = out.shape == ref.shape and out.dtype == dtype and bool((diff <= tol).all())
+        emit({"phase": "p1_vs_plain", "N": N, "seed": seed, "H": H, "W": W, "C": probe_dw.C,
+              "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+              "elements_differing": int((diff > 0).sum()),
+              "tol": TOL_DW_FP32 if dtype == torch.float32 else "1e-5 + one bf16 ulp",
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"P1 disagrees with the plain version in {dtype} at "
+                                 f"N={N}: {err}")
+        max_err = max(max_err, err)
+        del x, out, ref, diff, tol
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    rows = probe_dw.run(256, "bench", dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    launched = read_counts()
+    for row in rows:
+        emit({"phase": "probe_dw", **row})
+    if launched["dw3x3"] <= 0:
+        raise AssertionError(f"probe_dw did not launch P1: {launched}")
+    by = {r["name"]: r for r in rows}
+    kern = by["dw3x3 fwd"]
+    return {"launched": launched, "max_abs_err": max_err, "ms": kern["ms"],
+            "plain_ms": by["plain shifted-sum fwd"]["ms"],
+            "library_ms": by["cudnn grouped conv fwd"]["ms"],
+            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"]}
+
+
+def phase_chain(dev) -> dict:
+    """P2 against its plain version, then the probe_exp entry point."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.ops import unary_chain as uc
+    from ssl_vit_video_analytics_tpu_torch.scripts import probe_exp
+
+    x = probe_exp.block(probe_exp.ROWS, probe_exp.LANES, dev)
+    max_err = 0.0
+    for op in uc.OPS:
+        for dtype in uc.DTYPES:
+            for n in CHAIN_CHECK_N:
+                out = uc.unary_chain(x, n, dtype, op)
+                torch.cuda.synchronize()
+                ref = uc.unary_chain_plain(x, n, dtype, op)
+                diff = (out - ref).abs()
+                err = float(diff.max())
+                if dtype == torch.float32:
+                    ok = err <= TOL_CHAIN_FP32 * float(ref.abs().max())
+                else:
+                    ok = bool((diff <= 2 * bf16_ulp(ref)).all())
+                ok = ok and bool(torch.isfinite(out).all()) and out.shape == x.shape
+                emit({"phase": "p2_vs_plain", "op": op,
+                      "dtype": str(dtype).replace("torch.", ""), "n": n,
+                      "max_abs_err": err, "ref_max_abs": float(ref.abs().max()),
+                      "elements_differing": int((diff > 0).sum()), "ok": ok})
+                if not ok:
+                    raise AssertionError(f"P2 disagrees with the plain version: {op} "
+                                         f"{dtype} n={n}: {err}")
+                max_err = max(max_err, err)
+
+    reset_counts()
+    rows = probe_exp.run(device=dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    launched = read_counts()
+    for row in rows:
+        emit({"phase": "probe_exp", **row})
+    if launched["unary_chain"] <= 0:
+        raise AssertionError(f"probe_exp did not launch P2: {launched}")
+    if not all(math.isfinite(r["per_application_ms"]) and r["t_hi_ms"] > r["t_lo_ms"]
+               for r in rows):
+        raise AssertionError("probe_exp: the time does not grow with the chain's length")
+    return {"launched": launched, "max_abs_err": max_err,
+            "ms": sum(r["t_hi_ms"] for r in rows),
+            "plain_ms": sum(r["plain_t_hi_ms"] for r in rows),
+            "bound_ms": sum(r["bound_hi_ms"] for r in rows)}
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     import torch
@@ -537,29 +787,46 @@ def main() -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
-    phase_build(fa)
+    phase_build()
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
     phase_train_step(fa, dev)
-    train = phase_train(fa, dev)
+    paths = {"train_ssl_mae": phase_train(fa, dev)}
     serving = phase_slice(fa, dev)
+    paths["run_dynamic_streaming"] = serving["streaming"]
+    paths["run_dynamic_batched"] = serving["batched"]
+    p1 = phase_dw(dev)
+    paths["probe_dw"] = p1.pop("launched")
+    p2 = phase_chain(dev)
+    paths["probe_exp"] = p2.pop("launched")
+
+    def by_path(kernel: str) -> dict:
+        return {path: paths[path][kernel] for path in PATHS}
 
     ms_is = ("sum over the pipeline-B shapes (tinyvit_stage1, tinyvit_stage2, "
-             "mae_decoder) in bf16, one call each")
+             "mae_decoder) in bf16, one call each; library: "
+             "torch.nn.functional.scaled_dot_product_attention")
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_TPU, "launches": train["k1"],
-         "launches_by_path": {"train_ssl_mae": train["k1"],
-                              "run_dynamic_streaming": serving["streaming"],
-                              "run_dynamic_batched": serving["batched"]},
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "ms_is": ms_is},
+         "replaces": K1_TPU, "launches": paths["train_ssl_mae"]["flash_attention_fwd"],
+         "launches_by_path": by_path("flash_attention_fwd"), **k1, "ms_is": ms_is},
         {"name": "flash_attention_bwd", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_TPU, "launches": train["k2"],
+         "replaces": K2_TPU, "launches": paths["train_ssl_mae"]["flash_attention_bwd"],
          "launches_is": "calls, each launching the dK/dV and the dQ kernel",
-         "max_abs_err": k2["max_abs_err"], "max_rel_err": k2["max_rel_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "ms_is": ms_is},
+         "launches_by_path": by_path("flash_attention_bwd"), **k2,
+         "ms_is": ms_is + " (backward, autograd.grad)"},
+        {"name": "dw3x3", "route": "cuda", "source": P1_SOURCE, "replaces": P1_TPU,
+         "launches": paths["probe_dw"]["dw3x3"], "launches_by_path": by_path("dw3x3"),
+         **p1, "ms_is": "bf16 [256, 56*56, 384], one call; library: cuDNN grouped "
+                        "conv2d forward on a channels-last view"},
+        {"name": "unary_chain", "route": "cuda", "source": P2_SOURCE, "replaces": P2_TPU,
+         "launches": paths["probe_exp"]["unary_chain"],
+         "launches_by_path": by_path("unary_chain"), **p2, "library_ms": None,
+         "bound_by": "operations",
+         "ms_is": "sum over the 4 ops x 2 working types of one call at n = 516 on "
+                  "896x6272; library: none, no single PyTorch call applies an n-step "
+                  "chain"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -2,9 +2,12 @@
 ``ssl_vit_video_analytics_tpu``, for NVIDIA Hopper (H100).
 
 Subpackages mirror the JAX package (``data``, ``ops``, ``models``, ``train``,
-``entry``, ``utils``); the counterpart of a JAX module sits at the same
-relative path. The port imports torch and numpy, never jax. Ported so far:
-the early-exit serving path of the MobileViT-S video classifier
-(``entry/run_dynamic.py``), with the flash-attention forward as a CUDA
-kernel (``ops/csrc/flash_fwd.cu``).
+``entry``, ``utils``, and ``scripts`` for the repo's probe scripts); the
+counterpart of a JAX module sits at the same relative path. The port
+imports torch and numpy, never jax. Ported so far: the early-exit serving
+path of the MobileViT-S video classifier (``entry/run_dynamic.py``),
+pipeline-B VideoMAE pretraining (``entry/train_ssl_mae.py``) and the two
+kernel probes (``scripts/probe_dw.py``, ``scripts/probe_exp.py``). Every
+Pallas kernel of the JAX package has a CUDA counterpart under
+``ops/csrc/``, built by ``ops/kernel_build.py``.
 """

@@ -20,132 +20,29 @@ kernel to its plain version. :class:`FlashAttention` (the counterpart of
 ``_make_core``'s ``jax.custom_vjp``) runs K1 forward and K2 backward, or,
 with ``impl="plain"``, the plain forward and the plain backward.
 
-The kernels are built from the package's sources with ``nvcc`` at first use,
-into ``build/kernels/`` at the repo root, one library per source, all
-sources compiled at once, each keyed by a hash of its source and flags, and
-loaded with ``ctypes``: the sources have a plain C interface, so no PyTorch
-headers are compiled.
+The kernels are built by :mod:`.kernel_build` at first use, with every other
+kernel source of the port, into ``build/kernels/`` at the repo root, and
+loaded with ``ctypes``.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import kernel_build
+from .kernel_build import LaunchCounter
+
 SUPPORTED_HEAD_DIMS = (32, 40, 48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_fwd": _CSRC / "flash_fwd.cu", "flash_bwd": _CSRC / "flash_bwd.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-class LaunchCounter:
-    """Counts kernel launches; ``count`` is a plain int."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
 
 # K1 launches in this process (one per launch, added where it launches)
 launches = LaunchCounter()
 # K2 calls in this process (one per call of the wrapper that launches its
 # two kernels, dK/dV and dQ, added where it launches them)
 bwd_launches = LaunchCounter()
-
-
-@dataclass
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float  # 0.0 when the library was already built
-    ptxas_log: str        # nvcc's -Xptxas -v report (empty when cached)
-
-
-def _find_nvcc() -> str:
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        root = os.environ.get(env)
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> dict[str, KernelLibrary]:
-    """Compile every source of ``SOURCES`` not yet built in ``BUILD_DIR``
-    (one ``nvcc`` process each, all started together) and load them."""
-    return _build(BUILD_DIR)
-
-
-@functools.lru_cache(maxsize=None)
-def _build(build_dir: Path) -> dict[str, KernelLibrary]:
-    jobs = {}
-    for name, source in SOURCES.items():
-        key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so_path = build_dir / f"{name}_{key}.so"
-        proc = tmp = None
-        if not so_path.exists():
-            build_dir.mkdir(parents=True, exist_ok=True)
-            tmp = build_dir / f".{name}_{key}.{os.getpid()}.so"
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (so_path, tmp, proc, time.perf_counter())
-    libs = {}
-    try:
-        for name, (so_path, tmp, proc, t0) in jobs.items():
-            seconds, log = 0.0, ""
-            if proc is not None:
-                log = proc.communicate()[0]
-                seconds = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                                       f"{' '.join(map(str, proc.args))}\n{log}")
-                os.replace(tmp, so_path)  # atomic: a concurrent build sees a whole file
-            libs[name] = KernelLibrary(ctypes.CDLL(str(so_path)), so_path, seconds, log)
-    finally:  # a failed build leaves no compiler running
-        for _, _, proc, _ in jobs.values():
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    fwd = libs["flash_fwd"].lib
-    fwd.ssl_vit_flash_fwd.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-        i64, i64, i64, i64, i64, i64, f32, vp]
-    fwd.ssl_vit_flash_fwd.restype = i32
-    fwd.ssl_vit_cuda_error_string.argtypes = [i32]
-    fwd.ssl_vit_cuda_error_string.restype = ctypes.c_char_p
-    bwd = libs["flash_bwd"].lib
-    bwd.ssl_vit_flash_bwd.argtypes = [
-        i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-        i64, i64, i64, i64, i64, i64, i64, i64, f32, vp]
-    bwd.ssl_vit_flash_bwd.restype = i32
-    bwd.ssl_vit_flash_bwd_error_string.argtypes = [i32]
-    bwd.ssl_vit_flash_bwd_error_string.restype = ctypes.c_char_p
-    return libs
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -258,16 +155,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, Lq, num_heads), dtype=torch.float32, device=q.device)
     if Lq == 0 or B == 0:
         return out, lse
-    kl = build()["flash_fwd"]
+    lib = kernel_build.build()["flash_fwd"].lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = kl.lib.ssl_vit_flash_fwd(
+        err = lib.ssl_vit_flash_fwd(
             _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, Lq, Lk, num_heads,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), 1.0 / math.sqrt(d), stream)
     if err != 0:
-        msg = kl.lib.ssl_vit_cuda_error_string(err).decode()
+        msg = lib.ssl_vit_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_fwd launch failed: {msg} (cudaError {err})")
     launches.count += 1
     return out, lse
@@ -303,10 +200,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty((B, Lk, HD), dtype=v.dtype, device=q.device)
     if Lq == 0 or B == 0:
         return dq, dk.zero_(), dv.zero_()
-    kl = build()["flash_bwd"]
+    lib = kernel_build.build()["flash_bwd"].lib
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = kl.lib.ssl_vit_flash_bwd(
+        err = lib.ssl_vit_flash_bwd(
             _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, num_heads,
@@ -314,7 +211,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
             1.0 / math.sqrt(d), stream)
     if err != 0:
-        msg = kl.lib.ssl_vit_flash_bwd_error_string(err).decode()
+        msg = lib.ssl_vit_flash_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_bwd launch failed: {msg} (cudaError {err})")
     bwd_launches.count += 1
     return dq, dk, dv

@@ -1,0 +1,134 @@
+"""Compiles and loads every CUDA source of the port.
+
+:data:`LIBRARIES` lists every kernel library of the port: its source
+under ``csrc/`` and the C functions its wrapper calls, with their
+``ctypes`` signatures. :func:`build` compiles every source that is not yet
+built, one ``nvcc`` process per source, all started together, into
+``build/kernels/`` at the repo root (git-ignored), each library keyed by a
+hash of its source and flags, and loads them with ``ctypes``: the sources
+have a plain C interface, so no PyTorch headers are compiled. A failed
+``nvcc`` raises and leaves no compiler running.
+
+Nothing here runs at import: the CPU path of every wrapper takes the plain
+version and never calls :func:`build`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_ERROR_STRING = ([_i32], ctypes.c_char_p)
+# name -> (source under csrc/, {C function: (argtypes, restype)})
+LIBRARIES: dict[str, tuple[str, dict[str, tuple[list, object]]]] = {
+    "flash_fwd": ("flash_fwd.cu", {
+        "ssl_vit_flash_fwd": ([_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                               _i64, _i64, _i64, _i64, _i64, _i64, _f32, _vp], _i32),
+        "ssl_vit_cuda_error_string": _ERROR_STRING}),
+    "flash_bwd": ("flash_bwd.cu", {
+        "ssl_vit_flash_bwd": ([_i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                               _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i64, _i64,
+                               _i64, _i64, _f32, _vp], _i32),
+        "ssl_vit_flash_bwd_error_string": _ERROR_STRING}),
+    "dw3x3": ("dw3x3.cu", {
+        "ssl_vit_dw3x3": ([_i32, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp], _i32),
+        "ssl_vit_dw3x3_error_string": _ERROR_STRING}),
+    "unary_chain": ("unary_chain.cu", {
+        "ssl_vit_unary_chain": ([_i32, _i32, _vp, _vp, _i64, _i32, _vp], _i32),
+        "ssl_vit_unary_chain_error_string": _ERROR_STRING}),
+}
+
+
+class LaunchCounter:
+    """Counts kernel launches; ``count`` is a plain int."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+@dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when the library was already built
+    ptxas_log: str        # nvcc's -Xptxas -v report (empty when cached)
+
+
+def sources() -> dict[str, Path]:
+    """Every kernel source of the port, by library name."""
+    return {name: CSRC / source for name, (source, _) in LIBRARIES.items()}
+
+
+def build() -> dict[str, KernelLibrary]:
+    """Compile every source not yet built in ``BUILD_DIR`` (one ``nvcc``
+    process each, all started together) and load them, with their
+    signatures set."""
+    return _build(BUILD_DIR)
+
+
+def find_nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+@functools.lru_cache(maxsize=None)
+def _build(build_dir: Path) -> dict[str, KernelLibrary]:
+    jobs = {}
+    try:
+        for name, source in sources().items():
+            key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                                 ).hexdigest()[:16]
+            so_path = build_dir / f"{name}_{key}.so"
+            proc = tmp = None
+            if not so_path.exists():
+                build_dir.mkdir(parents=True, exist_ok=True)
+                tmp = build_dir / f".{name}_{key}.{os.getpid()}.so"
+                cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (so_path, tmp, proc, time.perf_counter())
+        libs = {}
+        for name, (so_path, tmp, proc, t0) in jobs.items():
+            seconds, log = 0.0, ""
+            if proc is not None:
+                log = proc.communicate()[0]
+                seconds = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(map(str, proc.args))}\n{log}")
+                os.replace(tmp, so_path)  # atomic: a concurrent build sees a whole file
+            lib = ctypes.CDLL(str(so_path))
+            for fn, (argtypes, restype) in LIBRARIES[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            libs[name] = KernelLibrary(lib, so_path, seconds, log)
+    finally:  # a failed build leaves no compiler running
+        for _, _, proc, _ in jobs.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs

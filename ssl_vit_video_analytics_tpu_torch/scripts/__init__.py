@@ -1,0 +1,50 @@
+"""Probe entry points of the port: the counterparts of the JAX package's
+Pallas microbenchmarks ``scripts/probe_dw.py`` (P1) and
+``scripts/probe_exp.py`` (P2), each driving its Hopper kernel.
+
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_dw [BT] [check|bench|all]
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_exp
+
+Both run on ``cuda`` unless ``--device cpu`` is given; on the CPU the
+kernels' plain versions run and the times are the CPU's.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+# H100 SXM data-sheet rates, for the least time the card could take
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12
+
+
+def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 10,
+            warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` after ``warmup`` calls: CUDA
+    events around ``iters`` calls on a card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(stop) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and ops over the peak rate,
+    in ms, and which of the two it is (``"bytes"`` or ``"operations"``)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

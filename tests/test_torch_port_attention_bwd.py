@@ -18,6 +18,7 @@ from ssl_vit_video_analytics_tpu.ops.flash_attention import (
     flash_attention_packed as jax_flash_packed)
 from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
 from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+from ssl_vit_video_analytics_tpu_torch.ops import kernel_build
 from ssl_vit_video_analytics_tpu_torch.ops.attention import attention_packed
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -73,7 +74,7 @@ def test_function_carries_gradients_on_cpu(impl, tmp_path, monkeypatch):
     def no_build(*_):
         raise AssertionError("the CPU path must not build a kernel")
 
-    monkeypatch.setattr(fa, "_build", no_build)
+    monkeypatch.setattr(kernel_build, "_build", no_build)
     B, L, H, d = 2, 37, 4, 40
     rng = np.random.default_rng(11)
     qkv = torch.from_numpy(rng.standard_normal((B, L, 3 * H * d), dtype=np.float32))

@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX-family package and not the JAX
-package, and its kernel wrapper stays off the build directory for CPU
-tensors."""
+package, its kernel wrappers stay off the build directory for CPU tensors,
+and chip_smoke.py holds to the configs and reads every kernel's build
+report."""
 import ast
 import importlib.util
 import json
@@ -9,8 +10,10 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
 
+from ssl_vit_video_analytics_tpu_torch.ops import depthwise, kernel_build, unary_chain
 from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
 from ssl_vit_video_analytics_tpu_torch.utils.config import load_yaml
 
@@ -65,15 +68,17 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
     walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"entry/train_ssl_mae.py", "models/tiny_vit.py", "models/mae.py",
             "train/mae_engine.py", "train/state.py", "train/losses.py", "ops/patchify.py",
-            "data/masking.py", "utils/checkpoint.py", "utils/metrics.py"} <= walked
+            "data/masking.py", "utils/checkpoint.py", "utils/metrics.py",
+            "ops/kernel_build.py", "ops/depthwise.py", "ops/unary_chain.py",
+            "scripts/__init__.py", "scripts/probe_dw.py", "scripts/probe_exp.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
     def no_build(*_):
         raise AssertionError("the CPU path must not build the kernel")
 
-    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path / "build" / "kernels")
-    monkeypatch.setattr(fa, "_build", no_build)
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build" / "kernels")
+    monkeypatch.setattr(kernel_build, "_build", no_build)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 10, 64, generator=g) for _ in range(3))
     before = fa.launches.count
@@ -83,6 +88,42 @@ def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatc
     torch.testing.assert_close(lse, ref_lse, atol=0, rtol=0)
     assert fa.launches.count == before
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("wrapper", ["dw3x3", "unary_chain"])
+def test_probe_wrappers_on_cpu_run_plain_versions_without_building(wrapper, tmp_path,
+                                                                   monkeypatch):
+    def no_build(*_):
+        raise AssertionError("the CPU path must not build a kernel")
+
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build" / "kernels")
+    monkeypatch.setattr(kernel_build, "_build", no_build)
+    g = torch.Generator().manual_seed(0)
+    if wrapper == "dw3x3":
+        module = depthwise
+        x, w = torch.randn(2, 6 * 4, 8, generator=g), torch.randn(9, 8, generator=g)
+        before = module.launches.count
+        got, ref = depthwise.dw3x3(x, w, 6, 4), depthwise.dw3x3_plain(x, w, 6, 4)
+    else:
+        module = unary_chain
+        x = torch.randn(3, 50, generator=g)
+        before = module.launches.count
+        got = unary_chain.unary_chain(x, 7, torch.bfloat16, "gelu")
+        ref = unary_chain.unary_chain_plain(x, 7, torch.bfloat16, "gelu")
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    assert module.launches.count == before
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_build_registers_every_kernel_source():
+    """kernel_build compiles the four kernel sources of the port in one
+    batch, each listed with the C functions its wrapper calls."""
+    sources = kernel_build.sources()
+    assert set(sources) == {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}
+    for name, path in sources.items():
+        assert path.is_file() and path.parent == PORT / "ops" / "csrc", name
+    assert set(kernel_build.LIBRARIES) == set(sources)
+    assert kernel_build.BUILD_DIR == REPO / "build" / "kernels"
 
 
 def test_chip_smoke_slice_config_is_configs_dynamic_yaml():
@@ -114,3 +155,28 @@ def test_chip_smoke_pipeline_b_config_is_configs_ssl_mae_yaml():
         for key, value in chip_smoke.BASE_YAML[section].items():
             assert base[section][key] == value, (section, key)
             assert key not in yml.get(section, {}), (section, key)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__14de2811_12_flash_fwd_cu_83a852c716flash_fwd_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_PS2_Pfiiillllllf' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 252 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__80ed528a_8_dw3x3_cu_04ec13aa12dw3x3_kernelIfLi4EEEvPKT_PKfPS1_iiil' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__cb8c47d3_14_unary_chain_cu_a68193f618unary_chain_kernelILi2ELb1EEEvPKfPfli' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_chip_smoke_reads_every_kernels_ptxas_report():
+    """The build phase names each kernel instantiation of the four sources
+    (nvcc hashes the anonymous namespace into the mangled name)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.ptxas_summary(PTXAS_LOG) == [
+        "flash_fwd_kernel<bf16,64>: spill 0/0, 252 regs",
+        "dw3x3_kernel<f32,4>: spill 8/4, 30 regs",
+        "unary_chain_kernel<2,1>: spill 0/0, 32 regs"]

@@ -1,6 +1,7 @@
-"""The flash-attention kernels on the card, forward (K1) and backward (K2),
-against their plain PyTorch versions on the same CUDA tensors, and the
-autograd Function that joins them.
+"""The kernels on the card against their plain PyTorch versions on the same
+CUDA tensors: flash attention forward (K1) and backward (K2) and the
+autograd Function that joins them, the 3x3 depthwise conv (P1) and the
+unary chain (P2).
 
 This file imports torch and the port only, so it runs on a machine without
 JAX; the repo's conftest imports JAX, so on the card run it as
@@ -15,12 +16,19 @@ than 1e-2 of the largest of the three: over a single key dQ and dK are
 zero in exact arithmetic and rounding noise in both versions): 1e-4 in
 fp32 (sums of up to a few hundred fp32 terms in another order); 2e-2 in
 bf16 (one bf16 rounding of the output, 2^-8 relative, plus bf16 out in D).
+P1, 1e-5 abs in fp32 (nine terms, FMA against multiply-add); in bf16 the
+same 1e-5 plus one bf16 ulp of the output (each rounds its fp32 sum once,
+and a sum that cancels to near zero has ulps far below 1e-5). P2, 1e-5 of the
+output's largest magnitude in fp32 (the kernel fuses the FMA op); two bf16
+ulps of each element in bf16 (both round at every elementary operation).
 """
 import pytest
 import torch
 
 from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
+from ssl_vit_video_analytics_tpu_torch.ops import depthwise
 from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+from ssl_vit_video_analytics_tpu_torch.ops import unary_chain as uc
 
 pytestmark = pytest.mark.cuda
 
@@ -163,3 +171,85 @@ def test_attention_gradients_flow_through_the_kernels(dev, dtype):
     for got, ref in zip(grads["kernel"], grads["plain"]):
         assert got.abs().max() > 0
         assert _rel_err(got, ref.float()) <= tol
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+    mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# the probe's image, a non-square one, one pixel, a ragged channel count
+@pytest.mark.parametrize("N,H,W,C", [(2, 56, 56, 384), (3, 7, 5, 16), (1, 1, 1, 8),
+                                     (2, 3, 9, 24)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_matches_plain(dev, N, H, W, C, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(N, H * W, C, device=dev, generator=g).to(dtype)
+    w = torch.randn(9, C, device=dev, generator=g)
+    before = depthwise.launches.count
+    out = depthwise.dw3x3(x, w, H, W)
+    torch.cuda.synchronize()
+    assert depthwise.launches.count == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = depthwise.dw3x3_plain(x, w, H, W)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        # the fp32 sums differ by at most the fp32 tolerance before each
+        # rounds to the nearest bf16; one ulp of the larger of the two
+        ulp = _bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
+        assert ((out.float() - ref.float()).abs() <= 1e-5 + ulp).all()
+
+
+def test_depthwise_kernel_refuses_instead_of_falling_back(dev):
+    x = torch.randn(2, 12, 16, device=dev)
+    w = torch.randn(9, 16, device=dev)
+    with pytest.raises(TypeError):
+        depthwise.dw3x3(x.half(), w, 3, 4)
+    with pytest.raises(ValueError, match="w must be fp32"):
+        depthwise.dw3x3(x, w.bfloat16(), 3, 4)
+    with pytest.raises(ValueError, match="H\\*W"):
+        depthwise.dw3x3(x, w, 4, 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        depthwise.dw3x3(x[..., :12].bfloat16().contiguous(), w[:, :12], 3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise.dw3x3(x.transpose(0, 1).contiguous().transpose(0, 1), w, 3, 4)
+
+
+# a ragged element count (not a multiple of a thread's 4), n = 0, chain
+# lengths that run only the remainder loop (1, 7), only the main loop of 8
+# applications a trip (64), and both (13, and the probe's 516 = 64 * 8 + 4)
+@pytest.mark.parametrize("n", [0, 1, 7, 13, 64, 516])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", uc.OPS)
+def test_unary_chain_kernel_matches_plain(dev, op, dtype, n):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(37, 129, device=dev, generator=g)
+    before = uc.launches.count
+    out = uc.unary_chain(x, n, dtype, op)
+    torch.cuda.synchronize()
+    assert uc.launches.count == before + 1
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    ref = uc.unary_chain_plain(x, n, dtype, op)
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        assert ((out - ref).abs() <= 2 * _bf16_ulp(ref)).all()
+
+
+def test_unary_chain_kernel_refuses_instead_of_falling_back(dev):
+    x = torch.randn(8, 16, device=dev)
+    with pytest.raises(TypeError):
+        uc.unary_chain(x.half(), 2, torch.float32, "exp")
+    with pytest.raises(TypeError):
+        uc.unary_chain(x, 2, torch.float16, "exp")
+    with pytest.raises(ValueError, match="unknown op"):
+        uc.unary_chain(x, 2, torch.float32, "sin")
+    with pytest.raises(ValueError, match="out of range"):
+        uc.unary_chain(x, -1, torch.float32, "exp")
+    with pytest.raises(ValueError, match="aligned"):
+        uc.unary_chain(x.view(-1)[1:], 2, torch.float32, "exp")
+    with pytest.raises(ValueError, match="contiguous"):
+        uc.unary_chain(x.t(), 2, torch.float32, "exp")
