@@ -9,11 +9,14 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 2. build: every kernel of the port, flash attention K1 (forward) and K2
    (backward), the depthwise conv P1 and the unary chain P2, built from the
    repo's sources into build/kernels/, one nvcc each, all in parallel;
-   seconds, and registers and spills from ptxas.
+   seconds, registers and spills from ptxas, and the count of bf16
+   tensor-core products (HMMA.16816.F32.BF16, from cuobjdump) in each
+   flash kernel: every bf16 one must have some.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
    card, at the serving slice's shapes and at the pipeline-B shapes, in fp32
-   (TF32 off, tolerance 1e-4 on out and lse) and in bf16 (against the plain
-   fp32 attention of the same bf16-rounded inputs, tolerance 2e-2); the
+   (TF32 off) and in bf16 (against the plain fp32 attention of the same
+   bf16-rounded inputs): out to 1e-4 (fp32) or 2e-2 (bf16) of its largest
+   magnitude, lse to the same numbers absolute; the
    time per call of each, of PyTorch's scaled_dot_product_attention on the
    same inputs (and which of its backends ran), and the bound: the larger
    of 4*B*H*Lq*Lk*d flops over the peak (989 TFLOP/s bf16, 67 fp32) and
@@ -25,9 +28,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    scaled_dot_product_attention (autograd.grad on a retained forward), and
    the bound with 10*B*H*Lq*Lk*d flops.
 5. train step, kernel vs plain: the full-width TinyVideoMAE (configs/
-   ssl_mae.yaml widths) at B=2 clips in fp32, TF32 off, the same weights,
-   mask and drop-path decisions through the kernels and through the plain
-   versions: loss to 1e-4 relative, every gradient to 1e-3 relative L2.
+   ssl_mae.yaml widths) at B=2 clips, the same weights, mask and drop-path
+   decisions through the kernels and through the plain versions: in fp32,
+   TF32 off (the CUDA-core kernels), loss to 1e-4 relative and every
+   gradient to 1e-3 relative L2; in bf16 (the tensor-core kernels), loss
+   to 1e-3 and every gradient to 5e-2. Both hold a gradient's difference
+   to at least 1e-4 of the largest gradient norm. The bf16 pass also
+   reports how far each of its two runs lies from the fp32 plain run, at
+   the leaf where they differ most from each other and at the leaf where
+   bf16 alone moves the plain run most.
 6. train: the port's entry.train_ssl_mae.run on configs/ssl_mae.yaml as it
    stands (batch 40, accumulation 2, remat on, bf16) on a synthetic 40-clip
    split of 64-frame 112x112 videos, random weights from a seeded
@@ -128,8 +137,15 @@ KERNEL_SHAPES = [
     ("decoder_seq_shard", 4, 784, 3136, 6, 64),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
+HMMA_BF16 = "HMMA.16816.F32.BF16"
+# K1's bf16 kernel and K2's two, for each of the four head dims
+BF16_FLASH_KERNELS = 3 * 4
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
+# bf16 attention outputs of two implementations differ by up to ~7e-3 of
+# their magnitude (the port's plain version against the JAX kernels); the
+# step's loss moves by about 1e-4 of itself
+TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-3, 5e-2
 TOL_DW_FP32 = 1e-5                 # abs; bf16: this plus one ulp of the output
 TOL_CHAIN_FP32 = 1e-5              # of the largest magnitude; bf16: two ulps
 CHAIN_CHECK_N = (4, 64, 516)  # probe_exp.LO, 8 trips of its main loop, probe_exp.HI
@@ -163,6 +179,11 @@ def bf16_ulp(t):
 
     mag = t.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def rel_err(got, ref) -> float:
+    """Max abs error over the reference's max magnitude."""
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
 def nvidia_smi_line() -> str:
@@ -248,9 +269,10 @@ def phase_kernel(fa, dev) -> dict:
             ref_out, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), H)
             torch.cuda.synchronize()
             err_out = (out.float() - ref_out).abs().max().item()
+            rel_out = rel_err(out, ref_out)
             err_lse = (lse - ref_lse).abs().max().item()
-            ok = (out.shape == ref_out.shape and math.isfinite(err_out)
-                  and err_out <= tol and err_lse <= tol)
+            ok = (out.shape == ref_out.shape and math.isfinite(rel_out)
+                  and rel_out <= tol and err_lse <= tol)
             ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, H))
             plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, H))
             qh, kh, vh = heads(q, H), heads(k, H), heads(v, H)
@@ -260,13 +282,15 @@ def phase_kernel(fa, dev) -> dict:
             bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=False)
             emit({"phase": "kernel_vs_plain", "shape": name, "B": B, "Lq": Lq, "Lk": Lk,
                   "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
-                  "err_out": err_out, "err_lse": err_lse, "tol": tol,
+                  "err_out": err_out, "rel_err_out": rel_out, "err_lse": err_lse,
+                  "tol": tol,
                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                   "sdpa_backend": sdpa_backend(qh, kh, vh), "library_err_out": lib_err,
                   "bound_ms": bound[0], "bound_by": bound[1], "ok": ok})
             if not ok:
                 raise AssertionError(f"K1 disagrees with the plain version at {name} "
-                                     f"{dtype}: out {err_out}, lse {err_lse} > {tol}")
+                                     f"{dtype}: out {rel_out} relative, lse {err_lse} > "
+                                     f"{tol}")
             max_err = max(max_err, err_out, err_lse)
             if name in TRAIN_SHAPES and dtype == torch.bfloat16:
                 train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -286,9 +310,18 @@ def phase_build() -> dict:
         out[name] = {"nvcc_seconds": kl.build_seconds,
                      "library": os.path.relpath(kl.path, ROOT),
                      "ptxas": ptxas_summary(kl.ptxas_log)}
+    # bf16 tensor-core products in each flash kernel's SASS
+    hmma = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path), HMMA_BF16)
+        hmma.update({kernel_label(f): n for f, n in counts.items()})
+    out["hmma_16816_f32_bf16"] = hmma
     emit(out)
     if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}:
         raise AssertionError(f"built {sorted(libs)}, not the four kernel sources")
+    bf16 = {k: n for k, n in hmma.items() if "_bf16_kernel" in k}
+    if len(bf16) != BF16_FLASH_KERNELS or not all(bf16.values()):
+        raise AssertionError(f"bf16 flash kernels without {HMMA_BF16}: {hmma}")
     return out
 
 
@@ -330,11 +363,6 @@ def ptxas_summary(log: str) -> list[str]:
         if m and rows:
             rows[-1] += f", {m.group(1)} regs"
     return rows
-
-
-def rel_err(got, ref) -> float:
-    """Max abs error over the reference's max magnitude."""
-    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
 def phase_backward(fa, dev) -> dict:
@@ -402,9 +430,25 @@ def ssl_mae_cfg(split: str, save_dir: str) -> dict:
     return cfg
 
 
-def phase_train_step(fa, dev) -> dict:
-    """One full-width fp32 forward+backward through the kernels and through
-    the plain versions, on the same weights, mask and drop-path decisions."""
+def rel_l2_by_leaf(grads, ref) -> tuple[list[float], list[float]]:
+    """Each gradient's L2 distance from its counterpart in ``ref`` over the
+    norm of that counterpart, and the norms of ``ref``.
+
+    A gradient that is zero in exact arithmetic is rounding noise in both
+    runs: a per-channel shift ahead of a train-mode BatchNorm (the biases of
+    stage 0's residual MBConvs, whose zero-scale BN adds only its bias, and
+    of the stem) is taken out again by the next BN's batch mean. So no
+    norm below 1e-4 of the largest is divided by."""
+    norms = [float(r.float().norm()) for r in ref]
+    floor = 1e-4 * max(norms)
+    return ([float((a.float() - r.float()).norm()) / max(n, floor)
+             for a, r, n in zip(grads, ref, norms)], norms)
+
+
+def phase_train_step(fa, dev) -> list[dict]:
+    """One full-width forward+backward through the kernels and through the
+    plain versions, on the same weights, mask and drop-path decisions: in
+    fp32 (TF32 off) and in bf16, the working type of configs/ssl_mae.yaml."""
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
@@ -420,63 +464,84 @@ def phase_train_step(fa, dev) -> dict:
     cfg = ssl_mae_cfg("", "")
     B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
     L = (S // 8) ** 2
-    model = build_model(cfg, torch.float32)
-    init_model(model, torch.Generator().manual_seed(0))
-    model.to(dev).train()
     g = torch.Generator(device=dev).manual_seed(2)
     clip = normalize_clip(torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8,
                                         device=dev, generator=g))
     mask = get_tube_mask(g, B, T, L, cfg["ssl"]["mask_ratio"])
-    drop = model.draw_drop_path(B, T, g)
     target = patchify(clip, 8)
-    params = [p for _, p in model.named_parameters()]
-    names = [n for n, _ in model.named_parameters()]
-    res = {}
-    for impl in ("kernel", "plain", "kernel", "plain"):  # the first pass of each warms up
-        for m in model.modules():
-            if isinstance(m, MultiHeadAttention):
-                m.attn_impl = impl
-        fa.launches.reset()
-        fa.bwd_launches.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = mae_loss_l2(model(clip, mask, drop), target, mask.reshape(B, T * L))
-        grads = torch.autograd.grad(loss, params)
-        torch.cuda.synchronize()
-        res[impl] = {"loss": float(loss.detach()), "grads": grads,
-                     "ms": 1e3 * (time.perf_counter() - t0),
-                     "k1": fa.launches.count, "k2": fa.bwd_launches.count}
-    kern, plain = res["kernel"], res["plain"]
-    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
-    # A gradient that is zero in exact arithmetic is rounding noise in both
-    # runs: a per-channel shift ahead of a train-mode BatchNorm (the biases
-    # of stage 0's residual MBConvs, whose zero-scale BN adds only its bias,
-    # and of the stem) is taken out again by the next BN's batch mean. Each
-    # gradient's difference is therefore measured against its own norm, but
-    # not against less than 1e-4 of the largest gradient norm.
-    norms = [float(b.norm()) for b in plain["grads"]]
-    floor = 1e-4 * max(norms)
-    worst, worst_name, floored = 0.0, "", 0
-    for name, a, b, nb in zip(names, kern["grads"], plain["grads"], norms):
-        rel = float((a - b).norm()) / max(nb, floor)
-        floored += nb < floor
-        if not math.isfinite(rel) or rel > worst:
-            worst, worst_name = rel, name
-    out = {"phase": "train_step_kernel_vs_plain", "B": B, "T": T, "dtype": "float32",
-           "loss_kernel": kern["loss"], "loss_plain": plain["loss"], "loss_rel": loss_rel,
-           "worst_grad_rel_l2": worst, "worst_grad": worst_name,
-           "grads": len(names), "grads_below_floor": floored, "grad_norm_floor": floor,
-           "ms_kernel": kern["ms"], "ms_plain": plain["ms"],
-           "k1_calls": kern["k1"], "k2_calls": kern["k2"],
-           "plain_k1_k2": [plain["k1"], plain["k2"]]}
-    emit(out)
-    if not (loss_rel <= TOL_STEP_LOSS and worst <= TOL_STEP_GRAD and math.isfinite(worst)):
-        raise AssertionError(f"kernel vs plain step: loss rel {loss_rel}, grad {worst_name} "
-                             f"rel L2 {worst}")
-    if (kern["k1"], kern["k2"], plain["k1"], plain["k2"]) != (
-            K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, 0, 0):
-        raise AssertionError(f"kernel calls in the step: {out}")
-    return out
+    outs = []
+    ref32 = {}  # the fp32 plain run: what bf16 rounding moves the step from
+    for dtype, tol_loss, tol_grad in ((torch.float32, TOL_STEP_LOSS, TOL_STEP_GRAD),
+                                      (torch.bfloat16, TOL_STEP_LOSS_BF16,
+                                       TOL_STEP_GRAD_BF16)):
+        model = build_model(cfg, dtype)
+        init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev).train()
+        if not outs:  # one set of decisions for both passes, drawn after the mask
+            drop = model.draw_drop_path(B, T, g)
+        params = [p for _, p in model.named_parameters()]
+        names = [n for n, _ in model.named_parameters()]
+        res = {}
+        for impl in ("kernel", "plain", "kernel", "plain"):  # the first of each warms up
+            for m in model.modules():
+                if isinstance(m, MultiHeadAttention):
+                    m.attn_impl = impl
+            fa.launches.reset()
+            fa.bwd_launches.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = mae_loss_l2(model(clip, mask, drop), target, mask.reshape(B, T * L))
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            res[impl] = {"loss": float(loss.detach()), "grads": grads,
+                         "ms": 1e3 * (time.perf_counter() - t0),
+                         "k1": fa.launches.count, "k2": fa.bwd_launches.count}
+        kern, plain = res["kernel"], res["plain"]
+        loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+        rels, norms = rel_l2_by_leaf(kern["grads"], plain["grads"])
+        floor = 1e-4 * max(norms)
+        floored = sum(n < floor for n in norms)
+        order = sorted(range(len(rels)), reverse=True,
+                       key=lambda i: rels[i] if math.isfinite(rels[i]) else math.inf)
+        worst, worst_name = rels[order[0]], names[order[0]]
+        out = {"phase": "train_step_kernel_vs_plain", "B": B, "T": T,
+               "dtype": str(dtype).replace("torch.", ""),
+               "loss_kernel": kern["loss"], "loss_plain": plain["loss"], "loss_rel": loss_rel,
+               "worst_grad_rel_l2": worst, "worst_grad": worst_name,
+               "tol_loss": tol_loss, "tol_grad": tol_grad,
+               "grads": len(names), "grads_below_floor": floored, "grad_norm_floor": floor,
+               "ms_kernel": kern["ms"], "ms_plain": plain["ms"],
+               "k1_calls": kern["k1"], "k2_calls": kern["k2"],
+               "plain_k1_k2": [plain["k1"], plain["k2"]]}
+        if not ref32:
+            ref32 = {"loss": plain["loss"], "grads": plain["grads"]}
+        else:
+            # bf16 rounding alone, without a kernel: the plain run against
+            # the fp32 plain run, beside the kernel run against it
+            k32, _ = rel_l2_by_leaf(kern["grads"], ref32["grads"])
+            p32, _ = rel_l2_by_leaf(plain["grads"], ref32["grads"])
+            noisiest = max(range(len(p32)), key=p32.__getitem__)
+            out.update({
+                "loss_rel_vs_fp32": {impl: abs(r["loss"] - ref32["loss"]) / abs(ref32["loss"])
+                                     for impl, r in (("kernel", kern), ("plain", plain))},
+                "worst_grads": [{"grad": names[i], "kernel_vs_plain": rels[i],
+                                 "kernel_vs_fp32": k32[i], "plain_vs_fp32": p32[i],
+                                 "norm_over_largest": norms[i] / max(norms)}
+                                for i in order[:3]],
+                "bf16_noisiest_grad": {"grad": names[noisiest],
+                                       "kernel_vs_plain": rels[noisiest],
+                                       "kernel_vs_fp32": k32[noisiest],
+                                       "plain_vs_fp32": p32[noisiest]}})
+        emit(out)
+        if not (loss_rel <= tol_loss and worst <= tol_grad and math.isfinite(worst)):
+            raise AssertionError(f"kernel vs plain step in {dtype}: loss rel {loss_rel}, "
+                                 f"grad {worst_name} rel L2 {worst}")
+        if (kern["k1"], kern["k2"], plain["k1"], plain["k2"]) != (
+                K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, 0, 0):
+            raise AssertionError(f"kernel calls in the step: {out}")
+        outs.append(out)
+        del model, params, res, kern, plain
+    return outs
 
 
 def phase_train(fa, dev) -> dict:

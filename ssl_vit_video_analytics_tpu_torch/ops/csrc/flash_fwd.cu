@@ -4,62 +4,60 @@
 // in ssl_vit_video_analytics_tpu/ops/flash_attention.py. It computes the
 // same thing: non-causal softmax(q k^T / sqrt(d)) v over PACKED heads
 // (q/k/v are [B, L, H*d], head h owns columns [h*d, (h+1)*d)), writing
-// `out` [B, Lq, H*d] in the input dtype and the per-row logsumexp
-// `lse` [B, Lq, H] in fp32 (the backward kernel will read it).
+// `out` [B, Lq, H*d] in the input dtype and the per-row logsumexp of the
+// scaled logits `lse` [B, Lq, H] in fp32 (the backward kernel reads it).
 //
-// Design, for the card rather than carried over from the TPU:
-// - One CTA per (q-tile of kBlockQ rows, head, batch row); one thread per
-//   query row. The thread keeps its scaled q row and its fp32 output
-//   accumulator in registers.
-// - K/V are walked in tiles of kBlockK keys staged through shared memory
-//   (converted to fp32 on the load) with an ONLINE softmax (running max and
-//   sum in fp32), so any Lk fits. The TPU kernel instead kept all of K/V
-//   resident in VMEM for one exact pass, which bounds it to Lk of a few
-//   thousand; the long-clip decoder attends over 12 544 tokens.
-// - Key columns >= Lk are masked explicitly in the last tile; K/V are never
-//   zero-padded in device memory. Zero tokens that the caller put in the
-//   sequence (MobileViT's 7x7 -> 8x8 pad) are real keys and are not masked.
-// - Inputs are strided views: the row stride of q/k/v is a parameter (3*H*d
-//   for the thirds of a fused qkv projection), the last dim is contiguous.
+// Both kernels walk K/V in tiles with an ONLINE softmax (running max and
+// sum in fp32), so any Lk fits; the TPU kernel kept all of K/V resident in
+// VMEM for one exact pass, which bounds it to Lk of a few thousand. Key
+// columns >= Lk are masked in the last tile; nothing is zero-padded in
+// device memory, and zero tokens that the caller put in the sequence
+// (MobileViT's 7x7 -> 8x8 pad) are real keys. Inputs are strided views: the
+// row stride of q/k/v is a parameter (3*H*d for the thirds of a fused qkv
+// projection), the last dim is contiguous.
 //
-// What bounds it: at the serving shapes (L = 16..196, d = 32..48) the work
-// is ~4*L*L*d flops per (batch row, head) against ~4*L*d*bytes of traffic,
-// so it is compute-bound, and this simple version runs those flops as
-// fp32 FMAs on the CUDA cores (67 TFLOP/s peak) rather than on the tensor
-// cores. Every thread of a warp reads the same K/V element of a tile at the
-// same time, so shared-memory reads are broadcasts without bank conflicts.
-// Moving QK^T and PV onto mma.sync / wgmma with bf16 operands is the next
-// step for speed.
+// What bounds it: about 4*Lq*Lk*d flops per (batch row, head) against
+// about 4*L*d elements of traffic, so it is bound by operations at every
+// shape the models use. Two kernels, by dtype:
+//
+// - bf16, the working type of both main paths: flash_fwd_bf16_kernel runs
+//   S = Q K^T and O += P V on the tensor cores (flash_mma.cuh: mma.sync
+//   m16n8k16, bf16 operands, fp32 accumulators). One CTA of 4 warps per
+//   (64-row query tile, head, batch row); each warp owns 16 query rows and
+//   keeps their Q fragments in registers for the whole sweep. K and V come
+//   in 64-key tiles through a 2-stage cp.async pipeline, so the copy of the
+//   next tile overlaps the products on this one. The softmax runs on the
+//   S accumulators in fp32 registers, in base 2 (scale * log2(e) folded
+//   into one multiply before ex2), with the row max and sum reduced across
+//   the quad of lanes that shares a row. P is rounded to bf16 unnormalised
+//   and goes from the S accumulators straight into the A fragment of P V;
+//   1/l is applied after the product, in `_fwd_kernel`'s own order.
+// - fp32: flash_fwd_fp32_kernel, one thread per query row with fp32 FMAs
+//   on the CUDA cores. TF32 tensor-core products would miss the 1e-4 to
+//   which the fp32 training step is held against the plain path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per CTA, one thread each
-constexpr int kBlockK = 32;  // keys per shared-memory tile
+using flash_mma::bf16;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kBlockQ = 64;  // fp32: query rows per CTA, one thread each
+constexpr int kBlockK = 32;  // fp32: keys per shared-memory tile
+constexpr int kKeysBf16 = 64;  // bf16: keys per K/V tile (faster than 32 at d = 64)
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBlockQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int Lq, int Lk, int H,
-                 int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
-                 int64_t v_sb, int64_t v_sl, float scale) {
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int Lq, int Lk, int H,
+                      int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
+                      int64_t v_sb, int64_t v_sl, float scale) {
   __shared__ float ks[kBlockK][D];
   __shared__ float vs[kBlockK][D];
 
@@ -71,9 +69,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t qrow = row < Lq ? row : Lq - 1;
 
   float qr[D];
-  const T* qp = q + b * q_sb + qrow * q_sl + h * D;
+  const float* qp = q + b * q_sb + qrow * q_sl + h * D;
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = to_float(qp[c]) * scale;
+  for (int c = 0; c < D; ++c) qr[c] = qp[c] * scale;
 
   float acc[D];
 #pragma unroll
@@ -81,8 +79,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = -INFINITY;  // running max of the logits
   float l = 0.f;        // running sum of exp(logit - m)
 
-  const T* kb = k + b * k_sb + h * D;
-  const T* vb = v + b * v_sb + h * D;
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
 
   for (int k0 = 0; k0 < Lk; k0 += kBlockK) {
     __syncthreads();  // every thread is done with the previous tile
@@ -92,8 +90,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int64_t key = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (key < Lk) {
-        kx = to_float(kb[key * k_sl + c]);
-        vx = to_float(vb[key * v_sl + c]);
+        kx = kb[key * k_sl + c];
+        vx = vb[key * v_sl + c];
       }
       ks[j][c] = kx;
       vs[j][c] = vx;
@@ -128,54 +126,189 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < Lq) {
     const float inv = 1.f / l;
-    T* op = out + (b * Lq + row) * (int64_t)(H * D) + h * D;
+    float* op = out + (b * Lq + row) * (int64_t)(H * D) + h * D;
 #pragma unroll
-    for (int c = 0; c < D; ++c) op[c] = from_float<T>(acc[c] * inv);
+    for (int c = 0; c < D; ++c) op[c] = acc[c] * inv;
     lse[(b * Lq + row) * H + h] = m + logf(l);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl,
-           int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl,
-           float scale, cudaStream_t stream) {
+template <int D, int kKeys>
+__global__ void __launch_bounds__(flash_mma::kThreads)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int Lq, int Lk, int H, int64_t q_sb,
+                      int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl,
+                      float scale) {
+  using namespace flash_mma;
+  using P = Dims<D>;
+  static_assert(kKeys == 32 || kKeys == 64, "a key tile of 2 or 4 k16 blocks");
+  constexpr int kStage = 2 * kKeys * P::kStride;  // a stage: K rows, then V rows
+  // The 64-row Q tile rides in stage 1 until its fragments are in
+  // registers, before the second key tile is loaded.
+  __shared__ __align__(16) bf16 smem[2 * kStage];
+  bf16* const ks[2] = {smem, smem + kStage};
+  bf16* const vs[2] = {smem + kKeys * P::kStride, smem + kStage + kKeys * P::kStride};
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const bf16* kb = k + b * k_sb + h * D;
+  const bf16* vb = v + b * v_sb + h * D;
+
+  zero_pad_columns<D>(smem, 4 * kKeys);
+  load_tile<D>(ks[1], q + b * q_sb + q0 * q_sl + h * D, q_sl, min(kTile, Lq - q0));
+  load_tile<D, kKeys>(ks[0], kb, k_sl, min(kKeys, Lk));
+  load_tile<D, kKeys>(vs[0], vb, v_sl, min(kKeys, Lk));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[P::kK16][4];
+  load_a<D>(qf, ks[1], warp * 16);
+  __syncthreads();  // every warp holds its Q before stage 1 is overwritten
+
+  const float sl2 = scale * kLog2e;  // logits -> base-2 exponents
+  float o[P::kN8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (base 2)
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  const int ntiles = (Lk + kKeys - 1) / kKeys;
+  for (int n = 0; n < ntiles; ++n) {
+    const int st = n & 1;
+    if (n + 1 < ntiles) {
+      const int k1 = (n + 1) * kKeys;
+      load_tile<D, kKeys>(ks[st ^ 1], kb + k1 * k_sl, k_sl, min(kKeys, Lk - k1));
+      load_tile<D, kKeys>(vs[st ^ 1], vb + k1 * v_sl, v_sl, min(kKeys, Lk - k1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows and the tile's keys
+    constexpr int kN = kKeys / 8;  // n8 tiles of keys
+    float s[kN][4] = {};
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) mma_abt<D>(s[2 * j], s[2 * j + 1], qf, ks[st], 16 * j);
+
+    const int kbase = n * kKeys;
+    if (kbase + kKeys > Lk) {  // the ragged last tile: keys >= Lk to -inf
+#pragma unroll
+      for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kbase + nt * 8 + 2 * (lane & 3) + (i & 1) >= Lk) s[nt][i] = -INFINITY;
+    }
+
+    // online softmax; every tile holds a key < Lk, so the max is finite
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * sl2);
+      alpha[r] = ex2(m[r] - m_new);  // 0 on the first tile
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < P::kN8; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = ex2(fmaf(s[nt][i], sl2, -m[i >> 1]));  // masked: ex2(-inf) = 0
+        s[nt][i] = p;
+        l[i >> 1] += p;
+      }
+
+    // O += P V, P rounded to bf16 straight from the S accumulators
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) {
+      if (kbase + 16 * j < Lk) {
+        uint32_t a[4];
+        acc_to_a(a, s[2 * j], s[2 * j + 1]);
+        mma_at<D>(o, a, vs[st], 16 * j);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q0 + warp * 16;
+  store_rows<D>(out + b * Lq * (int64_t)(H * D) + h * D, (int64_t)H * D, row0, Lq, o, inv[0],
+                inv[1]);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + 8 * r;
+      if (row < Lq) lse[(b * Lq + row) * H + h] = m[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
+                int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale,
+                cudaStream_t stream) {
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, Lq, Lk, H, q_sb,
-      q_sl, k_sb, k_sl, v_sb, v_sl, scale);
+  flash_fwd_fp32_kernel<D><<<grid, kBlockQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Lq, Lk, H, q_sb, q_sl,
+      k_sb, k_sl, v_sb, v_sl, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_head_dim(int D, const void* q, const void* k, const void* v,
-                      void* out, float* lse, int B, int Lq, int Lk, int H,
-                      int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
-                      int64_t v_sb, int64_t v_sl, float scale,
-                      cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-                           k_sl, v_sb, v_sl, scale, stream);
-    case 40:
-      return launch<T, 40>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-                           k_sl, v_sb, v_sl, scale, stream);
-    case 48:
-      return launch<T, 48>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-                           k_sl, v_sb, v_sl, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-                           k_sl, v_sb, v_sl, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
+                int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale,
+                cudaStream_t stream) {
+  const dim3 grid((Lq + flash_mma::kTile - 1) / flash_mma::kTile, H, B);
+  flash_fwd_bf16_kernel<D, kKeysBf16><<<grid, flash_mma::kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
+           int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_fp32<D>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+                          v_sl, scale, stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+                          v_sl, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Strides are in elements. Returns the launch's cudaError_t (0 = success).
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (q, k,
+// v 16-byte aligned with strides of whole 16-byte chunks, as the wrapper
+// checks). Strides are in elements. Returns the launch's cudaError_t.
 extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v, void* out,
                                  void* lse, int B, int Lq, int Lk, int H,
@@ -184,15 +317,22 @@ extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q,
                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(head_dim, q, k, v, out, lse_f, B, Lq, Lk,
-                                    H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl,
-                                    scale, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse_f, B,
-                                            Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
-                                            v_sb, v_sl, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 32:
+      return launch<32>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
+                        v_sb, v_sl, scale, s);
+    case 40:
+      return launch<40>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
+                        v_sb, v_sl, scale, s);
+    case 48:
+      return launch<48>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
+                        v_sb, v_sl, scale, s);
+    case 64:
+      return launch<64>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
+                        v_sb, v_sl, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* ssl_vit_cuda_error_string(int err) {

@@ -9,6 +9,9 @@ kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles:
 K1 walks K/V with an online softmax, so it has no sequence-length ceiling
 and needs no padding; K2 splits the backward into a dK/dV pass over key
 tiles and a dQ pass over query tiles, so that no two CTAs write one output.
+The dtype picks the kernel: bf16 runs on the tensor cores (``mma.sync``,
+tiles staged by 16-byte ``cp.async`` copies, hence :func:`check_alignment`),
+fp32 on the CUDA cores.
 
 Layout is the JAX package's: q ``[B, Lq, H*d]``, k/v ``[B, Lk, H*d]``, head
 ``h`` owns columns ``[h*d, (h+1)*d)``. The thirds of a fused qkv projection
@@ -37,6 +40,7 @@ from .kernel_build import LaunchCounter
 SUPPORTED_HEAD_DIMS = (32, 40, 48, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
+_ALIGN_BYTES = 16
 
 # K1 launches in this process (one per launch, added where it launches)
 launches = LaunchCounter()
@@ -134,6 +138,38 @@ def _check_kernel_args(q, k, v, num_heads):
     return B, Lq, k.shape[1], HD, d
 
 
+def _misalignment(t: torch.Tensor) -> tuple[int, list[int]]:
+    """Bytes by which ``t``'s data pointer, and its batch and row strides
+    (of dims longer than 1), miss a multiple of 16."""
+    size = t.element_size()
+    return (t.data_ptr() % _ALIGN_BYTES,
+            [t.stride(i) * size % _ALIGN_BYTES for i in (0, 1) if t.size(i) > 1])
+
+
+def check_alignment(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's data pointer, and its batch and row
+    strides in bytes, are multiples of 16: the bf16 kernels stage rows
+    through shared memory in 16-byte ``cp.async`` copies. The thirds of a
+    fused qkv projection pass (offsets ``h*d*2`` bytes, row stride
+    ``3*H*d*2``, for every supported d)."""
+    for name, t in tensors.items():
+        ptr, strides = _misalignment(t)
+        if ptr or any(strides):
+            raise ValueError(
+                f"{name} must be {_ALIGN_BYTES}-byte aligned with batch and row strides "
+                f"of whole {_ALIGN_BYTES}-byte chunks for the bf16 kernel: pointer {ptr} "
+                f"bytes past, strides {tuple(t.stride())} x {t.element_size()} bytes")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy where the bf16 kernels could not
+    read it (autograd may hand an expanded or offset gradient)."""
+    ptr, strides = _misalignment(t)
+    if ptr or any(strides) or t.stride(2) != 1:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _check_cuda(t: torch.Tensor) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {t.device}")
@@ -151,6 +187,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, num_heads)
     _check_cuda(q)
     B, Lq, Lk, HD, d = _check_kernel_args(q, k, v, num_heads)
+    if q.dtype == torch.bfloat16:
+        check_alignment(q=q, k=k, v=v)
     out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Lq, num_heads), dtype=torch.float32, device=q.device)
     if Lq == 0 or B == 0:
@@ -191,7 +229,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (B, Lq, num_heads) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [B, Lq, H] = {(B, Lq, num_heads)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if dout.stride(2) != 1:
+    if q.dtype == torch.bfloat16:
+        check_alignment(q=q, k=k, v=v)
+        dout = _aligned(dout)
+    elif dout.stride(2) != 1:
         dout = dout.contiguous()  # autograd may hand an expanded gradient
     lse = lse.contiguous()
     delta = softmax_grad_rowsum(dout, out, num_heads)

@@ -5,7 +5,8 @@ under ``csrc/`` and the C functions its wrapper calls, with their
 ``ctypes`` signatures. :func:`build` compiles every source that is not yet
 built, one ``nvcc`` process per source, all started together, into
 ``build/kernels/`` at the repo root (git-ignored), each library keyed by a
-hash of its source and flags, and loads them with ``ctypes``: the sources
+hash of its source, every header under ``csrc/`` and the flags (see
+:func:`build_key`), and loads them with ``ctypes``: the sources
 have a plain C interface, so no PyTorch headers are compiled. A failed
 ``nvcc`` raises and leaves no compiler running.
 
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -81,6 +83,35 @@ def build() -> dict[str, KernelLibrary]:
     return _build(BUILD_DIR)
 
 
+def build_key(source: Path) -> str:
+    """The hash that names ``source``'s library: its bytes, those of every
+    ``*.cuh`` beside it (the flash kernels share ``flash_mma.cuh``), and the
+    flags, so that a change to any of them rebuilds."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def sass(library: str | Path) -> str:
+    """``cuobjdump -sass`` of a built library (the toolkit's, beside nvcc)."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def count_by_function(listing: str, opcode: str) -> dict[str, int]:
+    """Instructions of ``opcode`` (a prefix, e.g. ``HMMA.16816.F32.BF16``)
+    in each function of a ``cuobjdump -sass`` listing, by mangled name."""
+    pattern = re.compile(r"\s" + re.escape(opcode) + r"[\s.]")
+    out = {}
+    for chunk in listing.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        out[name.strip()] = sum(bool(pattern.search(line)) for line in body.splitlines())
+    return out
+
+
 def find_nvcc() -> str:
     for env in ("CUDA_HOME", "CUDA_PATH"):
         root = os.environ.get(env)
@@ -100,8 +131,7 @@ def _build(build_dir: Path) -> dict[str, KernelLibrary]:
     jobs = {}
     try:
         for name, source in sources().items():
-            key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                                 ).hexdigest()[:16]
+            key = build_key(source)
             so_path = build_dir / f"{name}_{key}.so"
             proc = tmp = None
             if not so_path.exists():

@@ -15,7 +15,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 from pathlib import Path
 from typing import Callable
 
@@ -101,10 +100,7 @@ def run(rows: int = ROWS, lanes: int = LANES, lo: int = LO, hi: int = HI,
 
 def sass_loop_counts(library: str | Path) -> dict[str, dict[str, float]]:
     """:func:`loop_counts` of ``cuobjdump -sass`` of the built P2 library."""
-    cuobjdump = Path(kernel_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    return loop_counts(sass)
+    return loop_counts(kernel_build.sass(library))
 
 
 def loop_counts(sass: str) -> dict[str, dict[str, float]]:

@@ -1,0 +1,92 @@
+"""Where the pretraining step's device time goes: ``torch.profiler`` over a
+few steps (2, after 3 warm-up steps) of the port's ``entry.train_ssl_mae.run`` on
+``configs/ssl_mae.yaml`` (over ``configs/base.yaml``) as it stands, on a
+synthetic 40-clip split of 64-frame 112x112 videos with random weights.
+
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step
+
+Prints one JSON object: the host-clock ms of each profiled step, the
+device time per step summed over every kernel, the idle share (1 - device
+time / wall time of the window; one stream, so kernels do not overlap),
+K1's and K2's part, and the kernels with the most device time per step.
+"""
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# kernel names of K1 and K2 (each kernel's instantiations, both dtypes)
+GROUPS = {"K1 flash_fwd": ("flash_fwd_",), "K2 flash_bwd": ("flash_bwd_",)}
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", None)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs an NVIDIA GPU")
+    cfg = load_config(os.path.join(REPO, "configs", "ssl_mae.yaml"),
+                      base=os.path.join(REPO, "configs", "base.yaml"))
+    with tempfile.TemporaryDirectory() as tmp:
+        splits = make_synthetic_dataset(os.path.join(tmp, "data"), num_classes=8,
+                                        videos_per_class=6, num_frames=64, image_size=112,
+                                        seed=0)
+        cfg["dataset"]["train_split"] = splits["train"]
+        cfg["paths"] = {"split_root": ""}
+        cfg["training"]["save_dir"] = os.path.join(tmp, "out")
+        cfg.setdefault("logging", {})["tensorboard"] = False
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        marks = {}
+
+        def on_step(i, state, metrics):
+            torch.cuda.synchronize()
+            marks[i] = time.perf_counter()
+            if i == warm:
+                prof.start()
+            elif i == warm + steps:
+                prof.stop()
+
+        train_ssl_mae.run(cfg, log=lambda m: None, max_steps=warm + steps, on_step=on_step,
+                          device="cuda")
+    wall_ms = 1e3 * (marks[warm + steps] - marks[warm])
+    # device events, less the ranges that annotate the timeline (the
+    # optimizer step's) and would count their kernels twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(_device_us(e) for e in kernels) / 1e3
+    by_name = sorted(kernels, key=_device_us, reverse=True)
+    groups = {g: sum(_device_us(e) for e in kernels if any(p in e.key for p in prefixes))
+              / 1e3 / steps for g, prefixes in GROUPS.items()}
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "steps": steps,
+        "step_ms": [1e3 * (marks[i + 1] - marks[i]) for i in range(warm, warm + steps)],
+        "device_ms_per_step": device_ms / steps,
+        "idle_share": 1.0 - device_ms / wall_ms,
+        "groups_ms_per_step": groups,
+        "top_kernels_ms_per_step": [
+            {"name": e.key[:120], "ms": _device_us(e) / 1e3 / steps, "calls": e.count // steps}
+            for e in by_name[:top]],
+    }
+
+
+def main() -> None:
+    print(json.dumps(run()))
+
+
+if __name__ == "__main__":
+    main()

@@ -70,7 +70,8 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "train/mae_engine.py", "train/state.py", "train/losses.py", "ops/patchify.py",
             "data/masking.py", "utils/checkpoint.py", "utils/metrics.py",
             "ops/kernel_build.py", "ops/depthwise.py", "ops/unary_chain.py",
-            "scripts/__init__.py", "scripts/probe_dw.py", "scripts/probe_exp.py"} <= walked
+            "scripts/__init__.py", "scripts/probe_dw.py", "scripts/probe_exp.py",
+            "scripts/profile_step.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):

@@ -40,3 +40,49 @@ def test_failed_build_raises_and_leaves_no_compiler_running(tmp_path, monkeypatc
     assert len(started) == len(kernel_build.sources()) == 4
     assert [p.returncode for p in started] == [2, -9, -9, -9]
     assert not list((tmp_path / "kernels").glob("*.so"))
+
+
+def test_build_key_covers_the_shared_headers(tmp_path):
+    """A library is keyed by its source, every csrc/*.cuh beside it and the
+    flags: editing the header that both flash kernels include rebuilds
+    them, and nothing else under csrc/ does."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    source = csrc / "flash_fwd.cu"
+    source.write_text('#include "flash_mma.cuh"\n')
+    header = csrc / "flash_mma.cuh"
+    header.write_text("constexpr int kTile = 64;\n")
+    first = kernel_build.build_key(source)
+    assert kernel_build.build_key(source) == first
+    (csrc / "notes.txt").write_text("not a header")
+    assert kernel_build.build_key(source) == first
+    header.write_text("constexpr int kTile = 32;\n")
+    second = kernel_build.build_key(source)
+    assert second != first
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert kernel_build.build_key(source) not in (first, second)
+    real = kernel_build.sources()["flash_fwd"]
+    assert (real.parent / "flash_mma.cuh").is_file()
+    assert kernel_build.build_key(real) != kernel_build.build_key(
+        kernel_build.sources()["flash_bwd"])
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64EEEvPK13__nv_bfloat16
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0100*/                   LDSM.16.M88.4 R12, [R3] ;
+        /*0110*/                   HMMA.16816.F32.BF16 R4, R12, R20, RZ ;
+        /*0120*/                   HMMA.16816.F32.BF16 R8, R12, R22, R8 ;
+        /*0130*/                   MUFU.EX2 R5, R5 ;
+\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_
+        /*0100*/                   FFMA R4, R12, R20, R4 ;
+        /*0110*/               @P0 HMMA.1688.F32.TF32 R4, R12, R20, RZ ;
+"""
+
+
+def test_sass_counts_each_functions_tensor_core_products():
+    counts = kernel_build.count_by_function(SASS, "HMMA.16816.F32.BF16")
+    assert counts == {"_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64EEEvPK13__nv_bfloat16": 2,
+                      "_ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_": 0}
+    assert sum(kernel_build.count_by_function(SASS, "HMMA").values()) == 3

@@ -8,9 +8,12 @@ JAX; the repo's conftest imports JAX, so on the card run it as
 
     python -m pytest tests/test_torch_port_kernel_cuda.py --noconftest -q -p no:cacheprovider
 
-Without a CUDA card every test skips (the kernels have no CPU mode).
-Tolerances: K1, 1e-4 on out and lse in fp32 (TF32 off); 2e-2 in bf16 against
-the plain fp32 attention of the same bf16-rounded inputs. K2, the max abs
+Without a CUDA card every test skips (the kernels have no CPU mode). bf16
+runs on the tensor-core kernels, fp32 on the CUDA-core ones; both are held
+at every edge of the bf16 kernels' tiles.
+Tolerances: K1, 1e-4 on out and lse in fp32 (TF32 off); 2e-2 on out in bf16
+(1e-4 on lse) against the plain fp32 attention of the same bf16-rounded
+inputs. K2, the max abs
 error of each gradient over that gradient's max magnitude (but not less
 than 1e-2 of the largest of the three: over a single key dQ and dK are
 zero in exact arithmetic and rounding noise in both versions): 1e-4 in
@@ -26,7 +29,7 @@ import pytest
 import torch
 
 from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
-from ssl_vit_video_analytics_tpu_torch.ops import depthwise
+from ssl_vit_video_analytics_tpu_torch.ops import depthwise, kernel_build
 from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
 from ssl_vit_video_analytics_tpu_torch.ops import unary_chain as uc
 
@@ -171,6 +174,80 @@ def test_attention_gradients_flow_through_the_kernels(dev, dtype):
     for got, ref in zip(grads["kernel"], grads["plain"]):
         assert got.abs().max() > 0
         assert _rel_err(got, ref.float()) <= tol
+
+
+# the edges of the bf16 kernels' 64-row tiles and of their 16-row mma
+# blocks, one row, and the serving length 196 (3 tiles and 4 rows)
+EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 196)
+
+
+@pytest.mark.parametrize("Lq", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+def test_bf16_forward_at_tile_edges(dev, d, Lq):
+    """K1 in bf16 (the tensor-core kernel) against the plain fp32 attention
+    of the same bf16 inputs, strided qkv thirds, every Lk of the edges."""
+    for Lk in EDGE_LENGTHS:
+        q, k, v = _strided_qkv(dev, 2, Lq, Lk, 3, d, torch.bfloat16, seed=Lq * 1000 + Lk)
+        out, lse = fa.flash_attention_fwd(q, k, v, 3)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), 3)
+        assert out.dtype == torch.bfloat16 and torch.isfinite(out).all(), Lk
+        err = float((out.float() - ref_out).abs().max())
+        assert err <= 2e-2, (Lk, err)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0, msg=f"lse at Lk={Lk}")
+
+
+@pytest.mark.parametrize("Lq", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+def test_bf16_backward_at_tile_edges(dev, d, Lq):
+    """K2 in bf16 (the tensor-core kernels) against the plain fp32 backward
+    of the same bf16 inputs, strided qkv thirds, every Lk of the edges."""
+    for Lk in EDGE_LENGTHS:
+        q, k, v = _strided_qkv(dev, 2, Lq, Lk, 3, d, torch.bfloat16, seed=Lq * 1000 + Lk)
+        g = torch.Generator(device=dev).manual_seed(Lk)
+        dout = torch.randn(2, Lq, 3 * d, device=dev, generator=g).bfloat16()
+        out, lse = fa.flash_attention_fwd(q, k, v, 3)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, 3)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                            dout.float(), 3)
+        scale = 1e-2 * max(float(r.abs().max()) for r in refs)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            assert got.dtype == torch.bfloat16 and torch.isfinite(got).all(), (Lk, name)
+            assert _rel_err(got, ref, scale) <= 2e-2, (Lk, name, _rel_err(got, ref, scale))
+
+
+def test_bf16_flash_kernels_run_on_the_tensor_cores(dev):
+    """Every bf16 flash kernel's SASS holds bf16 tensor-core products
+    (HMMA.16816.F32.BF16); the fp32 kernels hold none."""
+    libs = kernel_build.build()
+    for lib, kernels in (("flash_fwd", 4), ("flash_bwd", 8)):
+        counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path),
+                                                "HMMA.16816.F32.BF16")
+        bf16 = {f: n for f, n in counts.items() if "bf16_kernel" in f}
+        fp32 = {f: n for f, n in counts.items() if "fp32_kernel" in f}
+        assert len(bf16) == len(fp32) == kernels, (lib, counts)
+        assert all(n > 0 for n in bf16.values()), (lib, bf16)
+        assert not any(fp32.values()), (lib, fp32)
+
+
+def test_misaligned_bf16_view_raises_on_the_card(dev):
+    q, k, v = _strided_qkv(dev, 2, 9, 9, 2, 32, torch.bfloat16)
+    bad = torch.zeros(2, 9, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
+    out, lse = fa.flash_attention_fwd(q, k, v, 2)
+    dout = torch.randn(2, 9, 64, device=dev).bfloat16()
+    before = (fa.launches.count, fa.bwd_launches.count)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        fa.flash_attention_fwd(bad, k, v, 2)
+    with pytest.raises(ValueError, match="v must be 16-byte aligned"):
+        fa.flash_attention_bwd(q, k, bad, out, lse, dout, 2)
+    assert (fa.launches.count, fa.bwd_launches.count) == before
+    # an offset output gradient is copied, not refused: autograd hands it
+    shifted = torch.zeros(2, 9, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
+    shifted.copy_(dout)
+    for got, ref in zip(fa.flash_attention_bwd(q, k, v, out, lse, shifted, 2),
+                        fa.flash_attention_bwd(q, k, v, out, lse, dout, 2)):
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
