@@ -9,9 +9,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 2. build: every kernel of the port, flash attention K1 (forward) and K2
    (backward), the depthwise conv P1 and the unary chain P2, built from the
    repo's sources into build/kernels/, one nvcc each, all in parallel;
-   seconds, registers and spills from ptxas, and the count of bf16
-   tensor-core products (HMMA.16816.F32.BF16, from cuobjdump) in each
-   flash kernel: every bf16 one must have some.
+   seconds, registers and spills from ptxas, the count of bf16 tensor-core
+   products (HMMA.16816.F32.BF16, from cuobjdump) in each flash kernel, and
+   of asynchronous copies (UTMALDG, the TMA's loads; LDGSTS, cp.async) in
+   each P1 kernel: every bf16 flash kernel must have products, every P1
+   kernel copies, and no P1 or P2 kernel may spill.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
    card, at the serving slice's shapes and at the pipeline-B shapes, in fp32
    (TF32 off) and in bf16 (against the plain fp32 attention of the same
@@ -54,16 +56,23 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    plain version in fp32 at [2, 56*56, 384] (TF32 off, 1e-5 abs) and in
    bf16 at 8 images and on the 256 images that the probe's bench times
    (1e-5 plus one bf16 ulp of the output: the two fp32 sums round once
-   each); then the port's scripts.probe_dw.run(256, "bench"): the kernel's,
-   the plain version's and cuDNN's grouped conv times (forward and input
-   gradient) and the bound.
+   each), and in both at [1, 9*300, 40], which crosses every edge of the
+   kernel's tiles (a partial row band, column tiles, a partial channel
+   chunk); then the port's scripts.probe_dw.run(256, "bench"): the
+   kernel's times (forward, and on the input gradient's flipped taps), the
+   plain version's, cuDNN's grouped conv times (forward and input gradient)
+   and the bound.
 9. P2 vs plain, and the probe_exp entry: the unary-chain kernel against its
-   plain version for each op and working type at 896x6272, n = 4 (the
-   remainder loop only), 64 (the main loop only) and 516 (both; the
-   probe's length), fp32 1e-5 of the largest magnitude, bf16 two ulps of
-   each element; then the port's scripts.probe_exp.run(): times at n = 4
-   and 516, the per-application slope against its bound, and the plain
-   version's.
+   plain version for each op and working type at 896x6272, n = 1 (the
+   remainder loop only), 4 (the probe's low end: one trip of the main loop
+   of 4 applications), 13 (both), 64 and 516 (the probe's length), fp32
+   1e-5 of the largest magnitude, bf16 two ulps of each element; the
+   conversions to bf16 per element and application in each bf16 main loop
+   (F2F.BF16.F32 and F2FP.* apart, from cuobjdump; none of the first may
+   remain); then the port's scripts.probe_exp.run(): times at n = 4, 132
+   and 516, the per-application slopes (4 to 516 as the JAX probe takes
+   it; 132 to 516, both bound by operations, against the bound), and the
+   plain version's.
 
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe) is driven and read just after. The line before the
@@ -138,6 +147,7 @@ KERNEL_SHAPES = [
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 HMMA_BF16 = "HMMA.16816.F32.BF16"
+ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # K1's bf16 kernel and K2's two, for each of the four head dims
 BF16_FLASH_KERNELS = 3 * 4
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
@@ -147,8 +157,11 @@ TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # step's loss moves by about 1e-4 of itself
 TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-3, 5e-2
 TOL_DW_FP32 = 1e-5                 # abs; bf16: this plus one ulp of the output
+# (N, H, W, C) crossing every tile edge of P1: 9 rows (8-row bands), 300
+# columns (column tiles), 40 channels (32 bf16 or 16 fp32 a chunk)
+DW_EDGE_SHAPE = (1, 9, 300, 40)
 TOL_CHAIN_FP32 = 1e-5              # of the largest magnitude; bf16: two ulps
-CHAIN_CHECK_N = (4, 64, 516)  # probe_exp.LO, 8 trips of its main loop, probe_exp.HI
+CHAIN_CHECK_N = (1, 4, 13, 64, 516)  # see phase 9 above; 4 and 516 are the probe's
 
 
 def emit(obj: dict) -> None:
@@ -316,12 +329,25 @@ def phase_build() -> dict:
         counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path), HMMA_BF16)
         hmma.update({kernel_label(f): n for f, n in counts.items()})
     out["hmma_16816_f32_bf16"] = hmma
+    # asynchronous copies in each P1 kernel's SASS
+    listing = kernel_build.sass(libs["dw3x3"].path)
+    copies = {}
+    for opcode in ASYNC_COPIES:
+        for f, n in kernel_build.count_by_function(listing, opcode).items():
+            copies.setdefault(kernel_label(f), {})[opcode] = n
+    out["p1_async_copies"] = copies
     emit(out)
     if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}:
         raise AssertionError(f"built {sorted(libs)}, not the four kernel sources")
     bf16 = {k: n for k, n in hmma.items() if "_bf16_kernel" in k}
     if len(bf16) != BF16_FLASH_KERNELS or not all(bf16.values()):
         raise AssertionError(f"bf16 flash kernels without {HMMA_BF16}: {hmma}")
+    if not copies or not all(sum(c.values()) for c in copies.values()):
+        raise AssertionError(f"P1 kernels without asynchronous copies: {copies}")
+    spills = [row for lib in ("dw3x3", "unary_chain") for row in out[lib]["ptxas"]
+              if "spill 0/0" not in row]
+    if spills:
+        raise AssertionError(f"P1 or P2 kernels spill: {spills}")
     return out
 
 
@@ -743,13 +769,26 @@ def phase_dw(dev) -> dict:
     from ssl_vit_video_analytics_tpu_torch.scripts import probe_dw
 
     torch.backends.cudnn.allow_tf32 = False
-    H, W = probe_dw.H, probe_dw.W
     max_err = 0.0
-    # the check shape, a small bf16 batch, and the inputs that
-    # probe_dw.run(256, "bench") times (seed 0)
-    for dtype, N, seed in ((torch.float32, 2, 1), (torch.bfloat16, 8, 1),
-                           (torch.bfloat16, 256, 0)):
-        x, w = probe_dw.inputs(N, dtype, dev, seed=seed)
+
+    def probe_case(dtype, N, seed):
+        return (probe_dw.H, probe_dw.W) + probe_dw.inputs(N, dtype, dev, seed=seed)
+
+    def edge_case(dtype):
+        N, H, W, C = DW_EDGE_SHAPE
+        g = torch.Generator(device=dev).manual_seed(5)
+        return (H, W, torch.randn(N, H * W, C, device=dev, generator=g).to(dtype),
+                torch.randn(9, C, device=dev, generator=g))
+
+    # the check shape, a small bf16 batch, the inputs that
+    # probe_dw.run(256, "bench") times (seed 0), and the tile edges
+    for dtype, case in ((torch.float32, lambda: probe_case(torch.float32, 2, 1)),
+                        (torch.bfloat16, lambda: probe_case(torch.bfloat16, 8, 1)),
+                        (torch.bfloat16, lambda: probe_case(torch.bfloat16, 256, 0)),
+                        (torch.float32, lambda: edge_case(torch.float32)),
+                        (torch.bfloat16, lambda: edge_case(torch.bfloat16))):
+        H, W, x, w = case()
+        N, C = x.shape[0], x.shape[2]
         out = depthwise.dw3x3(x, w, H, W)
         torch.cuda.synchronize()
         ref = depthwise.dw3x3_plain(x, w, H, W)
@@ -759,7 +798,7 @@ def phase_dw(dev) -> dict:
         if dtype == torch.bfloat16:  # each fp32 sum rounds once to bf16
             tol = tol + bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
         ok = out.shape == ref.shape and out.dtype == dtype and bool((diff <= tol).all())
-        emit({"phase": "p1_vs_plain", "N": N, "seed": seed, "H": H, "W": W, "C": probe_dw.C,
+        emit({"phase": "p1_vs_plain", "N": N, "H": H, "W": W, "C": C,
               "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
               "elements_differing": int((diff > 0).sum()),
               "tol": TOL_DW_FP32 if dtype == torch.float32 else "1e-5 + one bf16 ulp",
@@ -784,15 +823,26 @@ def phase_dw(dev) -> dict:
     return {"launched": launched, "max_abs_err": max_err, "ms": kern["ms"],
             "plain_ms": by["plain shifted-sum fwd"]["ms"],
             "library_ms": by["cudnn grouped conv fwd"]["ms"],
-            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"]}
+            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+            "bwd_dx_ms": by["dw3x3 bwd(dx)"]["ms"],
+            "library_bwd_dx_ms": by["cudnn grouped conv bwd(dx)"]["ms"]}
 
 
 def phase_chain(dev) -> dict:
     """P2 against its plain version, then the probe_exp entry point."""
     import torch
 
+    from ssl_vit_video_analytics_tpu_torch.ops import kernel_build
     from ssl_vit_video_analytics_tpu_torch.ops import unary_chain as uc
     from ssl_vit_video_analytics_tpu_torch.scripts import probe_exp
+
+    counts = probe_exp.sass_loop_counts(kernel_build.build()["unary_chain"].path)
+    conversions = probe_exp.conversions(counts)
+    emit({"phase": "p2_sass", "bf16_conversions_per_element": conversions,
+          "per_element": counts})
+    if len(conversions) != len(uc.OPS) or any(c["F2F.BF16.F32"]
+                                              for c in conversions.values()):
+        raise AssertionError(f"bf16 main loops still round with F2F: {conversions}")
 
     x = probe_exp.block(probe_exp.ROWS, probe_exp.LANES, dev)
     max_err = 0.0
@@ -826,8 +876,8 @@ def phase_chain(dev) -> dict:
         emit({"phase": "probe_exp", **row})
     if launched["unary_chain"] <= 0:
         raise AssertionError(f"probe_exp did not launch P2: {launched}")
-    if not all(math.isfinite(r["per_application_ms"]) and r["t_hi_ms"] > r["t_lo_ms"]
-               for r in rows):
+    if not all(math.isfinite(r["per_application_ms"]) and r["t_hi_ms"] > r["t_mid_ms"] >
+               r["t_lo_ms"] for r in rows):
         raise AssertionError("probe_exp: the time does not grow with the chain's length")
     return {"launched": launched, "max_abs_err": max_err,
             "ms": sum(r["t_hi_ms"] for r in rows),
@@ -884,7 +934,8 @@ def main() -> None:
         {"name": "dw3x3", "route": "cuda", "source": P1_SOURCE, "replaces": P1_TPU,
          "launches": paths["probe_dw"]["dw3x3"], "launches_by_path": by_path("dw3x3"),
          **p1, "ms_is": "bf16 [256, 56*56, 384], one call; library: cuDNN grouped "
-                        "conv2d forward on a channels-last view"},
+                        "conv2d forward on a channels-last view; bwd_dx: the kernel on "
+                        "the flipped taps and cuDNN's input gradient"},
         {"name": "unary_chain", "route": "cuda", "source": P2_SOURCE, "replaces": P2_TPU,
          "launches": paths["probe_exp"]["unary_chain"],
          "launches_by_path": by_path("unary_chain"), **p2, "library_ms": None,

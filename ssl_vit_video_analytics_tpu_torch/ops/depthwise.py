@@ -7,7 +7,10 @@ JAX probe's: x ``[N, H*W, C]`` (fp32 or bf16, channels contiguous) and taps
 ``w [9, C]`` fp32, tap ``(dh+1)*3 + (dw+1)`` for the neighbour at
 ``(h+dh, w+dw)``. The taps are already in that layout on both sides, so no
 weight converter is needed. The TPU kernel's sublane rolls, edge masks and
-``G`` images per grid cell are VMEM tiling and are not parameters here.
+``G`` images per grid cell are VMEM tiling and are not parameters here; so
+are the kernel's own tiles (8 output rows x up to the whole width x 64
+bytes of channels, copied with their halo by the TMA into shared memory),
+which ``csrc/dw3x3.cu`` sets from the shape.
 
 Dispatch is by device only: a CPU tensor goes through
 :func:`dw3x3_plain`; a CUDA tensor launches the kernel or raises.

@@ -4,10 +4,12 @@
 Counterpart of the JAX package's ``scripts/probe_dw.py``. ``check`` holds
 the kernel to its plain version and to cuDNN's grouped conv in fp32 (TF32
 off) at ``[2, 56*56, 384]``; ``bench`` times, on bf16 ``[BT, 56*56, 384]``:
-the kernel (``ops.depthwise.dw3x3``), its plain version, and the library
-yardsticks the JAX probe timed with XLA: cuDNN's grouped conv forward and
-its gradient to the input, on a channels-last view (timed here only; the
-kernel's path never calls them).
+the kernel (``ops.depthwise.dw3x3``) forward and on the input gradient's
+arithmetic (the same conv with the taps flipped), its plain version, and
+the library yardsticks the JAX probe timed with XLA: cuDNN's grouped conv
+forward and its gradient to the input, on a channels-last view (timed here
+only; the kernel's path never calls them), and a copy of x, which moves the
+same bytes as the kernel and nothing else.
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_dw [BT] [check|bench|all] [--device cpu]
 """
@@ -55,7 +57,13 @@ def cudnn_fwd(x: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
 
 
 def cudnn_bwd_dx(gy: torch.Tensor, w4: torch.Tensor) -> torch.Tensor:
-    return torch.nn.grad.conv2d_input(_nchw(gy).shape, w4, _nchw(gy), padding=1, groups=C)
+    """The input gradient as autograd asks cuDNN for it in training: with a
+    channels-last input beside the output gradient. (``torch.nn.grad.
+    conv2d_input`` passes a stride-0 stand-in for the input, whose layout
+    sends cuDNN down another, far slower path.)"""
+    g = _nchw(gy)
+    return torch.ops.aten.convolution_backward(g, g, w4, None, (1, 1), (1, 1), (1, 1), False,
+                                               (0, 0), C, (True, False, False))[0]
 
 
 def bound(N: int, dtype: torch.dtype) -> tuple[float, str]:
@@ -91,12 +99,15 @@ def bench(BT: int, device: torch.device, iters: int = 10,
           log: Callable[[str], None] = print) -> list[dict]:
     x, w = inputs(BT, torch.bfloat16, device)
     w4 = _conv_weight(w, torch.bfloat16)
+    flipped = w.flip(0)  # the input gradient is the conv with the taps flipped
     b_ms, b_by = bound(BT, torch.bfloat16)
     rows = []
     for name, fn in (("dw3x3 fwd", lambda: dw3x3(x, w, H, W)),
+                     ("dw3x3 bwd(dx)", lambda: dw3x3(x, flipped, H, W)),
                      ("plain shifted-sum fwd", lambda: dw3x3_plain(x, w, H, W)),
                      ("cudnn grouped conv fwd", lambda: cudnn_fwd(x, w4)),
-                     ("cudnn grouped conv bwd(dx)", lambda: cudnn_bwd_dx(x, w4))):
+                     ("cudnn grouped conv bwd(dx)", lambda: cudnn_bwd_dx(x, w4)),
+                     ("copy of x (the bytes alone)", x.clone)):
         ms = time_ms(fn, device, iters)
         log(f"{name:44s} {ms:8.4f} ms  (H100 bound {b_ms:.4f} ms, {b_by})")
         rows.append({"name": name, "BT": BT, "dtype": "bfloat16", "ms": ms,

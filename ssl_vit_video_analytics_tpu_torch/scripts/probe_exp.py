@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``scripts/probe_exp.py``. The block
 (``rows x lanes`` fp32, by default 896 x 6272 = 5.62 M elements, twice a
 decoder block) is read and written once per call while the op is applied
 ``n`` times in registers, so the slope of the time between ``n = lo`` and
-``n = hi`` is the cost of one application. Each row also has that slope's
-bound on an H100 and the plain PyTorch version's slope.
+``n = hi`` is the cost of one application, as the JAX probe takes it. At
+``lo`` the call is mostly the block's traffic, which the chain hides at
+``hi``, so that slope reads low for the cheapest ops; the slope between
+``mid`` and ``hi``, both bound by operations, cancels the traffic and is
+the one held to the bound. Each row has both slopes, the bound on an H100
+and the plain PyTorch version's slope.
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_exp [--device cpu] [--sass]
 """
@@ -27,33 +31,39 @@ from ssl_vit_video_analytics_tpu_torch.ops.unary_chain import (
 from ssl_vit_video_analytics_tpu_torch.scripts import HBM_BYTES_PER_S, time_ms
 
 ROWS, LANES = 896, 6272
-LO, HI = 4, 516
+LO, MID, HI = 4, 132, 516  # MID and HI - MID whole trips of the main loop
 # H100 SXM: 132 SMs at 1.98 GHz; per clock and SM 16 MUFU results (ex2,
-# rcp, tanh) and 128 fp32 FMA-pipe results (CUDA C programming guide,
-# compute capability 9.0)
+# rcp, tanh), 128 fp32 and 256 16-bit FMA-pipe results (CUDA C programming
+# guide, compute capability 9.0)
 SMS, CLOCK_HZ = 132, 1.98e9
 MUFU_PER_CLOCK, FMA_PER_CLOCK = 16, 128
-# the fewest (MUFU, FMA-pipe) instructions per element and application,
-# each multiply and add rounded on its own as the plain version rounds it:
-# exp = ex2 of a scaled input, tanh = one tanh.approx after the shift,
-# gelu = one tanh and 9 multiplies and adds, fma = a multiply and an add.
-# The same counts are taken for bf16, at the fp32 pipes' rates.
-MIN_OPS = {"exp": (1, 1), "tanh": (1, 1), "gelu": (1, 9), "fma": (0, 2)}
+# the fewest (MUFU, FMA-pipe) operations per element and application, each
+# multiply and add rounded on its own as the plain version rounds it, in
+# fp32 FMA-pipe ops: exp = ex2 of a scaled input, tanh = one tanh.approx
+# after the shift, gelu = one tanh and 9 multiplies and adds, fma = a
+# multiply and an add. In bf16 a packed multiply or add serves two elements
+# at the fp32 op's issue cost, so it counts half an op per element.
+MIN_OPS = {torch.float32: {"exp": (1, 1), "tanh": (1, 1), "gelu": (1, 9), "fma": (0, 2)},
+           torch.bfloat16: {"exp": (1, 0.5), "tanh": (1, 0.5), "gelu": (1, 4.5), "fma": (0, 1)}}
 # kUnroll and kElems of csrc/unary_chain.cu: the main loop's body applies
 # the op UNROLL times to each of a thread's ELEMS elements
-UNROLL, ELEMS = 8, 4
+UNROLL, ELEMS = 4, 8
+# the mangled names of its kernels: unary_chain_{f32,bf16x2}_kernel<op>
+_KERNEL = re.compile(r"unary_chain_(f32|bf16x2)_kernelILi(\d)EE")
+# conversions to bf16 in SASS: one value each, and one packed pair each
+CONVERSIONS = ("F2F.BF16.F32", "F2FP.")
 
 
-def per_application_bound_ms(op: str, numel: int) -> float:
-    mufu, fma = MIN_OPS[op]
+def per_application_bound_ms(op: str, dtype: torch.dtype, numel: int) -> float:
+    mufu, fma = MIN_OPS[dtype][op]
     return numel * max(mufu / MUFU_PER_CLOCK, fma / FMA_PER_CLOCK) / (SMS * CLOCK_HZ) * 1e3
 
 
-def call_bound_ms(op: str, numel: int, n: int) -> tuple[float, str]:
+def call_bound_ms(op: str, dtype: torch.dtype, numel: int, n: int) -> tuple[float, str]:
     """Least time of one call: the block read and written once, or ``n``
     applications at the pipes' rates, whichever is longer."""
     t_bytes = 2 * numel * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = n * per_application_bound_ms(op, numel)
+    t_ops = n * per_application_bound_ms(op, dtype, numel)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -66,10 +76,11 @@ def block(rows: int, lanes: int, device: torch.device, seed: int = 0) -> torch.T
 
 def run(rows: int = ROWS, lanes: int = LANES, lo: int = LO, hi: int = HI,
         device: str | torch.device = "cuda", iters: int = 30, plain_iters: int = 10,
-        log: Callable[[str], None] = print) -> list[dict]:
-    """One row per op and working type: the kernel's time at ``lo`` and
-    ``hi`` applications, its per-application slope, rate and bound, and the
-    plain version's times and slope."""
+        log: Callable[[str], None] = print, mid: int = MID) -> list[dict]:
+    """One row per op and working type: the kernel's time at ``lo``,
+    ``mid`` and ``hi`` applications, its per-application slopes (``lo`` to
+    ``hi``, and ``mid`` to ``hi`` with its rate, bound and share of the
+    bound), and the plain version's times and slope."""
     device = torch.device(device)
     x = block(rows, lanes, device)
     numel = x.numel()
@@ -77,22 +88,26 @@ def run(rows: int = ROWS, lanes: int = LANES, lo: int = LO, hi: int = HI,
     for op in OPS:
         for dtype in DTYPES:
             t = {n: time_ms(lambda: unary_chain(x, n, dtype, op), device, iters)
-                 for n in (lo, hi)}
+                 for n in (lo, mid, hi)}
             p = {n: time_ms(lambda: unary_chain_plain(x, n, dtype, op), device,
                             plain_iters, warmup=1) for n in (lo, hi)}
             per = (t[hi] - t[lo]) / (hi - lo)
+            per_ops = (t[hi] - t[mid]) / (hi - mid)
             plain_per = (p[hi] - p[lo]) / (hi - lo)
-            rate = numel / (per / 1e3) / 1e9 if per > 0 else float("nan")
-            bound = per_application_bound_ms(op, numel)
+            rate = numel / (per_ops / 1e3) / 1e9 if per_ops > 0 else float("nan")
+            bound = per_application_bound_ms(op, dtype, numel)
             name = str(dtype).replace("torch.", "")
-            log(f"{op:5s} {name:9s} per-application {per:9.6f} ms "
-                f"-> {rate:8.2f} G/s  (t{lo}={t[lo]:.4f} "
-                f"t{hi}={t[hi]:.4f}; H100 bound {bound:.6f} ms; plain {plain_per:.6f} ms)")
-            out.append({"op": op, "dtype": name, "numel": numel, "lo": lo, "hi": hi,
-                        "t_lo_ms": t[lo], "t_hi_ms": t[hi], "per_application_ms": per,
+            log(f"{op:5s} {name:9s} per-application {per_ops:9.6f} ms "
+                f"-> {rate:8.2f} G/s, {bound / per_ops:6.1%} of the H100 bound "
+                f"{bound:.6f} ms (t{lo}={t[lo]:.4f} t{mid}={t[mid]:.4f} t{hi}={t[hi]:.4f}; "
+                f"from t{lo} {per:.6f} ms; plain {plain_per:.6f} ms)")
+            out.append({"op": op, "dtype": name, "numel": numel, "lo": lo, "mid": mid,
+                        "hi": hi, "t_lo_ms": t[lo], "t_mid_ms": t[mid], "t_hi_ms": t[hi],
+                        "per_application_ms": per, "per_application_ops_ms": per_ops,
                         "rate_g_per_s": rate,
                         "bound_per_application_ms": bound,
-                        "bound_hi_ms": call_bound_ms(op, numel, hi)[0],
+                        "share_of_bound": bound / per_ops if per_ops > 0 else float("nan"),
+                        "bound_hi_ms": call_bound_ms(op, dtype, numel, hi)[0],
                         "plain_t_lo_ms": p[lo], "plain_t_hi_ms": p[hi],
                         "plain_per_application_ms": plain_per})
     return out
@@ -110,7 +125,7 @@ def loop_counts(sass: str) -> dict[str, dict[str, float]]:
     (``csrc/unary_chain.cu``). Keyed ``"op/dtype"``, by opcode."""
     out = {}
     for chunk in sass.split("Function : ")[1:]:
-        m = re.search(r"unary_chain_kernelILi(\d)ELb([01])E", chunk.split("\n", 1)[0])
+        m = _KERNEL.search(chunk.split("\n", 1)[0])
         if not m:
             continue
         labels, insns = {}, []
@@ -144,9 +159,17 @@ def loop_counts(sass: str) -> dict[str, dict[str, float]]:
             if start <= a <= end:
                 counts[opcode] = counts.get(opcode, 0) + 1
         per = UNROLL * ELEMS
-        name = f"{OPS[int(m.group(1))]}/{'bfloat16' if m.group(2) == '1' else 'float32'}"
+        name = f"{OPS[int(m.group(2))]}/{'bfloat16' if m.group(1) == 'bf16x2' else 'float32'}"
         out[name] = {k: v / per for k, v in sorted(counts.items())}
     return out
+
+
+def conversions(counts: dict[str, dict[str, float]]) -> dict[str, dict[str, float]]:
+    """Conversions to bf16 per element and application in each bf16 main
+    loop of :func:`loop_counts`: ``F2F.BF16.F32`` and ``F2FP.*`` apart."""
+    return {name: {prefix: sum(v for op, v in ops.items() if op.startswith(prefix))
+                   for prefix in CONVERSIONS}
+            for name, ops in counts.items() if name.endswith("/bfloat16")}
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -154,11 +177,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sass", action="store_true",
                     help="print the kernels' main-loop instructions per application "
-                         "(cuobjdump) and exit")
+                         "(cuobjdump), then the bf16 conversions among them, and exit")
     args = ap.parse_args(argv)
     if args.sass:
         counts = sass_loop_counts(kernel_build.build()["unary_chain"].path)
         print(json.dumps(counts, indent=1), flush=True)
+        print(json.dumps({"bf16_conversions": conversions(counts)}), flush=True)
         return [counts]
     device = torch.device(args.device)
     if device.type == "cuda":

@@ -8,7 +8,9 @@ synthetic 40-clip split of 64-frame 112x112 videos with random weights.
 Prints one JSON object: the host-clock ms of each profiled step, the
 device time per step summed over every kernel, the idle share (1 - device
 time / wall time of the window; one stream, so kernels do not overlap),
-K1's and K2's part, and the kernels with the most device time per step.
+K1's and K2's part, the kernels with the most device time per step, and
+the device time of every 3x3 depthwise conv (cuDNN's, forward and
+backward, by input shape, with the kernels each launched).
 """
 from __future__ import annotations
 
@@ -35,6 +37,45 @@ def _device_us(evt) -> float:
                  or getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def _kernels(evt) -> dict[str, float]:
+    """Device us of the kernels an op launched, its children's included."""
+    out: dict[str, float] = {}
+    for k in evt.kernels:
+        out[k.name] = out.get(k.name, 0.0) + k.duration
+    for child in evt.cpu_children:
+        for name, us in _kernels(child).items():
+            out[name] = out.get(name, 0.0) + us
+    return out
+
+
+def depthwise_3x3(events, steps: int) -> list[dict]:
+    """Device ms per step of the 3x3 depthwise convs (weight ``[C, 1, 3, 3]``):
+    ``aten::convolution`` (forward, recomputed stages included) and
+    ``aten::convolution_backward`` (input and weight gradients), by input
+    shape, with each kernel they launched."""
+    rows: dict[tuple, dict] = {}
+    for e in events:
+        if e.name not in ("aten::convolution", "aten::convolution_backward"):
+            continue
+        shapes = e.input_shapes
+        x, wt = (shapes[0], shapes[1]) if e.name == "aten::convolution" else (shapes[1], shapes[2])
+        if len(wt) != 4 or wt[1:] != [1, 3, 3]:
+            continue
+        key = (e.name, tuple(x))
+        row = rows.setdefault(key, {"op": e.name, "input": list(x), "calls": 0, "us": 0.0,
+                                    "kernels": {}})
+        row["calls"] += 1
+        row["us"] += e.device_time_total
+        for name, us in _kernels(e).items():
+            row["kernels"][name] = row["kernels"].get(name, 0.0) + us
+    return [{"op": r["op"], "input": r["input"], "calls_per_step": r["calls"] / steps,
+             "ms_per_step": r["us"] / 1e3 / steps,
+             "kernels_ms_per_step": {k[:120]: us / 1e3 / steps
+                                     for k, us in sorted(r["kernels"].items(),
+                                                         key=lambda kv: -kv[1])}}
+            for r in sorted(rows.values(), key=lambda r: -r["us"])]
+
+
 def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU")
@@ -48,7 +89,8 @@ def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
         cfg["paths"] = {"split_root": ""}
         cfg["training"]["save_dir"] = os.path.join(tmp, "out")
         cfg.setdefault("logging", {})["tensorboard"] = False
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True)
         marks = {}
 
         def on_step(i, state, metrics):
@@ -81,6 +123,7 @@ def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
         "top_kernels_ms_per_step": [
             {"name": e.key[:120], "ms": _device_us(e) / 1e3 / steps, "calls": e.count // steps}
             for e in by_name[:top]],
+        "depthwise_3x3_ms_per_step": depthwise_3x3(prof.events(), steps),
     }
 
 

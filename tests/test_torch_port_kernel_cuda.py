@@ -19,11 +19,12 @@ than 1e-2 of the largest of the three: over a single key dQ and dK are
 zero in exact arithmetic and rounding noise in both versions): 1e-4 in
 fp32 (sums of up to a few hundred fp32 terms in another order); 2e-2 in
 bf16 (one bf16 rounding of the output, 2^-8 relative, plus bf16 out in D).
-P1, 1e-5 abs in fp32 (nine terms, FMA against multiply-add); in bf16 the
+P1, at every edge of its TMA tiles, 1e-5 abs in fp32 (nine terms, FMA
+against multiply-add); in bf16 the
 same 1e-5 plus one bf16 ulp of the output (each rounds its fp32 sum once,
 and a sum that cancels to near zero has ulps far below 1e-5). P2, 1e-5 of the
-output's largest magnitude in fp32 (the kernel fuses the FMA op); two bf16
-ulps of each element in bf16 (both round at every elementary operation).
+output's largest magnitude in fp32; two bf16 ulps of each element in bf16
+(both round at every elementary operation, as the JAX probe does).
 """
 import pytest
 import torch
@@ -256,9 +257,13 @@ def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-# the probe's image, a non-square one, one pixel, a ragged channel count
+# the probe's image, a non-square one, one pixel, a ragged channel count;
+# then the edges of the kernel's tiles (8 rows x up to the whole width x 32
+# bf16 or 16 fp32 channels): H not a multiple of 8, W + 2 > 256 (column
+# tiles), C not a multiple of the chunk
 @pytest.mark.parametrize("N,H,W,C", [(2, 56, 56, 384), (3, 7, 5, 16), (1, 1, 1, 8),
-                                     (2, 3, 9, 24)])
+                                     (2, 3, 9, 24), (1, 57, 56, 384), (1, 9, 300, 40),
+                                     (2, 9, 56, 24), (2, 5, 7, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_depthwise_kernel_matches_plain(dev, N, H, W, C, dtype):
     g = torch.Generator(device=dev).manual_seed(3)
@@ -294,9 +299,18 @@ def test_depthwise_kernel_refuses_instead_of_falling_back(dev):
         depthwise.dw3x3(x.transpose(0, 1).contiguous().transpose(0, 1), w, 3, 4)
 
 
-# a ragged element count (not a multiple of a thread's 4), n = 0, chain
-# lengths that run only the remainder loop (1, 7), only the main loop of 8
-# applications a trip (64), and both (13, and the probe's 516 = 64 * 8 + 4)
+def test_depthwise_kernels_copy_with_the_tma(dev):
+    """Both P1 kernels (fp32, bf16) hold the TMA's tensor loads (UTMALDG)
+    in their SASS."""
+    counts = kernel_build.count_by_function(
+        kernel_build.sass(kernel_build.build()["dw3x3"].path), "UTMALDG")
+    assert len(counts) == 2, counts
+    assert all(n > 0 for n in counts.values()), counts
+
+
+# a ragged element count (not a multiple of a thread's 8), n = 0, chain
+# lengths that run only the remainder loop (1), only the main loop of 4
+# applications a trip (64, and the probe's 516 = 129 * 4), and both (7, 13)
 @pytest.mark.parametrize("n", [0, 1, 7, 13, 64, 516])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", uc.OPS)
@@ -314,6 +328,20 @@ def test_unary_chain_kernel_matches_plain(dev, op, dtype, n):
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     else:
         assert ((out - ref).abs() <= 2 * _bf16_ulp(ref)).all()
+
+
+def test_unary_chain_bf16_main_loops_round_without_f2f(dev):
+    """In bf16 the packed kernels convert only around exp and tanh, one
+    F2FP pack per pair: no F2F.BF16.F32 in any main loop, and at most half
+    a conversion per element and application."""
+    from ssl_vit_video_analytics_tpu_torch.scripts import probe_exp
+
+    counts = probe_exp.sass_loop_counts(kernel_build.build()["unary_chain"].path)
+    assert set(counts) == {f"{op}/{dt}" for op in uc.OPS for dt in ("float32", "bfloat16")}
+    conversions = probe_exp.conversions(counts)
+    for name, c in conversions.items():
+        assert c["F2F.BF16.F32"] == 0 and c["F2FP."] <= 0.5, (name, c)
+    assert conversions["fma/bfloat16"]["F2FP."] == 0
 
 
 def test_unary_chain_kernel_refuses_instead_of_falling_back(dev):

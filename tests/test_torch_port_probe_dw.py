@@ -68,6 +68,24 @@ def test_plain_matches_dw_roll_bf16():
     assert (np.abs(got - roll) <= bf16_ulp(roll)).all()
 
 
+# the shapes at which the card tests cross every edge of the kernel's tiles
+# (8 rows x up to the whole width x 64 bytes of channels): H not a
+# multiple of 8, W + 2 > 256 (column tiles), C not a multiple of the chunk
+@pytest.mark.parametrize("n,h,w,c", [(1, 57, 56, 384), (1, 9, 300, 40), (2, 9, 56, 24),
+                                     (2, 5, 7, 72)])
+def test_plain_matches_xla_at_the_kernel_tile_edges(n, h, w, c):
+    """The plain version, which the card tests hold the kernel to at these
+    shapes, against the JAX probe's XLA conv at HIGHEST precision."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((n, h * w, c), dtype=np.float32)
+    taps = rng.standard_normal((9, c), dtype=np.float32)
+    xla = np.asarray(jax_probe_dw.dw_xla(jnp.asarray(x).reshape(n, h, w, c),
+                                         jnp.asarray(taps).reshape(3, 3, 1, c),
+                                         precision=jax.lax.Precision.HIGHEST))
+    got = depthwise.dw3x3(torch.from_numpy(x), torch.from_numpy(taps), h, w)
+    np.testing.assert_allclose(got.numpy().reshape(n, h, w, c), xla, atol=1e-5, rtol=0)
+
+
 def test_edges_are_zero_padded():
     """A one-hot tap reads the neighbour it names, and zero past the edge."""
     x = torch.arange(N * H * W * C, dtype=torch.float32).reshape(N, H * W, C)
@@ -94,8 +112,8 @@ def test_probe_entry_on_cpu():
     rows = probe_dw.main(["1", "all", "--device", "cpu"])
     assert depthwise.launches.count == before
     assert [r["name"] for r in rows] == [
-        "check fp32", "dw3x3 fwd", "plain shifted-sum fwd", "cudnn grouped conv fwd",
-        "cudnn grouped conv bwd(dx)"]
+        "check fp32", "dw3x3 fwd", "dw3x3 bwd(dx)", "plain shifted-sum fwd",
+        "cudnn grouped conv fwd", "cudnn grouped conv bwd(dx)", "copy of x (the bytes alone)"]
     assert rows[0]["err_plain"] == 0.0 and rows[0]["err_cudnn"] <= probe_dw.TOL_CHECK
     for row in rows[1:]:
         assert row["ms"] > 0 and row["bound_by"] == "bytes"
@@ -118,3 +136,25 @@ def test_cudnn_yardsticks_compute_the_same_function():
                                depthwise.dw3x3_plain(x, w, hw, c), atol=1e-5, rtol=0)
     torch.testing.assert_close(as_rows(probe_dw.cudnn_bwd_dx(x, w4)),
                                depthwise.dw3x3_plain(x, w.flip(0), hw, c), atol=1e-5, rtol=0)
+
+
+def test_profile_step_finds_the_depthwise_convs():
+    """profile_step's depthwise table: the 3x3 depthwise convs of a
+    profiled forward and backward, by op and input shape; other convs are
+    left out (on the CPU no kernel runs, so no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssl_vit_video_analytics_tpu_torch.scripts import profile_step
+
+    x = torch.randn(2, 8, 6, 6, requires_grad=True)
+    dw = torch.randn(8, 1, 3, 3, requires_grad=True)
+    pw = torch.randn(4, 8, 1, 1, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        for _ in range(2):
+            y = torch.nn.functional.conv2d(x, dw, padding=1, groups=8)
+            torch.nn.functional.conv2d(y, pw).sum().backward()
+    rows = profile_step.depthwise_3x3(prof.events(), steps=2)
+    assert {(r["op"], tuple(r["input"])) for r in rows} == {
+        ("aten::convolution", (2, 8, 6, 6)), ("aten::convolution_backward", (2, 8, 6, 6))}
+    for r in rows:
+        assert r["calls_per_step"] == 1 and r["ms_per_step"] == 0
