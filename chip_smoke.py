@@ -39,12 +39,15 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    reports how far each of its two runs lies from the fp32 plain run, at
    the leaf where they differ most from each other and at the leaf where
    bf16 alone moves the plain run most.
-6. train: the port's entry.train_ssl_mae.run on configs/ssl_mae.yaml as it
-   stands (batch 40, accumulation 2, remat on, bf16) on a synthetic 40-clip
-   split of 64-frame 112x112 videos, random weights from a seeded
-   generator, for 4 steps (2 optimizer updates). Per step: loss, gnorm,
-   whether an update was applied or skipped, step ms, clips/s, K1 and K2
-   calls (20 and 12 required) and peak device memory.
+6. train: the port's entry.train_ssl_mae.run on configs/ssl_mae.yaml
+   (batch 40, accumulation 2, remat on, bf16; the split device-resident,
+   as dataset.device_resident: auto makes it on a card) with one departure,
+   an encoder checkpoint every epoch (training.save_every: 1), on a
+   synthetic 40-clip split of 64-frame 112x112 videos, random weights from
+   a seeded generator, for 4 steps (2 optimizer updates). Per step: loss,
+   gnorm, whether an update was applied or skipped, step ms (the checkpoint
+   writes left out), clips/s, K1 and K2 calls (20 and 12 required) and peak
+   device memory. The last epoch's encoder checkpoint feeds phase 11.
 7. serving slice: the port's run_dynamic early-exit sweep at full MobileViT-S
    width (configs/dynamic.yaml: 101 classes, embed 256, batch 8, 16 frames,
    112x112, bf16) on a synthetic split, with random weights from a seeded
@@ -70,12 +73,43 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    conversions to bf16 per element and application in each bf16 main loop
    (F2F.BF16.F32 and F2FP.* apart, from cuobjdump; none of the first may
    remain); then the port's scripts.probe_exp.run(): times at n = 4, 132
-   and 516, the per-application slopes (4 to 516 as the JAX probe takes
+   and 516 (each the least of three windows queued behind a spin on the
+   stream, so the host's launches are not timed; they must grow with n),
+   the per-application slopes (4 to 516 as the JAX probe takes
    it; 132 to 516, both bound by operations, against the bound), and the
    plain version's.
 
+10. finetune step, kernel vs plain: the full-width TinyViT classifier
+   (stage limit 3, dims 96/192/384, 8 classes) at B=2 clips x 16 frames x
+   112x112, the same weights and drop-path decisions through the kernels
+   and through the plain versions, unfrozen (ft_ssl: K1 8, K2 8 calls) and
+   with the backbone frozen (two_stage before its boundary: K1 8, K2 0), in
+   fp32 (TF32 off; loss 1e-4 relative, every gradient 1e-3 relative L2) and
+   bf16 (1e-3 and 5e-2), with phase 5's floor (bf16 holds the gradients
+   that are not zero in the fp32 plain run: one that is zero in exact
+   arithmetic is bf16 rounding noise in both runs, and that noise can pass
+   the floor; their count and worst distance are reported; a gradient
+   beyond 5e-2 of the plain run passes only if the kernel run lies within
+   5e-2 of the fp32 plain run beyond the plain bf16 run's own distance from
+   it); then one real step of each
+   mode through the kernels: the frozen one keeps every backbone param
+   bit-unchanged and moves its BatchNorm statistics.
+11. pipeline-B transfer: configs/finetune.yaml under the transfer
+   campaign's pipeline-B overrides (tinyvit, 16 frames at stride 1,
+   112x112, batch 16, bf16, dataset.device_resident: true), two_stage for 2
+   epochs (1 frozen), from phase 6's encoder checkpoint, through the port's
+   entry.train_finetune.run on a synthetic 64-clip split (8 classes;
+   validation on the same split); per step loss, top-1, step ms, clips/s,
+   K1 and K2 calls (8 each step, K2 0 while frozen) and peak memory; the
+   SSL-load log line, finite params and a best checkpoint whose name
+   encodes its top-1; one training batch of each device store (resident,
+   and chunked in two shards) bit-equal to the host path's; then
+   entry.evaluate.run on the best checkpoint with latency on: its top-1
+   equals the best epoch's, K1 8 calls per batch, and its p50 batch
+   latency.
+
 Every kernel launch count is set to 0 just before each path (train,
-serving, each probe) is driven and read just after. The line before the
+serving, each probe, finetune, evaluate) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -102,7 +136,7 @@ P1_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/dw3x3.cu"
 P2_TPU = "scripts/probe_exp.py:35"
 P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
 PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
-         "probe_exp")
+         "probe_exp", "train_finetune", "evaluate")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -127,7 +161,37 @@ SSL_MAE_YAML = {
 }
 BASE_YAML = {"seed": 42, "device": {"compute_dtype": "bfloat16"},
              "dataset": {"backend": "packed"}}
+# the smoke's one departure from configs/ssl_mae.yaml: an encoder checkpoint
+# every epoch, so that the 4 steps leave one for phase 11
+SSL_MAE_SMOKE_OVERRIDES = {"training": {"save_every": 1}}
 TRAIN_STEPS = 4
+
+# configs/finetune.yaml, spelled out likewise (its split and checkpoint
+# paths are the smoke's own) ...
+FINETUNE_YAML = {
+    "experiment": {"mode": "ft_ssl"},
+    "dataset": {"name": "UCF101", "num_classes": 101},
+    "training": {"epochs": 30, "batch_size": 64, "learning_rate": 0.0001,
+                 "weight_decay": 0.01, "log_interval": 20, "stage1_epochs": 10,
+                 "head_lr": 0.001, "backbone_lr": 0.0001},
+    "model": {"backbone": "mobilevit_s", "embed_dim": 256, "freeze_backbone": False},
+    "optimizer": {"type": "adamw"},
+    "evaluation": {"topk": [1, 5]},
+}
+# ... under the pipeline-B transfer campaign's overrides
+# (scripts/ssl_transfer_campaign.py --backbone tinyvit --device_resident true:
+# T=16, stride 1, 112x112, batch 16, bf16), cut to two epochs of two_stage
+CAMPAIGN_B = {"model": {"backbone": "tinyvit"},
+              "dataset": {"clip_len": 16, "stride": 1, "image_size": 112,
+                          "device_resident": True},
+              "training": {"batch_size": 16, "epochs": 2, "stage1_epochs": 1},
+              "device": {"compute_dtype": "bfloat16"}}
+FINETUNE_MODE = "two_stage"
+FT_CLASSES = 8
+# attention layers of the TinyViT classifier (stage limit 3): 2 in stage 1,
+# 6 in stage 2; K1 once each per forward, K2 once each per backward through
+# an unfrozen backbone
+FT_K1_CALLS, FT_K2_CALLS = 8, 8
 # attention layers of the pipeline-B step: 2 in TinyViT stage 1, 6 in
 # stage 2, 4 in the decoder. Each runs K1 forward and K2 backward once; the
 # 8 encoder layers run K1 once more when their checkpointed stage is
@@ -446,13 +510,40 @@ def phase_backward(fa, dev) -> dict:
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
 
 
+def merged(*cfgs: dict) -> dict:
+    """Section-wise merge, later configs winning (as configs/base.yaml under
+    a task config)."""
+    out: dict = {}
+    for cfg in cfgs:
+        for key, value in json.loads(json.dumps(cfg)).items():
+            if isinstance(value, dict):
+                out.setdefault(key, {}).update(value)
+            else:
+                out[key] = value
+    return out
+
+
 def ssl_mae_cfg(split: str, save_dir: str) -> dict:
-    cfg = json.loads(json.dumps(SSL_MAE_YAML))
-    cfg["seed"] = BASE_YAML["seed"]
-    cfg["device"] = {"name": "cuda", **BASE_YAML["device"]}
-    cfg["dataset"].update(train_split=split, **BASE_YAML["dataset"])
+    cfg = merged(BASE_YAML, SSL_MAE_YAML, SSL_MAE_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"]["train_split"] = split
     cfg["training"]["save_dir"] = save_dir
     cfg["paths"] = {"split_root": ""}
+    return cfg
+
+
+def finetune_cfg(train_split: str, val_split: str, pretrained_ssl: str, out: str) -> dict:
+    """Phase 11's config: configs/finetune.yaml over configs/base.yaml, the
+    campaign's pipeline-B overrides, and the smoke's split, class count,
+    encoder checkpoint and output directories."""
+    cfg = merged(BASE_YAML, FINETUNE_YAML, CAMPAIGN_B)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"].update(train_split=train_split, val_split=val_split,
+                          num_classes=FT_CLASSES)
+    cfg["model"]["pretrained_ssl"] = pretrained_ssl
+    cfg["paths"] = {"split_root": "", "save_dir": os.path.join(out, "finetune"),
+                    "result_dir": os.path.join(out, "results"),
+                    "log_dir": os.path.join(out, "logs")}
     return cfg
 
 
@@ -570,13 +661,15 @@ def phase_train_step(fa, dev) -> list[dict]:
     return outs
 
 
-def phase_train(fa, dev) -> dict:
-    """The pipeline-B entry on configs/ssl_mae.yaml for TRAIN_STEPS steps."""
+def phase_train(fa, dev, tmp: str) -> tuple[dict, str]:
+    """The pipeline-B entry on configs/ssl_mae.yaml for TRAIN_STEPS steps.
+    Returns the launches and the last encoder checkpoint (under ``tmp``)."""
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
     from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
     from ssl_vit_video_analytics_tpu_torch.train.state import adamw_of
+    from ssl_vit_video_analytics_tpu_torch.utils.checkpoint import find_latest_checkpoint
     from ssl_vit_video_analytics_tpu_torch.utils.metrics import (
         pipeline_b_flops_per_clip, pipeline_b_model_kwargs)
 
@@ -586,57 +679,62 @@ def phase_train(fa, dev) -> dict:
     # model FLOPs (forward + backward, no recompute) per clip, analytic
     flops_per_clip = pipeline_b_flops_per_clip(d["clip_len"], d["image_size"],
                                                **pipeline_b_model_kwargs(SSL_MAE_YAML))
-    with tempfile.TemporaryDirectory() as tmp:
-        # 8 classes x 5 train videos = 40 clips of 64 frames (16 frames at
-        # stride 4), 112x112
-        splits = make_synthetic_dataset(os.path.join(tmp, "data"), num_classes=8,
-                                        videos_per_class=6, num_frames=64,
-                                        image_size=112, seed=0)
-        cfg = ssl_mae_cfg(splits["train"], os.path.join(tmp, "out"))
-        steps, last = [], {"t": 0.0, "count": 0}
-        final = {}
+    # 8 classes x 5 train videos = 40 clips of 64 frames (16 frames at
+    # stride 4), 112x112
+    splits = make_synthetic_dataset(os.path.join(tmp, "ssl_data"), num_classes=8,
+                                    videos_per_class=6, num_frames=64, image_size=112, seed=0)
+    cfg = ssl_mae_cfg(splits["train"], os.path.join(tmp, "ssl_out"))
+    steps, last = [], {"t": 0.0, "count": 0}
+    final = {}
 
-        def on_step(i, state, metrics):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            count = adamw_of(state.tx).count
-            due = i % k == 0
-            launched = read_counts()
-            for name, n in launched.items():
-                totals[name] += n
-            steps.append({"step": i, "includes_setup": i == 1,
-                          "loss": float(metrics["loss"]),
-                          "gnorm": float(metrics["grad_norm"]),
-                          "update": ("applied" if count > last["count"] else "skipped")
-                          if due else "accumulated",
-                          "step_ms": 1e3 * (now - last["t"]),
-                          "clips_per_s": B / (now - last["t"]),
-                          "model_tflop_per_s": flops_per_clip * B / (now - last["t"]) / 1e12,
-                          "k1_calls": launched["flash_attention_fwd"],
-                          "k2_calls": launched["flash_attention_bwd"],
-                          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-            emit({"phase": "train_step", **steps[-1]})
-            final["model"], final["count"] = state.model, count
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            last["count"] = count
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        count = adamw_of(state.tx).count
+        due = i % k == 0
+        launched = read_counts()
+        for name, n in launched.items():
+            totals[name] += n
+        steps.append({"step": i, "includes_setup": i == 1,
+                      "loss": float(metrics["loss"]),
+                      "gnorm": float(metrics["grad_norm"]),
+                      "update": ("applied" if count > last["count"] else "skipped")
+                      if due else "accumulated",
+                      "step_ms": 1e3 * (now - last["t"]),
+                      "clips_per_s": B / (now - last["t"]),
+                      "model_tflop_per_s": flops_per_clip * B / (now - last["t"]) / 1e12,
+                      "k1_calls": launched["flash_attention_fwd"],
+                      "k2_calls": launched["flash_attention_bwd"],
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        emit({"phase": "train_step", **steps[-1]})
+        final["model"], final["count"] = state.model, count
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        last["count"] = count
+        last["t"] = time.perf_counter()
+
+    def on_log(msg: str) -> None:
+        lines.append(msg)
+        if "saved encoder checkpoint" in msg:  # the next step's time starts here
             last["t"] = time.perf_counter()
 
-        torch.cuda.reset_peak_memory_stats()
-        lines = []
-        totals = dict.fromkeys(counters(), 0)
-        reset_counts()
-        last["t"] = t0 = time.perf_counter()
-        out = train_ssl_mae.run(cfg, log=lines.append, max_steps=TRAIN_STEPS,
-                                on_step=on_step)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        for name, n in read_counts().items():  # anything after the last step
-            totals[name] += n
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    totals = dict.fromkeys(counters(), 0)
+    reset_counts()
+    last["t"] = t0 = time.perf_counter()
+    out = train_ssl_mae.run(cfg, log=on_log, max_steps=TRAIN_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name, n in read_counts().items():  # anything after the last step
+        totals[name] += n
+    ckpt = find_latest_checkpoint(cfg["training"]["save_dir"])
     finite = all(bool(torch.isfinite(p).all()) for p in final["model"].parameters())
     summary = {"phase": "train", "steps": out["steps"], "seconds": seconds,
                "last_loss": out["last_loss"], "updates_applied": final["count"],
-               "params_finite": finite, "log": lines[-3:]}
+               "params_finite": finite, "encoder_checkpoint": os.path.basename(ckpt or ""),
+               "device_resident": any("device-resident store" in m for m in lines),
+               "log": lines[-3:]}
     emit(summary)
     bad = [s for s in steps if (s["k1_calls"], s["k2_calls"])
            != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP)]
@@ -644,7 +742,9 @@ def phase_train(fa, dev) -> dict:
         raise AssertionError(f"train: {out['steps']} steps; kernel calls off in {bad}")
     if not (finite and final["count"] >= 1 and all(math.isfinite(s["loss"]) for s in steps)):
         raise AssertionError(f"train: non-finite result or no update applied: {summary}")
-    return totals
+    if ckpt is None or not ckpt.endswith(f"ckpt_epoch_{TRAIN_STEPS}.pt"):
+        raise AssertionError(f"train: no encoder checkpoint of the last epoch: {ckpt}")
+    return totals, ckpt
 
 
 def slice_cfg(split: str, save_dir: str, impl: str) -> dict:
@@ -885,6 +985,292 @@ def phase_chain(dev) -> dict:
             "bound_ms": sum(r["bound_hi_ms"] for r in rows)}
 
 
+def phase_finetune_step(fa, dev) -> list[dict]:
+    """The full-width TinyViT classifier's finetune step through the kernels
+    and through the plain versions, on the same weights and drop-path
+    decisions, unfrozen (ft_ssl) and frozen (two_stage before its boundary),
+    in fp32 (TF32 off) and in bf16; then one real step of each mode through
+    the kernels."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T, S = 2, CAMPAIGN_B["dataset"]["clip_len"], CAMPAIGN_B["dataset"]["image_size"]
+    training = merged(FINETUNE_YAML, CAMPAIGN_B)["training"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
+    labels = torch.randint(0, FT_CLASSES, (B,), dtype=torch.int32, device=dev, generator=g)
+    outs, drop = [], None
+    live = {}  # by mode: the gradients that are not zero in the fp32 plain run
+    ref32 = {}  # by mode: the fp32 plain run's gradients
+
+    def set_impl(model, impl):
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = impl
+
+    for dtype, tol_loss, tol_grad in ((torch.float32, TOL_STEP_LOSS, TOL_STEP_GRAD),
+                                      (torch.bfloat16, TOL_STEP_LOSS_BF16,
+                                       TOL_STEP_GRAD_BF16)):
+        model = eng.build_model(FT_CLASSES, 256, dtype=dtype, backbone="tinyvit")
+        eng.init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        clip = normalize_clip(clip_u8, dtype=dtype)
+        if drop is None:  # one set of decisions for every run
+            drop = model.draw_drop_path(B, T, g)
+        for mode, freeze in (("ft_ssl", False), (FINETUNE_MODE, True)):
+            res = {}
+            for impl in ("kernel", "plain", "kernel", "plain"):  # the first of each warms up
+                set_impl(model, impl)
+                model.load_state_dict(start)
+                params = eng.build_finetune_tx(training, mode, model, freeze).params
+                names = {id(p): n for n, p in model.named_parameters()}
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, _, grads = eng.loss_and_grads(model, params, clip, labels, drop)
+                torch.cuda.synchronize()
+                res[impl] = {"loss": float(loss), "grads": grads,
+                             "ms": 1e3 * (time.perf_counter() - t0),
+                             "k1": fa.launches.count, "k2": fa.bwd_launches.count}
+            kern, plain = res["kernel"], res["plain"]
+            loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+            rels, norms = rel_l2_by_leaf(kern["grads"], plain["grads"])
+            if mode not in live:  # fp32, first: which gradients are zero in exact arithmetic
+                live[mode] = [n >= 1e-4 * max(norms) for n in norms]
+                ref32[mode] = plain["grads"]
+            # a gradient that is zero in exact arithmetic (a per-channel shift
+            # ahead of a train-mode BatchNorm, as stage 1's last MLP bias ahead
+            # of stage 2's downsample) is rounding noise in both runs; in bf16
+            # that noise can pass phase 5's floor, so bf16 holds only the
+            # gradients the fp32 plain run finds above it
+            checked = [i for i, on in enumerate(live[mode])
+                       if on or dtype == torch.float32]
+            # in bf16, each run's distance from the fp32 plain run: a leaf
+            # beyond tol_grad of the plain run passes only where the kernel
+            # run is within tol_grad of the exact result as far again as bf16
+            # rounding alone puts the plain run (SE weights at B=2 move by
+            # about 5e-2 under bf16 rounding, as in phase 5)
+            k32 = p32 = [0.0] * len(rels)
+            if dtype != torch.float32:
+                k32, _ = rel_l2_by_leaf(kern["grads"], ref32[mode])
+                p32, _ = rel_l2_by_leaf(plain["grads"], ref32[mode])
+            beyond = [i for i in checked if not rels[i] <= tol_grad]
+            failed = [i for i in beyond if not k32[i] <= p32[i] + tol_grad]
+            worst = max(checked, key=lambda i: rels[i] if math.isfinite(rels[i]) else math.inf)
+
+            # one step of the mode through the kernels: the frozen backbone
+            # keeps every param and moves its BatchNorm statistics
+            set_impl(model, "kernel")
+            model.load_state_dict(start)
+            state = create_train_state(model, eng.build_finetune_tx(training, mode, model,
+                                                                    freeze))
+            reset_counts()
+            state, metrics = eng.make_train_step(model, dtype)(
+                state, {"clip": clip_u8, "label": labels}, g, drop=drop)
+            torch.cuda.synchronize()
+            step_calls = read_counts()
+            after = model.state_dict()
+            backbone = [k for k, _ in model.backbone.named_parameters()]
+            stats = [k for k in after if k.startswith("backbone.")
+                     and k.endswith(("running_mean", "running_var"))]
+            params_kept = all(torch.equal(after[f"backbone.{k}"], start[f"backbone.{k}"])
+                              for k in backbone)
+            stats_moved = sum(not torch.equal(after[k], start[k]) for k in stats)
+            head_moved = not torch.equal(after["head.weight"], start["head.weight"])
+            k2_want = 0 if freeze else FT_K2_CALLS
+            out = {"phase": "finetune_step_kernel_vs_plain", "B": B, "T": T,
+                   "dtype": str(dtype).replace("torch.", ""), "mode": mode,
+                   "frozen_backbone": freeze,
+                   "loss_kernel": kern["loss"], "loss_plain": plain["loss"],
+                   "loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
+                   "worst_grad": names[id(params[worst])], "grads": len(params),
+                   "grads_below_floor": sum(n < 1e-4 * max(norms) for n in norms),
+                   "grads_zero_in_fp32": len(rels) - len(checked),
+                   "worst_grads": [{"grad": names[id(params[i])], "kernel_vs_plain": rels[i],
+                                    "kernel_vs_fp32": k32[i], "plain_vs_fp32": p32[i]}
+                                   for i in sorted(checked, key=lambda i: -rels[i])[:3]],
+                   "beyond_tol_grad": len(beyond), "failed": len(failed),
+                   "zero_in_fp32_max_rel": max((rels[i] for i in range(len(rels))
+                                                if i not in checked), default=0.0),
+                   "tol_loss": tol_loss, "tol_grad": tol_grad,
+                   "ms_kernel": kern["ms"], "ms_plain": plain["ms"],
+                   "k1_calls": kern["k1"], "k2_calls": kern["k2"],
+                   "plain_k1_k2": [plain["k1"], plain["k2"]],
+                   "step_k1_k2": [step_calls["flash_attention_fwd"],
+                                  step_calls["flash_attention_bwd"]],
+                   "step_loss": float(metrics["loss"]),
+                   "backbone_params_unchanged": params_kept,
+                   "backbone_bn_stats_moved": f"{stats_moved}/{len(stats)}",
+                   "head_moved": head_moved}
+            emit(out)
+            if not (loss_rel <= tol_loss and not failed):
+                raise AssertionError(f"finetune step kernel vs plain, {mode} {dtype}: loss "
+                                     f"rel {loss_rel}, grad {out['worst_grad']} rel L2 "
+                                     f"{rels[worst]}")
+            if (kern["k1"], kern["k2"], plain["k1"], plain["k2"]) != (
+                    FT_K1_CALLS, k2_want, 0, 0) or out["step_k1_k2"] != [FT_K1_CALLS, k2_want]:
+                raise AssertionError(f"kernel calls in the finetune step: {out}")
+            if not (head_moved and stats_moved and params_kept == freeze
+                    and math.isfinite(out["step_loss"])):
+                raise AssertionError(f"finetune step state after one {mode} step: {out}")
+            outs.append(out)
+            del res, kern, plain, state
+        del model, start
+    return outs
+
+
+def phase_transfer(fa, dev, tmp: str, ssl_ckpt: str) -> dict:
+    """Pipeline-B transfer through the port's entries: phase 6's encoder
+    checkpoint -> two_stage finetune of the TinyViT classifier on a
+    device-resident split -> evaluate of the best checkpoint."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.device_store import (
+        ChunkedDeviceClipStore, DeviceClipStore)
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.data.loader import iterate_batches
+    from ssl_vit_video_analytics_tpu_torch.entry import common, evaluate, train_finetune
+    from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
+
+    # 8 classes x 8 train videos = 64 clips of 16 frames at 112x112, 4 steps
+    # an epoch (3 after the first unfrozen one); the fixture keeps one video
+    # a class for val (8 clips), too few to be sure of a top-1 above 0 at
+    # chance, so validation runs on the training split
+    d = CAMPAIGN_B["dataset"]
+    splits = make_synthetic_dataset(os.path.join(tmp, "ft_data"), num_classes=FT_CLASSES,
+                                    videos_per_class=9, num_frames=d["clip_len"],
+                                    image_size=d["image_size"], seed=1)
+    cfg = finetune_cfg(splits["train"], splits["train"], ssl_ckpt[:-len(".pt")],
+                       os.path.join(tmp, "ft_out"))
+    B = cfg["training"]["batch_size"]
+    n_train = sum(1 for _ in open(splits["train"]))
+    steps_per_epoch = n_train // B
+    val_batches = -(-n_train // B)
+    steps, evals, lines, last, final = [], [], [], {"t": 0.0}, {}
+    totals = dict.fromkeys(counters(), 0)
+
+    def take_counts() -> dict:
+        launched = read_counts()
+        for name, n in launched.items():
+            totals[name] += n
+        reset_counts()
+        return launched
+
+    def on_step(i, state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launched = take_counts()
+        steps.append({"step": i, "epoch": (i - 1) // steps_per_epoch + 1,
+                      "includes_setup": i == 1, "loss": float(metrics["loss"]),
+                      "top1": float(metrics["top1"]), "step_ms": 1e3 * (now - last["t"]),
+                      "clips_per_s": B / (now - last["t"]),
+                      "k1_calls": launched["flash_attention_fwd"],
+                      "k2_calls": launched["flash_attention_bwd"],
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        emit({"phase": "finetune_step", **steps[-1]})
+        final["model"] = state.model
+        torch.cuda.reset_peak_memory_stats()
+        last["t"] = time.perf_counter()
+
+    def on_log(msg: str) -> None:
+        lines.append(msg)
+        if msg.startswith("[INFO] val "):  # the validation pass has ended
+            launched = take_counts()
+            evals.append({"val": msg, "seconds": time.perf_counter() - last["t"],
+                          "k1_calls": launched["flash_attention_fwd"],
+                          "k2_calls": launched["flash_attention_bwd"]})
+            emit({"phase": "finetune_validation", **evals[-1]})
+        if "Epoch" in msg and "started" in msg:
+            take_counts()
+            last["t"] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_finetune.run(cfg, mode=FINETUNE_MODE, log=on_log, on_step=on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    take_counts()
+    launches = dict(totals)
+    finite = all(bool(torch.isfinite(p).all()) for p in final["model"].parameters())
+    best = out["best_ckpt"]
+    name_top1 = (float(os.path.basename(best)[:-len(".pt")].split("_top1_")[1])
+                 if best else None)
+    summary = {"phase": "finetune", "steps": len(steps), "seconds": seconds,
+               "best_top1": out["best_top1"], "best_ckpt": os.path.basename(best or ""),
+               "params_finite": finite,
+               "loaded_ssl": any(m.startswith("[INFO] Loaded SSL pretrain") for m in lines),
+               "device_resident": sum("device-resident store" in m for m in lines),
+               "launches": launches, "log": [m for m in lines if "val top1" in m]}
+    emit(summary)
+    want_k2 = [0 if s["epoch"] <= CAMPAIGN_B["training"]["stage1_epochs"] else FT_K2_CALLS
+               for s in steps]
+    bad = [s for s, k2 in zip(steps, want_k2) if (s["k1_calls"], s["k2_calls"])
+           != (FT_K1_CALLS, k2)]
+    bad += [e for e in evals if (e["k1_calls"], e["k2_calls"]) != (FT_K1_CALLS * val_batches,
+                                                                      0)]
+    if len(steps) != steps_per_epoch * CAMPAIGN_B["training"]["epochs"] or bad:
+        raise AssertionError(f"finetune: {len(steps)} steps; kernel calls off in {bad}")
+    if not (finite and summary["loaded_ssl"] and summary["device_resident"] == 2
+            and all(math.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"finetune: {summary}")
+    if best is None or name_top1 != round(out["best_top1"], 4):
+        raise AssertionError(f"finetune: no best checkpoint encoding its top-1: {summary}")
+
+    # a training batch from the device stores against the host path's batch
+    # of the same epoch and index (the chunked store in two shards, its
+    # upload on a side stream)
+    ds = common.dataset_from_cfg(cfg, splits["train"], "supervised", seed=cfg["seed"])
+    epoch, index = 2, steps_per_epoch - 1
+    host = list(iterate_batches(ds, B, shuffle=True, seed=cfg["seed"], epoch=epoch))[index]
+    stores = {"resident": common.maybe_device_resident(cfg, ds, dev, log=lambda m: None),
+              "chunked": ChunkedDeviceClipStore(ds, B * d["clip_len"] * d["image_size"] ** 2 * 3,
+                                                B, dev, log=lambda m: None)}
+    if not isinstance(stores["resident"], DeviceClipStore):
+        raise AssertionError(f"device_resident: true gave {type(stores['resident'])}")
+    same, shards = {}, stores["chunked"].num_shards
+    for kind, store in stores.items():
+        got = list(store.epoch_batches(B, shuffle=True, seed=cfg["seed"], epoch=epoch))[index]
+        same[kind] = all(np.array_equal(np.asarray(host[k]), got[k].cpu().numpy())
+                         for k in ("clip", "label", "valid")) and set(got) == set(host)
+    del stores
+    emit({"phase": "device_store_vs_host", "epoch": epoch, "batch": index,
+          "bit_equal": same, "chunked_shards": shards})
+    if not all(same.values()):
+        raise AssertionError(f"device store batch differs from the host path's: {same}")
+
+    # evaluate the best checkpoint through the entry, latency on
+    reset_counts()
+    ev_lines = []
+    ev = evaluate.run(cfg, os.path.join(cfg["paths"]["save_dir"], FINETUNE_MODE, "best"),
+                      None, log=ev_lines.append, measure_latency=True)
+    torch.cuda.synchronize()
+    ev_launches = read_counts()
+    row = read_csv_dicts(ev["csv"])[0]
+    eval_batches = val_batches + 1 + 10  # the split, then 1 warm and 10 timed
+    emit({"phase": "evaluate", "top1": ev["acc"]["top1"], "best_top1": out["best_top1"],
+          "p50_batch_latency_ms": float(row["p50_batch_latency_ms"]),
+          "batch_size": int(row["batch_size"]), "eval_seconds": row["eval_seconds"],
+          "k1_calls": ev_launches["flash_attention_fwd"],
+          "k2_calls": ev_launches["flash_attention_bwd"], "batches": eval_batches,
+          "log": ev_lines[-2:]})
+    if ev["acc"]["top1"] != out["best_top1"]:
+        raise AssertionError(f"evaluate top1 {ev['acc']['top1']} != the best epoch's "
+                             f"{out['best_top1']}")
+    if (ev_launches["flash_attention_fwd"], ev_launches["flash_attention_bwd"]) != (
+            FT_K1_CALLS * eval_batches, 0):
+        raise AssertionError(f"evaluate kernel calls: {ev_launches}")
+    return {"train_finetune": launches, "evaluate": ev_launches}
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     import torch
@@ -906,14 +1292,18 @@ def main() -> None:
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
     phase_train_step(fa, dev)
-    paths = {"train_ssl_mae": phase_train(fa, dev)}
-    serving = phase_slice(fa, dev)
-    paths["run_dynamic_streaming"] = serving["streaming"]
-    paths["run_dynamic_batched"] = serving["batched"]
-    p1 = phase_dw(dev)
-    paths["probe_dw"] = p1.pop("launched")
-    p2 = phase_chain(dev)
-    paths["probe_exp"] = p2.pop("launched")
+    with tempfile.TemporaryDirectory() as tmp:  # phase 6's checkpoint serves phase 11
+        paths = {}
+        paths["train_ssl_mae"], ssl_ckpt = phase_train(fa, dev, tmp)
+        serving = phase_slice(fa, dev)
+        paths["run_dynamic_streaming"] = serving["streaming"]
+        paths["run_dynamic_batched"] = serving["batched"]
+        p1 = phase_dw(dev)
+        paths["probe_dw"] = p1.pop("launched")
+        p2 = phase_chain(dev)
+        paths["probe_exp"] = p2.pop("launched")
+        phase_finetune_step(fa, dev)
+        paths.update(phase_transfer(fa, dev, tmp, ssl_ckpt))
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

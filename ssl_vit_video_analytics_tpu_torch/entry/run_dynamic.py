@@ -23,11 +23,10 @@ import time
 import numpy as np
 import torch
 
-from ..data.loader import iterate_batches, to_device
 from ..models.dynamic import early_exit_batched, select_topk_frames, streaming_early_exit
 from ..ops.preprocess import normalize_clip
 from ..train import finetune_engine as eng
-from ..utils.convert import classifier_state_dict_from_flax, unflatten_variables
+from ..utils.checkpoint import checkpoint_path, read_checkpoint
 from ..utils.io import ensure_dir, write_csv
 from ..utils.prng import set_seed
 from . import common
@@ -40,28 +39,15 @@ HYBRID_FIELDS = ("k", "threshold", "top1", "top5", "avg_used_frames", "avg_conf"
                  "avg_latency_ms")
 
 
-def read_checkpoint(path: str) -> dict[str, torch.Tensor]:
-    """A ``.pt`` file (``torch.save`` of the port's state_dict) or an ``.npz``
-    of flax leaves keyed ``params/backbone/stem/Conv_0/kernel``."""
-    if os.path.isfile(path) and path.endswith(".pt"):
-        return torch.load(path, map_location="cpu", weights_only=True)
-    if os.path.isfile(path) and path.endswith(".npz"):
-        with np.load(path) as z:
-            return classifier_state_dict_from_flax(
-                unflatten_variables({k: z[k] for k in z.files}))
-    raise ValueError(f"[ERROR] cannot read checkpoint {path}: the port reads a .pt "
-                     "state_dict or an .npz of flax leaves (orbax checkpoint "
-                     "directories are not read yet)")
-
-
 def _load_classifier(cfg: dict, dtype: torch.dtype, device: torch.device, log):
     model = eng.build_model(int(cfg["dataset"]["num_classes"]),
                             int(cfg["model"]["embed_dim"]), dtype=dtype,
-                            backbone=str(cfg["model"].get("backbone", "mobilevit_s")))
+                            backbone=str(cfg["model"].get("backbone", "mobilevit_s")),
+                            backbone_kwargs=cfg["model"].get("backbone_kwargs"))
     # fixed seed 0 for the random init, as the JAX entry's jax.random.key(0)
     eng.init_model(model, torch.Generator().manual_seed(0))
     ckpt = cfg["model"].get("finetune_ckpt")
-    if ckpt and os.path.exists(ckpt):
+    if ckpt and checkpoint_path(ckpt):
         model.load_state_dict(read_checkpoint(ckpt))
         log(f"[INFO] loaded finetune ckpt: {ckpt}")
     else:
@@ -96,13 +82,6 @@ def _measure_window(rt: dict, ds, batch_size: int) -> tuple[int, int]:
     # so warm=0 (single-batch val split) still measures honestly
     warm = max(1, min(warm, n_batches - 1)) if n_batches > 1 else 0
     return warm, max(1, meas)
-
-
-def _first_batch(ds, B, device):
-    """One batch for pre-warming outside the timed loops (not through the
-    prefetcher: abandoning it would strand its producer thread)."""
-    return to_device(next(iter(iterate_batches(
-        ds, B, shuffle=False, seed=0, epoch=0, drop_last=False))), device)
 
 
 def _batches(ds, B, device):
@@ -143,7 +122,7 @@ def run_early_exit(cfg, model, ds, device, log) -> list[dict]:
         return ee_fn(model.frame_embedding, model.classify_embedding,
                      normalize_clip(raw), thr, **_ee_kwargs(dyn))
 
-    wb = _first_batch(ds, B, device)
+    wb = common.first_batch(ds, B, device)
     _np(fn_full(wb["clip"], float(dyn["confidence_thresholds"][0]))[1].final_conf)
     rows = []
     for thr in dyn["confidence_thresholds"]:
@@ -191,7 +170,7 @@ def run_frame_gating(cfg, model, ds, device, log) -> list[dict]:
     score = str(dyn.get("gating_score", "motion"))
 
     rows = []
-    wb = _first_batch(ds, B, device)  # fetched once; reused for every k's warm call
+    wb = common.first_batch(ds, B, device)  # fetched once; reused for every k's warm call
     for k in dyn["gating_topk_list"]:
         k_eff = min(int(k), ds.clip_len)
 
@@ -237,7 +216,7 @@ def run_hybrid(cfg, model, ds, device, log) -> list[dict]:
     ee_fn = _early_exit_fn(cfg, log)
 
     rows = []
-    wb = _first_batch(ds, B, device)  # fetched once; reused for every k's warm call
+    wb = common.first_batch(ds, B, device)  # fetched once; reused for every k's warm call
     for k in dyn["gating_topk_list"]:
         k_eff = min(int(k), ds.clip_len)
 
@@ -284,9 +263,6 @@ def run(cfg: dict, mode: str | None = None, log=print,
         device: str | torch.device | None = None) -> dict:
     """Run one mode. ``device``: argument, else ``device.name``, else cuda."""
     device = common.device_from(cfg, device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested but torch.cuda.is_available() is "
-                           "false; pass --device cpu to run on the CPU")
     set_seed(int(cfg.get("seed", 42)))
     dtype = common.compute_dtype_from(cfg, device)
     mode = mode or cfg.get("dynamic", {}).get("mode", "early_exit")
@@ -297,6 +273,9 @@ def run(cfg: dict, mode: str | None = None, log=print,
     ds = common.dataset_from_cfg(cfg, common.split_path(cfg, cfg["dataset"]["split"]),
                                  "supervised")
     model = _load_classifier(cfg, dtype, device, log)
+    # serving sweeps re-iterate the split once per knob setting; a resident
+    # split makes each pass on-device gathers (dataset.device_resident)
+    ds = common.maybe_device_resident(cfg, ds, device, log)
 
     save_dir = cfg.get("output", {}).get("save_dir", "results/dynamic")
     ensure_dir(save_dir)

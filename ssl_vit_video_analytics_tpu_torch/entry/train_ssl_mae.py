@@ -6,7 +6,8 @@ TinyViT stage-3 features + tube mask (default 0.9) + norm-pix masked MSE,
 AdamW with warmup-cosine schedule, gradient accumulation and non-finite
 skip, bf16 compute on the card, throughput (clips/s) + ETA logging,
 encoder-only checkpoints every ``save_every`` epochs (full ones with
-``training.save_full``). One device; the multi-device knobs raise.
+``training.save_full``). One device, the split device-resident as
+``dataset.device_resident`` says; the multi-device knobs raise.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae \\
         --config configs/ssl_mae.yaml --device cuda
@@ -54,42 +55,12 @@ def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None) -> 
     )
 
 
-def _refuse_unported(cfg: dict) -> None:
-    """The JAX entry's multi-device and tracing knobs are not ported yet."""
-    dev = cfg.get("device", {})
-    knobs = {
-        "device.model_parallel": int(dev.get("model_parallel", 1) or 1) > 1,
-        "device.pipeline_parallel": int(dev.get("pipeline_parallel", 1) or 1) > 1,
-        "device.expert_parallel": int(dev.get("expert_parallel", 1) or 1) > 1,
-        "model.sequence_parallel": bool(cfg.get("model", {}).get("sequence_parallel")
-                                        or dev.get("sequence_parallel")),
-        "device.data_parallel": (not isinstance(dev.get("data_parallel", "auto"), (bool, str))
-                                 and int(dev.get("data_parallel") or 1) > 1),
-    }
-    for knob, on in knobs.items():
-        if on:
-            raise NotImplementedError(
-                f"{knob} is not ported yet: multi-GPU training arrives with ROADMAP "
-                "queue 1, item 15 (this entry runs on one device)")
-    if cfg.get("logging", {}).get("profile_dir"):
-        raise NotImplementedError("logging.profile_dir is not ported yet: tracing the "
-                                  "train step arrives with ROADMAP queue 1, item 8")
-    if cfg.get("dataset", {}).get("device_resident", "auto") not in (
-            "auto", False, 0, "false", "off"):
-        raise NotImplementedError("dataset.device_resident is not ported yet: the "
-                                  "device-resident split arrives with ROADMAP queue 1, "
-                                  "item 8 (auto keeps the host loader)")
-
-
 def run(cfg: dict, log=print, max_steps: int | None = None,
         device: str | torch.device | None = None, on_step=None) -> dict:
     """Train. ``device``: argument, else ``device.name``, else cuda.
     ``on_step(global_step, state, metrics)`` is called after every step."""
     device = common.device_from(cfg, device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested but torch.cuda.is_available() is "
-                           "false; pass --device cpu to run on the CPU")
-    _refuse_unported(cfg)
+    common.refuse_unported(cfg)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -106,6 +77,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     S = ds.image_size
     steps_per_epoch = max(1, len(ds) // B)
     epochs = int(tr["epochs"])
+    ds = common.maybe_device_resident(cfg, ds, device, log)
 
     model = build_model(cfg, dtype)
     init_model(model, init_gen)

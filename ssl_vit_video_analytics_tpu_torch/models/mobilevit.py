@@ -76,7 +76,13 @@ class MobileViTBackbone(nn.Module):
         self.mvit3 = MobileViTBlock(128, 160, dim=192, dtype=d)
         self.head = ConvBNAct(160, embed_dim, kernel=1, dtype=d)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def draw_drop_path(self, n: int, generator: torch.Generator, device=None) -> None:
+        """No stochastic depth: no decisions."""
+        return None
+
+    def forward(self, x: torch.Tensor, drop: None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``drop``: always None (no drop path)."""
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view
         for stage in (self.stem, self.s1_0, self.s1_1, self.s2_0, self.s2_1,
                       self.mvit1_ir, self.mvit1, self.mvit2_ir, self.mvit2,

@@ -153,3 +153,37 @@ def tiny_vit_21m_variant(use_checkpoint: bool = True, dtype: torch.dtype = torch
     """dims [96,192,384,576] / depths [2,2,6,2] / heads [3,6,12,18]
     (ref: src/models/tiny_vit.py:188-191)."""
     return TinyViT(use_checkpoint=use_checkpoint, dtype=dtype, attn_impl=attn_impl, **kwargs)
+
+
+class TinyViTBackbone(nn.Module):
+    """``(frames, drop) -> (feat_map, emb)`` adapter over the TinyViT encoder,
+    so that ``VideoClassifier`` can ride a pipeline-B MAE-pretrained encoder
+    (the JAX package's ``models/tiny_vit.TinyViTBackbone``).
+
+    The inner TinyViT is named ``encoder`` and built with ``stage_limit``
+    stages, so a pipeline-B encoder checkpoint (``encoder.*``, the port's
+    ``entry/train_ssl_mae`` save path) lands on ``backbone.encoder.*`` key for
+    key at the pretraining tap (3); 4 adds a randomly initialized last stage.
+    Stochastic depth is TinyViT's default ramp (0.1 over all 12 blocks), as
+    the JAX backbone passes no rate. ``emb`` is the mean of the last stage's
+    feature map over H and W, in the compute dtype.
+    """
+
+    def __init__(self, stage_limit: int = 3,
+                 embed_dims: Sequence[int] = (96, 192, 384, 576),
+                 use_checkpoint: bool = False, dtype: torch.dtype = torch.float32,
+                 attn_impl: str | None = None):
+        super().__init__()
+        self.stage_limit = stage_limit
+        self.embed_dim = int(embed_dims[stage_limit - 1])
+        self.encoder = TinyViT(embed_dims=tuple(embed_dims), use_checkpoint=use_checkpoint,
+                               dtype=dtype, attn_impl=attn_impl, num_stages=stage_limit)
+
+    def draw_drop_path(self, n: int, generator: torch.Generator, device=None) -> list:
+        """The encoder's stochastic-depth decisions for ``n`` frames."""
+        return self.encoder.draw_drop_path(n, generator, device)
+
+    def forward(self, x: torch.Tensor, drop: list | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        feat = self.encoder(x, stage_limit=self.stage_limit, drop=drop)
+        return feat, feat.mean(dim=(1, 2))

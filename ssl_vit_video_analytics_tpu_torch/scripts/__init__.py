@@ -10,6 +10,7 @@ kernels' plain versions run and the times are the CPU's.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable
 
@@ -19,27 +20,44 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_TENSOR_FLOP_PER_S = 989e12
+# clock cycles per second of a spin on the stream (the H100 SXM's boost
+# clock; at a lower clock the spin only lasts longer)
+SPIN_CYCLES_PER_S = 1.98e9
 
 
 def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 10,
-            warmup: int = 3) -> float:
+            warmup: int = 3, repeats: int = 1, queued: bool = False) -> float:
     """Mean milliseconds per call of ``fn`` after ``warmup`` calls: CUDA
-    events around ``iters`` calls on a card, the host clock on the CPU."""
+    events around ``iters`` calls on a card, the host clock on the CPU;
+    the least such mean of ``repeats`` windows. With ``queued`` each window
+    on a card starts behind a spin on the stream that lasts twice the
+    host's time to launch the window, so the events time the calls back to
+    back: neither the host's cost per call nor a short stall of the host
+    is counted."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(stop) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    return (time.perf_counter() - t0) / iters * 1e3
+    host_s = (time.perf_counter() - t0) / max(warmup, 1)
+    best = math.inf
+    for _ in range(repeats):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            if queued:
+                spin_s = min(2 * iters * host_s + 1e-3, 0.2)
+                torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            torch.cuda.synchronize(device)
+            best = min(best, start.elapsed_time(stop) / iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / iters * 1e3)
+    return best
 
 
 def bound_ms(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]:

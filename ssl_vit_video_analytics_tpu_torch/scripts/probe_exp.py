@@ -10,7 +10,10 @@ decoder block) is read and written once per call while the op is applied
 ``hi``, so that slope reads low for the cheapest ops; the slope between
 ``mid`` and ``hi``, both bound by operations, cancels the traffic and is
 the one held to the bound. Each row has both slopes, the bound on an H100
-and the plain PyTorch version's slope.
+and the plain PyTorch version's slope. The kernel's times are the least
+of three windows of calls queued behind a spin on the stream: a short
+chain takes less time on the card than its launch on the host, so an
+unqueued window would time the host.
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_exp [--device cpu] [--sass]
 """
@@ -87,7 +90,8 @@ def run(rows: int = ROWS, lanes: int = LANES, lo: int = LO, hi: int = HI,
     out = []
     for op in OPS:
         for dtype in DTYPES:
-            t = {n: time_ms(lambda: unary_chain(x, n, dtype, op), device, iters)
+            t = {n: time_ms(lambda: unary_chain(x, n, dtype, op), device, iters,
+                            repeats=3, queued=True)
                  for n in (lo, mid, hi)}
             p = {n: time_ms(lambda: unary_chain_plain(x, n, dtype, op), device,
                             plain_iters, warmup=1) for n in (lo, hi)}

@@ -1,30 +1,59 @@
-"""Classifier construction and initialization (the inference part of the
-JAX package's ``train/finetune_engine.py``; the four finetune modes and
-their optimizers come with the finetune path, ROADMAP queue 1)."""
+"""Supervised finetune engine: the four modes, the train and eval steps
+(counterpart of the JAX package's ``train/finetune_engine.py``).
+
+Mode semantics follow the reference (ref: src/train_finetune.py:198-210
+resolve_mode; :294-313 freeze policy; :334-340 two-stage unfreeze and
+optimizer rebuild; :164-195 per-group LRs). Freezing leaves the backbone's
+params out of the optimizer (optax's ``set_to_zero``: no update, no weight
+decay, no moments) and takes gradients for the trainable params only; the
+backbone still runs in train mode, so its BatchNorm statistics move and its
+drop path applies, as under the JAX step's ``train=True``.
+"""
 from __future__ import annotations
 
+from typing import Iterable, Mapping
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.classifier import VideoClassifier
 from ..models.layers import ConvBNAct
 from ..models.mobilevit import MobileViTBackbone
+from ..models.tiny_vit import TinyViTBackbone
+from ..ops.preprocess import normalize_clip
+from ..utils.metrics import topk_accuracy
+from .state import AdamW, TrainState, apply_updates, make_optimizer
+
+VALID_MODES = ("ft_random", "linear_probe", "ft_ssl", "two_stage")
 
 # flax's lecun_normal: truncated normal (+-2 std) rescaled to unit variance
 _TRUNC_STD_CORRECTION = 0.87962566103423978
 
 
+def resolve_mode(ft_cfg: dict, cli_mode: str | None) -> str:
+    mode = cli_mode or ft_cfg.get("experiment", {}).get("mode", "ft_ssl")
+    if mode not in VALID_MODES:
+        raise ValueError(f"[ERROR] Unknown mode={mode}, must be one of {sorted(VALID_MODES)}")
+    return mode
+
+
 def build_model(num_classes: int, embed_dim: int, dtype: torch.dtype = torch.float32,
-                backbone: str = "mobilevit_s") -> VideoClassifier:
+                backbone: str = "mobilevit_s",
+                backbone_kwargs: dict | None = None) -> VideoClassifier:
     """A ``VideoClassifier`` in eval mode with torch's default init (see
-    :func:`init_model` for the flax-like seeded init)."""
+    :func:`init_model` for the flax-like seeded init). ``backbone``:
+    "mobilevit_s" (pipeline-A checkpoints) or "tinyvit" (pipeline-B encoder
+    checkpoints; its embedding width is the tapped stage's, so ``embed_dim``
+    is ignored)."""
+    kw = dict(backbone_kwargs or {})
     if backbone in ("tinyvit", "tinyvit_21m"):
-        raise NotImplementedError(
-            f"backbone={backbone!r} is not ported yet: TinyViTBackbone arrives with "
-            "the finetune path (ROADMAP queue 1, item 9)")
-    if backbone not in ("mobilevit_s", "mobilevit"):
+        bb = TinyViTBackbone(dtype=dtype, **kw)
+    elif backbone in ("mobilevit_s", "mobilevit"):
+        bb = MobileViTBackbone(embed_dim, dtype, **kw)
+    else:
         raise ValueError(f"[ERROR] Unknown backbone={backbone}")
-    return VideoClassifier(MobileViTBackbone(embed_dim, dtype), num_classes).eval()
+    return VideoClassifier(bb, num_classes).eval()
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -60,3 +89,145 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if isinstance(m, ConvBNAct) and m.bn_zero_init:
             nn.init.zeros_(m.bn.weight)
     return model
+
+
+def load_pretrained_ssl(model: VideoClassifier,
+                        ssl_state: Mapping[str, torch.Tensor]) -> VideoClassifier:
+    """Drop an SSL checkpoint's encoder (``encoder.*`` tensors: the port's
+    pretraining checkpoint, or a JAX blob through
+    ``utils.convert.encoder_state_dict_from_flax``) onto the classifier's
+    backbone, in place (ref: src/train_finetune.py:43-63).
+
+    Pipeline B/C: the encoder is the TinyViT nested as ``backbone.encoder``
+    (a stage-limit-3 classifier matches the pretraining tap key for key).
+    Pipeline A: the encoder IS the MobileViT backbone. Every backbone tensor
+    must be filled with one of its shape, or it raises before loading
+    anything; values are cast to the backbone's dtypes. The head is
+    untouched.
+    """
+    target = model.backbone.encoder if isinstance(model.backbone, TinyViTBackbone) \
+        else model.backbone
+    src = {k[len("encoder."):]: v for k, v in ssl_state.items() if k.startswith("encoder.")}
+    tgt = target.state_dict()
+    missing, extra = sorted(set(tgt) - set(src)), sorted(set(src) - set(tgt))
+    if missing or extra:
+        raise ValueError(
+            "[ERROR] SSL encoder tree does not match classifier backbone "
+            f"(missing {missing[:3]}{'...' if len(missing) > 3 else ''}, "
+            f"extra {extra[:3]}{'...' if len(extra) > 3 else ''})")
+    bad = [(k, tuple(src[k].shape), tuple(t.shape)) for k, t in tgt.items()
+           if tuple(src[k].shape) != tuple(t.shape)]
+    if bad:
+        # same module names but other widths would load silently and crash
+        # (or broadcast) later: fail at the checkpoint
+        raise ValueError(
+            f"[ERROR] SSL encoder leaf shapes do not match classifier backbone "
+            f"({len(bad)} mismatched leaves, e.g. {bad[0]})")
+    target.load_state_dict({k: src[k].to(t.dtype) for k, t in tgt.items()})
+    return model
+
+
+def trainable_mask(model: VideoClassifier, freeze_backbone: bool) -> list[bool]:
+    """One bool per ``model.parameters()``: False under ``backbone`` when
+    frozen, True elsewhere."""
+    return [not (freeze_backbone and name.split(".")[0] == "backbone")
+            for name, _ in model.named_parameters()]
+
+
+def build_finetune_tx(ft_training_cfg: dict, mode: str, model: VideoClassifier,
+                      freeze_backbone: bool) -> AdamW:
+    """AdamW with mode-dependent LR structure (ref: src/train_finetune.py:164-195):
+    two_stage has a head group at ``head_lr`` and a backbone group at
+    ``backbone_lr`` (left out while frozen), each clipped by its own norm;
+    the other modes one group at ``learning_rate`` over the trainable params."""
+    wd = float(ft_training_cfg.get("weight_decay", 0.05))
+    # the reference finetune never clips (src/train_finetune.py has no
+    # clip_grad_norm_); grad_clip stays an opt-in config knob
+    clip = (float(ft_training_cfg["grad_clip"])
+            if ft_training_cfg.get("grad_clip") is not None else None)
+    lr = float(ft_training_cfg["learning_rate"])
+    if mode == "two_stage":
+        named = list(model.named_parameters())
+        groups = [{"name": "head", "lr": float(ft_training_cfg.get("head_lr", lr)),
+                   "params": [p for n, p in named if n.split(".")[0] != "backbone"]}]
+        if not freeze_backbone:
+            groups.append({"name": "backbone",
+                           "lr": float(ft_training_cfg.get("backbone_lr", lr)),
+                           "params": [p for n, p in named if n.split(".")[0] == "backbone"]})
+        return AdamW(groups, weight_decay=wd, grad_clip=clip)
+    return make_optimizer(model.parameters(), lr, weight_decay=wd, grad_clip=clip,
+                          trainable_mask=trainable_mask(model, freeze_backbone))
+
+
+def _backbone_frozen(model: VideoClassifier, params: Iterable[torch.Tensor]) -> bool:
+    trainable = {id(p) for p in params}
+    return not any(id(p) in trainable for p in model.backbone.parameters())
+
+
+def loss_and_grads(model: VideoClassifier, params: list[torch.Tensor], clip: torch.Tensor,
+                   labels: torch.Tensor, drop: list | None):
+    """Train-mode forward of a normalized ``clip``, cross-entropy on fp32
+    logits, and its gradients for ``params``. A backbone with none of its
+    params in ``params`` runs without recording its graph (its backward,
+    K2 included, is never needed). Returns ``(loss, logits, grads)``."""
+    model.train()
+    with torch.set_grad_enabled(not _backbone_frozen(model, params)):
+        emb = model.video_embedding(clip, drop)
+    logits = model.classify_embedding(emb)
+    loss = F.cross_entropy(logits, labels.long())
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), logits.detach(), grads
+
+
+def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.float32):
+    """One supervised step: normalize -> train-mode forward -> CE -> update.
+
+    Returns ``step(state, batch, generator, drop=None) -> (state, metrics)``;
+    ``state`` (its model is ``model``) is updated in place. ``drop``
+    (``model.draw_drop_path``) replaces the stochastic-depth draws from
+    ``generator``. Metrics are device scalars: ``loss``, ``top1``, ``top5``.
+    (``training.augment``, the JAX step's on-device augmentation, is not
+    ported; the entries refuse it.)
+    """
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator,
+             drop: list | None = None):
+        clip = normalize_clip(batch["clip"], dtype=compute_dtype)
+        labels = batch["label"]
+        if drop is None:
+            drop = model.draw_drop_path(clip.shape[0], clip.shape[1], generator,
+                                        device=clip.device)
+        loss, logits, grads = loss_and_grads(model, state.params, clip, labels, drop)
+        apply_updates(state, grads)
+        return state, {"loss": loss, **topk_accuracy(logits, labels)}
+
+    return step
+
+
+def make_eval_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.float32):
+    """``eval_step(batch) -> fp32 logits`` of the eval-mode model."""
+
+    @torch.no_grad()
+    def eval_step(batch: dict) -> torch.Tensor:
+        model.eval()
+        return model(normalize_clip(batch["clip"], dtype=compute_dtype)).float()
+
+    return eval_step
+
+
+def evaluate(eval_step, batches, ks=(1, 5)) -> dict:
+    """Masked (padding-aware) top-k over an eval split: rows whose ``valid``
+    is False (the padded tail) are not counted."""
+    total = 0
+    correct = {k: 0 for k in ks}
+    for batch in batches:
+        logits = eval_step(batch)
+        maxk = min(max(ks), logits.shape[-1])
+        match = logits.topk(maxk, dim=-1).indices == batch["label"][:, None].long()
+        valid = batch.get("valid")
+        keep = (valid.to(match.device).bool() if valid is not None
+                else torch.ones(match.shape[0], dtype=torch.bool, device=match.device))
+        total += int(keep.sum())
+        for k in ks:
+            correct[k] += int((match[:, :k].any(dim=1) & keep).sum())
+    return {f"top{k}": (correct[k] / max(total, 1)) for k in ks}

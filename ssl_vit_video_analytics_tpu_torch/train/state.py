@@ -1,6 +1,5 @@
-"""Train state and optimizer (the pipeline-B part of the JAX package's
-``train/state.py``, and the transforms ``train/mae_engine.wrap_accum_and_skip``
-stacks).
+"""Train state and optimizer (the JAX package's ``train/state.py``, and the
+transforms ``train/mae_engine.wrap_accum_and_skip`` stacks).
 
 The JAX package keeps params, BatchNorm statistics and the optax state in
 one immutable PyTree. Here the model module holds the params (fp32) and the
@@ -8,13 +7,18 @@ BatchNorm statistics (buffers, updated in place by the train-mode forward),
 and an optimizer object holds its own state; :class:`TrainState` ties them
 to the step count. The optimizer stack is optax's, transform by transform:
 
-- :class:`AdamW` is ``optax.chain(clip_by_global_norm?, adamw(schedule))``:
-  one param group, so weight decay falls on EVERY param (BN and LN scales,
-  position embeddings), as optax's ``adamw`` does; the learning rate is the
-  schedule read at the count of updates applied so far (pre-increment), so
-  the first update of a warm-up run has lr 0. ``torch.optim.AdamW`` does
-  the arithmetic: its decoupled decay and ``eps`` outside the square root
-  are optax's math.
+- :class:`AdamW` is ``optax.chain(clip_by_global_norm?, adamw(schedule))``
+  per parameter group: weight decay falls on EVERY param of a group (BN and
+  LN scales, position embeddings), as optax's ``adamw`` does; the learning
+  rate is the group's schedule read at the count of updates applied so far
+  (pre-increment), so the first update of a warm-up run has lr 0.
+  ``torch.optim.AdamW`` does the arithmetic: its decoupled decay and ``eps``
+  outside the square root are optax's math.
+- Parameter groups are ``optax.multi_transform`` (the finetune's head and
+  backbone learning rates): each inner chain sees only its own leaves, so
+  each group is clipped by its OWN global norm. A frozen parameter (a
+  ``False`` of ``trainable_mask``, optax's ``set_to_zero``) is left out of
+  the optimizer: no update, no weight decay, no moments.
 - :class:`ApplyIfFinite` is ``optax.apply_if_finite``: a non-finite gradient
   leaves params, moments and the count untouched.
 - :class:`MultiSteps` is ``optax.MultiSteps``: the running mean of k
@@ -64,24 +68,40 @@ def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip)?, adamw(learning_rate,
-    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` over ``params``."""
+    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` over ``params``, or, when
+    ``params`` holds group dicts ``{"name", "params", "lr"}``, one such chain
+    per group (``optax.multi_transform``: clipped by the group's own norm, at
+    the group's learning rate). ``params`` (all groups, in order) are what
+    :meth:`update` takes gradients for."""
 
-    def __init__(self, params, learning_rate: float | Callable[[int], float],
+    def __init__(self, params, learning_rate: float | Callable[[int], float] | None = None,
                  weight_decay: float = 0.05, grad_clip: float | None = None):
-        self.params = list(params)
-        self.schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+        params = list(params)
+        if params and isinstance(params[0], dict):
+            groups = [g for g in params if g["params"]]
+        else:
+            groups = [{"name": "train", "params": params, "lr": learning_rate}]
+        self.names = [g["name"] for g in groups]
+        self.schedules = [g["lr"] if callable(g["lr"]) else (lambda _, lr=g["lr"]: lr)
+                          for g in groups]
+        self.sizes = [len(g["params"]) for g in groups]
+        self.params = [p for g in groups for p in g["params"]]
         self.grad_clip = grad_clip
         self.count = 0  # updates applied
-        self.opt = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+        self.opt = torch.optim.AdamW([{"params": list(g["params"])} for g in groups],
+                                     lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=weight_decay)
 
     def update(self, grads: Sequence[torch.Tensor]) -> bool:
-        if self.grad_clip is not None and self.grad_clip > 0:
-            norm = global_norm(grads)
-            factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                                 self.grad_clip / norm)
-            grads = [g * factor for g in grads]
-        self.opt.param_groups[0]["lr"] = float(self.schedule(self.count))
+        grads, lo = list(grads), 0
+        for pg, n, schedule in zip(self.opt.param_groups, self.sizes, self.schedules):
+            if self.grad_clip is not None and self.grad_clip > 0:
+                norm = global_norm(grads[lo:lo + n])
+                factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                                     self.grad_clip / norm)
+                grads[lo:lo + n] = [g * factor for g in grads[lo:lo + n]]
+            pg["lr"] = float(schedule(self.count))
+            lo += n
         for p, g in zip(self.params, grads):
             p.grad = g
         self.opt.step()
@@ -136,9 +156,14 @@ class MultiSteps:
 
 
 def make_optimizer(params, learning_rate: float | Callable[[int], float],
-                   weight_decay: float = 0.05, grad_clip: float | None = None) -> AdamW:
+                   weight_decay: float = 0.05, grad_clip: float | None = None,
+                   trainable_mask: Sequence[bool] | None = None) -> AdamW:
     """AdamW + opt-in global-norm clip (None: no clipping; pipeline B never
-    clips)."""
+    clips). ``trainable_mask`` (one bool per param of ``params``): the
+    ``False`` ones are frozen, left out of the optimizer."""
+    params = list(params)
+    if trainable_mask is not None:
+        params = [p for p, t in zip(params, trainable_mask, strict=True) if t]
     return AdamW(params, learning_rate, weight_decay=weight_decay, grad_clip=grad_clip)
 
 

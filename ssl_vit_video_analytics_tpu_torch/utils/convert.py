@@ -13,7 +13,11 @@ ported module, given the port module's own ``state_dict`` as a template. The lay
 - raw parameters (``temporal_pos_embed``, ``spatial_pos_embed``,
   ``mask_token``) keep their name and shape
 
-:func:`mae_state_dict_from_flax` does it for a pipeline-B ``TinyVideoMAE``.
+:func:`mae_state_dict_from_flax` does it for a pipeline-B ``TinyVideoMAE``,
+and :func:`encoder_state_dict_from_flax` for an encoder-only pretraining
+checkpoint (``{"params": {"encoder": ...}, "batch_stats": {"encoder":
+...}}``), whose tensors come out as ``encoder.*``, the keys of the port's own
+pretraining checkpoint.
 
 Every flax leaf must land on a port tensor of the same shape and every port
 tensor must be filled, or the converter raises. An ``.npz`` of flax leaves
@@ -116,13 +120,64 @@ def state_dict_from_flax(variables: Mapping, template: Mapping[str, torch.Tensor
     return out
 
 
-def classifier_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``VideoClassifier`` variables -> the port's ``state_dict``."""
-    from ..train.finetune_engine import build_model
+def _tinyvit_template(enc: Mapping) -> torch.nn.Module:
+    """A TinyViT with the widths, depths, stage count and attention widths
+    (heads x head width) of the flax encoder tree ``enc``."""
+    from ..models.tiny_vit import TinyViT
 
+    n = sum(1 for name in enc if re.fullmatch(r"stage\d+", name))
+    dims = [np.shape(enc["patch_embed"]["ConvBNAct_1"]["BatchNorm_0"]["scale"])[0]]
+    depths, heads = [], [1]
+    for i in range(n):
+        stage = enc[f"stage{i}"]
+        if i > 0:
+            dims.append(np.shape(stage["down"]["ConvBNAct_2"]["BatchNorm_0"]["scale"])[0])
+            # a head count that gives the attention width H * (dim // H) of
+            # the tree (the true count or another: the shapes are the same)
+            hd = np.shape(stage["tblock0"]["MultiHeadAttention_0"]["proj"]["kernel"])[0]
+            heads.append(next(h for h in range(1, dims[i] + 1) if h * (dims[i] // h) == hd))
+        depths.append(sum(1 for name in stage if re.fullmatch(r"(mbconv|tblock)\d+", name)))
+    return TinyViT(embed_dims=dims, depths=depths, num_heads=heads,
+                   use_checkpoint=False, num_stages=n)
+
+
+def _backbone_template(backbone: Mapping) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port backbone a flax backbone tree fills:
+    a TinyViT nested as ``encoder`` (``TinyViTBackbone``) or a MobileViT."""
+    from ..models.mobilevit import MobileViTBackbone
+
+    if set(backbone) == {"encoder"}:
+        enc = _tinyvit_template(backbone["encoder"])
+        return {f"encoder.{k}": v for k, v in enc.state_dict().items()}
+    embed_dim = np.shape(backbone["head"]["BatchNorm_0"]["scale"])[0]
+    return MobileViTBackbone(int(embed_dim)).state_dict()
+
+
+def classifier_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``VideoClassifier`` variables, over a MobileViT or a TinyViT
+    backbone (known by ``params/backbone/encoder``), -> the port's
+    ``state_dict``. Widths and depths are read off the flax tree."""
     embed_dim, num_classes = np.shape(variables["params"]["head"]["kernel"])
-    template = build_model(int(num_classes), int(embed_dim)).state_dict()
+    template = {f"backbone.{k}": v for k, v in
+                _backbone_template(variables["params"]["backbone"]).items()}
+    template["head.weight"] = torch.empty(int(num_classes), int(embed_dim))
+    template["head.bias"] = torch.empty(int(num_classes))
     return state_dict_from_flax(variables, template)
+
+
+def encoder_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """An encoder-only JAX pretraining blob (``params/encoder`` and
+    ``batch_stats/encoder``: a TinyViT from pipeline B, or a MobileViT from
+    pipeline A) -> ``encoder.*`` tensors, the keys of the port's own encoder
+    checkpoint."""
+    params = variables["params"]["encoder"]
+    stats = (variables.get("batch_stats") or {}).get("encoder") or {}
+    if "patch_embed" in params:
+        template = _tinyvit_template(params).state_dict()
+    else:
+        template = _backbone_template(params)
+    sd = state_dict_from_flax({"params": params, "batch_stats": stats}, template)
+    return {f"encoder.{k}": v for k, v in sd.items()}
 
 
 def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
@@ -131,24 +186,13 @@ def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     The widths, depths, clip length and image size are read off the flax
     tree; head counts do not change any tensor's shape."""
     from ..models.mae import TinyVideoMAE
-    from ..models.tiny_vit import TinyViT
 
     params = variables["params"]
-    enc = params["encoder"]
-    dims = [np.shape(enc["patch_embed"]["ConvBNAct_1"]["BatchNorm_0"]["scale"])[0]]
-    depths = []
-    for i in range(3):
-        stage = enc[f"stage{i}"]
-        if i > 0:
-            dims.append(np.shape(stage["down"]["ConvBNAct_2"]["BatchNorm_0"]["scale"])[0])
-        depths.append(sum(1 for n in stage if re.fullmatch(r"(mbconv|tblock)\d+", n)))
     D = np.shape(params["enc_to_dec"]["kernel"])[1]
     clip_len = np.shape(params["temporal_pos_embed"])[1]
     num_patches = np.shape(params["spatial_pos_embed"])[2]
     patch = int(round((np.shape(params["decoder_pred"]["kernel"])[1] / 3) ** 0.5))
-    encoder = TinyViT(embed_dims=dims, depths=depths, num_heads=(1, 1, 1),
-                      use_checkpoint=False, num_stages=3)
-    model = TinyVideoMAE(encoder, clip_len=int(clip_len),
+    model = TinyVideoMAE(_tinyvit_template(params["encoder"]), clip_len=int(clip_len),
                          img_size=int(round(num_patches ** 0.5)) * patch,
                          patch_size=patch, decoder_embed_dim=int(D),
                          decoder_depth=sum(1 for n in params["decoder"]

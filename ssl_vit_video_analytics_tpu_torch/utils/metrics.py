@@ -1,8 +1,49 @@
-"""Throughput accounting for pipeline B (the hardware-free part of the JAX
+"""Metrics: top-k accuracy, best tracking, the epoch-summary line, and
+throughput accounting for pipeline B (the hardware-free parts of the JAX
 package's ``utils/metrics.py``): analytic train-step FLOPs per clip from the
 model config. No device peak lives here: the training log prints clips/s.
 """
 from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import torch
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                  ks: Sequence[int] = (1, 5)) -> dict:
+    """Fraction of samples whose label is in the top-k logits, for each k
+    (k clamped to the class count). logits ``[B, C]``; labels ``[B]`` int.
+    Returns ``{f"top{k}": fp32 scalar on logits' device}``."""
+    C = logits.shape[-1]
+    maxk = min(max(ks), C)
+    correct = logits.topk(maxk, dim=-1).indices == labels[:, None].long()  # [B, maxk]
+    return {f"top{k}": correct[:, :min(k, C)].any(dim=1).float().mean() for k in ks}
+
+
+def update_best(best: Mapping | None, metrics: Mapping, key: str,
+                mode: str = "max") -> tuple[dict, bool]:
+    """Track the best epoch by one metric (ref: src/mae/metrics.py:7-16).
+
+    Returns (new_best, improved).
+    """
+    cur = float(metrics[key])
+    if best is None or key not in best:
+        return dict(metrics), True
+    prev = float(best[key])
+    improved = cur > prev if mode == "max" else cur < prev
+    return (dict(metrics) if improved else dict(best)), improved
+
+
+def format_metrics(metrics: Mapping, precision: int = 4) -> str:
+    """"k1=v1 k2=v2" epoch-summary line (ref: src/mae/metrics.py:19-27)."""
+    parts = []
+    for k, v in metrics.items():
+        try:
+            parts.append(f"{k}={float(v):.{precision}f}")
+        except (TypeError, ValueError):
+            parts.append(f"{k}={v}")
+    return " ".join(parts)
 
 
 def _mbconv_flops(c_in: int, c_out: int, r_in: int, r_out: int,

@@ -57,6 +57,8 @@ sys.meta_path.insert(0, Blocker())
 import ssl_vit_video_analytics_tpu_torch as pkg
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.run_dynamic")
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_finetune")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.evaluate")
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
@@ -71,7 +73,9 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "data/masking.py", "utils/checkpoint.py", "utils/metrics.py",
             "ops/kernel_build.py", "ops/depthwise.py", "ops/unary_chain.py",
             "scripts/__init__.py", "scripts/probe_dw.py", "scripts/probe_exp.py",
-            "scripts/profile_step.py"} <= walked
+            "scripts/profile_step.py", "entry/train_finetune.py", "entry/evaluate.py",
+            "entry/common.py", "data/device_store.py", "train/finetune_engine.py",
+            "models/classifier.py", "utils/convert.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
@@ -156,6 +160,78 @@ def test_chip_smoke_pipeline_b_config_is_configs_ssl_mae_yaml():
         for key, value in chip_smoke.BASE_YAML[section].items():
             assert base[section][key] == value, (section, key)
             assert key not in yml.get(section, {}), (section, key)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def _flat(cfg, prefix=""):
+    out = {}
+    for key, value in cfg.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def test_chip_smoke_pretraining_run_departs_from_ssl_mae_yaml_in_save_every_only():
+    """Phase 6 runs configs/ssl_mae.yaml over configs/base.yaml with one
+    departure, an encoder checkpoint every epoch (for phase 11)."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    yml = _flat(load_config(str(REPO / "configs" / "ssl_mae.yaml"),
+                            base=str(REPO / "configs" / "base.yaml")))
+    cfg = _flat(chip_smoke.ssl_mae_cfg("train.txt", "out"))
+    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
+           "device.name": "cuda", "paths.split_root": ""}
+    assert chip_smoke.SSL_MAE_SMOKE_OVERRIDES == {"training": {"save_every": 1}}
+    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
+    assert differ == {"training.save_every"} and yml["training.save_every"] == 10
+    assert cfg["training.save_every"] == 1
+    assert {k: cfg[k] for k in own} == own
+    # every key the pipeline-B entry reads from the yaml is in the smoke's copy
+    assert {k for k in yml if k.split(".")[0] in ("model", "ssl", "training")} <= set(cfg)
+
+
+def test_chip_smoke_transfer_config_is_finetune_yaml_under_the_campaign_b_overrides():
+    """Phase 11 runs configs/finetune.yaml (over configs/base.yaml) with the
+    pipeline-B transfer campaign's overrides (scripts/ssl_transfer_campaign.py
+    with --backbone tinyvit --device_resident true), two_stage for 2 epochs."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    yml = load_yaml(os.path.join(REPO, "configs", "finetune.yaml"))
+    for section, values in chip_smoke.FINETUNE_YAML.items():
+        assert set(values) == set(yml[section]) - {"train_split", "val_split",
+                                                   "pretrained_ssl", "save_dir"}, section
+        for key, value in values.items():
+            assert yml[section][key] == value, (section, key)
+    assert chip_smoke.CAMPAIGN_B == {
+        "model": {"backbone": "tinyvit"},
+        "dataset": {"clip_len": 16, "stride": 1, "image_size": 112, "device_resident": True},
+        "training": {"batch_size": 16, "epochs": 2, "stage1_epochs": 1},
+        "device": {"compute_dtype": "bfloat16"}}
+    assert chip_smoke.FINETUNE_MODE == "two_stage" and chip_smoke.FT_CLASSES == 8
+
+    merged = _flat(load_config(str(REPO / "configs" / "finetune.yaml"),
+                               base=str(REPO / "configs" / "base.yaml")))
+    merged.update(_flat(chip_smoke.CAMPAIGN_B))
+    cfg = _flat(chip_smoke.finetune_cfg("t.txt", "v.txt", "ckpt", "out"))
+    own = {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
+           "dataset.num_classes": 8, "model.pretrained_ssl": "ckpt", "device.name": "cuda",
+           "paths.split_root": "", "paths.save_dir": os.path.join("out", "finetune"),
+           "paths.result_dir": os.path.join("out", "results"),
+           "paths.log_dir": os.path.join("out", "logs")}
+    assert {k: cfg[k] for k in own} == own
+    assert {k: v for k, v in cfg.items() if k not in own} == {
+        k: v for k, v in merged.items()
+        if k not in own and k.split(".")[0] != "paths" and k != "device.prefetch"}
 
 
 PTXAS_LOG = """\

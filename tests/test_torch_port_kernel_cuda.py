@@ -358,3 +358,97 @@ def test_unary_chain_kernel_refuses_instead_of_falling_back(dev):
         uc.unary_chain(x.view(-1)[1:], 2, torch.float32, "exp")
     with pytest.raises(ValueError, match="contiguous"):
         uc.unary_chain(x.t(), 2, torch.float32, "exp")
+
+
+# --- the finetune slice on the card: the TinyViT classifier's step, and the
+# device-resident split ---
+
+def _rel_l2(a, b, floor):
+    return float((a.float() - b.float()).norm()) / max(float(b.float().norm()), floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_finetune_step_through_the_kernels_matches_plain(dev, dtype, frozen):
+    """The TinyViT classifier (dims 96/192/384, heads of 32) at 2 clips x 4
+    frames x 64x64, the same weights and drop-path decisions through K1/K2
+    and through the plain versions: loss 1e-4 (fp32) / 1e-3 (bf16)
+    relative, every gradient 1e-3 / 5e-2 relative L2 (at least 1e-4 of the
+    largest norm); a frozen backbone runs K1 and never K2. bf16 holds the
+    gradients that are not zero in the fp32 plain run: a gradient that is
+    zero in exact arithmetic (a per-channel shift ahead of a train-mode
+    BatchNorm) is bf16 rounding noise in both runs; and one beyond 5e-2 of
+    the plain bf16 run must lie within 5e-2 of the fp32 plain run beyond
+    the plain bf16 run's own distance from it."""
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    clip_u8 = torch.randint(0, 256, (2, 4, 64, 64, 3), dtype=torch.uint8, device=dev,
+                            generator=g)
+    labels = torch.randint(0, 5, (2,), device=dev, generator=g)
+    drop = None
+    runs = {}
+    for run_dtype, impl in ((torch.float32, "plain"), (dtype, "kernel"), (dtype, "plain")):
+        model = eng.build_model(5, 256, dtype=run_dtype, backbone="tinyvit")
+        eng.init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        if drop is None:
+            drop = model.draw_drop_path(2, 4, g)
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.attn_impl = impl
+        tx = eng.build_finetune_tx({"learning_rate": 1e-3}, "two_stage", model, frozen)
+        fa.launches.reset()
+        fa.bwd_launches.reset()
+        loss, _, grads = eng.loss_and_grads(model, tx.params, normalize_clip(clip_u8, run_dtype),
+                                            labels, drop)
+        torch.cuda.synchronize()
+        runs[(run_dtype, impl)] = (float(loss), grads, fa.launches.count, fa.bwd_launches.count)
+    ref32 = [float(b.norm()) for b in runs[(torch.float32, "plain")][1]]
+    (lk, gk, k1, k2), (lp, gp, p1, p2) = runs[(dtype, "kernel")], runs[(dtype, "plain")]
+    assert (k1, k2, p1, p2) == (8, 0 if frozen else 8, 0, 0)
+    tol_loss, tol_grad = (1e-4, 1e-3) if dtype == torch.float32 else (1e-3, 5e-2)
+    assert abs(lk - lp) <= tol_loss * abs(lp)
+    floor = 1e-4 * max(float(b.float().norm()) for b in gp)
+    assert len(gk) == (2 if frozen else len(list(model.parameters())))
+    g32 = runs[(torch.float32, "plain")][1]
+    floor32 = 1e-4 * max(ref32)
+    for a, b, c, n32 in zip(gk, gp, g32, ref32):
+        if dtype == torch.float32:
+            assert _rel_l2(a, b, floor) <= tol_grad
+        elif n32 >= floor32 and _rel_l2(a, b, floor) > tol_grad:
+            # beyond tol of the plain bf16 run: only as far from the fp32
+            # run as bf16 rounding alone puts the plain run, plus tol
+            assert _rel_l2(a, c, floor32) <= _rel_l2(b, c, floor32) + tol_grad
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_device_stores_on_the_card_match_the_host_path(dev, tmp_path, chunked):
+    """Every batch of a shuffled epoch with its padded tail, gathered on the
+    card (the chunked store in 4 shards, uploaded on a side stream), is
+    bit-equal to the host path's."""
+    from ssl_vit_video_analytics_tpu_torch.data.device_store import (ChunkedDeviceClipStore,
+                                                                     DeviceClipStore)
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.data.loader import ClipDataset, iterate_batches
+
+    # 5 classes x 3 train videos: 15 clips, a tail of 3 in batches of 4
+    splits = make_synthetic_dataset(str(tmp_path), num_classes=5, videos_per_class=4,
+                                    num_frames=12, image_size=32, seed=0)
+    ds = ClipDataset(splits["train"], mode="supervised", clip_len=4, stride=2,
+                     image_size=32, seed=3, verbose=False)
+    store = (ChunkedDeviceClipStore(ds, 4 * 4 * 32 * 32 * 3, 4, dev, log=lambda *_: None)
+             if chunked else DeviceClipStore(ds, dev, log=lambda *_: None))
+    if chunked:
+        assert store.num_shards == 4
+    for epoch, drop_last in ((1, True), (2, False)):
+        kw = dict(shuffle=True, seed=3, epoch=epoch, drop_last=drop_last)
+        host = list(iterate_batches(ds, 4, **kw))
+        got = list(store.epoch_batches(4, **kw))
+        assert len(host) == len(got) > 0
+        for hb, gb in zip(host, got):
+            assert set(hb) == set(gb)
+            for k in hb:
+                assert gb[k].device.type == "cuda"
+                assert torch.equal(gb[k].cpu(), torch.from_numpy(hb[k])), k

@@ -83,8 +83,10 @@ def test_classifier_matches_jax(variables, port_model, attn_impl, size):
 
 
 def test_build_model_names_the_roadmap_item_for_unported_backbones():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.build_model(4, 32, backbone="tinyvit")
+    # the TinyViT backbone, once ROADMAP item 9, is ported: its embedding is
+    # the tapped stage's width, whatever embed_dim says
+    tiny = teng.build_model(4, 32, backbone="tinyvit")
+    assert tiny.backbone.embed_dim == 384 and tiny.head.weight.shape == (4, 384)
     with pytest.raises(ValueError, match="Unknown backbone"):
         teng.build_model(4, 32, backbone="resnet")
     # train mode is ported (pipeline-B slice): batch statistics, and the

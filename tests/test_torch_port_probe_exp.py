@@ -13,6 +13,7 @@ does).
 """
 import importlib.util
 import pathlib
+import time
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from ssl_vit_video_analytics_tpu_torch.ops import unary_chain as uc
-from ssl_vit_video_analytics_tpu_torch.scripts import probe_exp
+from ssl_vit_video_analytics_tpu_torch.scripts import probe_exp, time_ms
 
 torch.set_num_threads(2)  # six test workers share the host
 
@@ -190,3 +191,20 @@ def test_loop_shape_follows_the_kernel_source():
            / "unary_chain.cu").read_text()
     assert f"constexpr int kUnroll = {probe_exp.UNROLL};" in src
     assert f"constexpr int kElems = {probe_exp.ELEMS};" in src
+
+
+def test_time_ms_takes_the_least_window():
+    # a stall of 50 ms in the first timed window (calls 3-5 after 2 warm)
+    # is the slowest window's, not the result's
+    calls = []
+
+    def fn():
+        calls.append(None)
+        if 3 <= len(calls) <= 5:
+            time.sleep(0.05)
+
+    ms = time_ms(fn, torch.device("cpu"), iters=3, warmup=2, repeats=3)
+    assert len(calls) == 2 + 3 * 3
+    assert ms < 5
+    calls.clear()
+    assert time_ms(fn, torch.device("cpu"), iters=3, warmup=2) > 40

@@ -16,6 +16,7 @@ from ssl_vit_video_analytics_tpu.entry import run_dynamic as jax_run_dynamic
 from ssl_vit_video_analytics_tpu.train import finetune_engine as jeng
 from ssl_vit_video_analytics_tpu.utils.io import read_csv_dicts
 from ssl_vit_video_analytics_tpu_torch.entry import run_dynamic
+from ssl_vit_video_analytics_tpu_torch.utils.checkpoint import read_checkpoint
 from ssl_vit_video_analytics_tpu_torch.utils.convert import flatten_variables
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -89,7 +90,7 @@ def test_checkpoint_formats(synth_data, tmp_path, jax_weights_npz):
     """A .pt state_dict loads like the .npz; a missing path warns and keeps
     random weights; any other existing path raises."""
     cfg = _port_cfg(_cfg(synth_data, tmp_path), jax_weights_npz, tmp_path)
-    sd = run_dynamic.read_checkpoint(jax_weights_npz)
+    sd = read_checkpoint(jax_weights_npz)
     pt = tmp_path / "classifier.pt"
     torch.save(sd, pt)
     from_npz = run_dynamic.run(cfg, log=lambda *_: None, device="cpu")["rows"]
