@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (built for H100, sm_90a).
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card and nvcc
+    python3 chip_smoke.py --step-seeds 6 7 8   # the build, then phases 12
+                                                # and 14 on each seed
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -91,7 +93,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the floor; their count and worst distance are reported; a gradient
    beyond 5e-2 of the plain run passes only if the kernel run lies within
    5e-2 of the fp32 plain run beyond the plain bf16 run's own distance from
-   it); then one real step of each
+   it, and a loss beyond 1e-3 likewise within 1e-3); then one real step of each
    mode through the kernels: the frozen one keeps every backbone param
    bit-unchanged and moves its BatchNorm statistics.
 11. pipeline-B transfer: configs/finetune.yaml under the transfer
@@ -108,8 +110,40 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    equals the best epoch's, K1 8 calls per batch, and its p50 batch
    latency.
 
+12. pipeline-A step, kernel vs plain: the full-width TemporalSSL
+   (configs/ssl_train.yaml: MobileViT-S, embed 256, a 4-layer temporal
+   transformer of 4 heads) at B=2 clips x 32 frames x 112x112, TOP on
+   (subsample 2 clips), the same weights, EMA teacher, BatchNorm statistics,
+   frame mask and TOP draws through the kernels and through the plain
+   versions, fp32 and bf16, held as phase 10 holds its step (K1 30, K2 20
+   calls); the bf16 pass also reports how far each run's loss lies from the
+   fp32 plain run's.
+13. pipeline A: the port's entry.train_ssl.run on configs/ssl_train.yaml
+   (B=48 clips x 32 frames = 1536 MobileViT frames, bf16, the split
+   device-resident) with its departures (top_start_epoch 1, so steps with
+   and without TOP alternate; a checkpoint every epoch) on a synthetic
+   96-clip split of 64-frame videos, 6 steps. Per step: TOP on or off, loss,
+   step ms (the checkpoint writes left out), clips/s, K1 and K2 calls (20
+   and 10 without TOP, 30 and 20 with it) and peak memory; the last
+   checkpoint's encoder then fills the MobileViT classifier.
+14. pipeline-C step, kernel vs plain: the full-width TinyViTMAE
+   (configs/mae_train.yaml: the four-stage TinyViT-21M, 3x3 pooled tokens,
+   decoder 512 wide, 2 blocks of 8 heads) at B=2 clips x 32 frames, the same
+   weights, tube mask and drop-path decisions, fp32 and bf16, as phase 12
+   (K1 22, K2 12 calls: 10 TinyViT layers, each recomputed once under remat,
+   and 2 decoder layers).
+15. pipeline C: the port's entry.train_mae.run on configs/mae_train.yaml
+   with the batch cut to 16 clips x 32 frames (the published 256 x 32 do not
+   fit one card) and a checkpoint every epoch, bf16, resident split of 32
+   clips of 128-frame videos: 4 steps (2 epochs), then a second run that
+   resumes from its own checkpoint at epoch 3 for 2 more; per step as phase
+   13 (K1 22, K2 12).
+16. sanity check: the port's entry.sanity_check_mae on the card
+   (configs/mae_train.yaml, one clip of 32 frames): PASSED, K1 24 and K2 12.
+
 Every kernel launch count is set to 0 just before each path (train,
-serving, each probe, finetune, evaluate) is driven and read just after. The line before the
+serving, each probe, finetune, evaluate, the pipeline-A and -C entries and
+the sanity check) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -136,7 +170,8 @@ P1_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/dw3x3.cu"
 P2_TPU = "scripts/probe_exp.py:35"
 P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
 PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
-         "probe_exp", "train_finetune", "evaluate")
+         "probe_exp", "train_finetune", "evaluate", "train_ssl", "train_mae",
+         "sanity_check_mae")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -199,7 +234,10 @@ FT_K1_CALLS, FT_K2_CALLS = 8, 8
 K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
 
 # (B, Lq, Lk, H, d): the slice's MobileViT blocks at 8 clips x 16 frames,
-# then pipeline-B's TinyViT stages, its decoder, and a sequence-parallel shard
+# then pipeline-B's TinyViT stages, its decoder, and a sequence-parallel
+# shard; then pipeline A's MobileViT blocks at 48 clips x 32 frames and its
+# temporal transformer, and pipeline C's TinyViT stages 1-3 at 16 clips x
+# 32 frames and its decoder
 KERNEL_SHAPES = [
     ("mvit1", 128, 196, 196, 4, 32),
     ("mvit2", 128, 64, 64, 4, 40),
@@ -208,6 +246,14 @@ KERNEL_SHAPES = [
     ("tinyvit_stage2", 128, 196, 196, 12, 32),
     ("mae_decoder", 4, 3136, 3136, 6, 64),
     ("decoder_seq_shard", 4, 784, 3136, 6, 64),
+    ("mvit1_ssl", 1536, 196, 196, 4, 32),
+    ("mvit2_ssl", 1536, 64, 64, 4, 40),
+    ("mvit3_ssl", 1536, 16, 16, 4, 48),
+    ("temporal", 48, 32, 32, 4, 64),
+    ("tinyvit_stage1_mae", 512, 784, 784, 6, 32),
+    ("tinyvit_stage2_mae", 512, 196, 196, 12, 32),
+    ("tinyvit_stage3", 512, 49, 49, 18, 32),
+    ("token_mae_decoder", 16, 288, 288, 8, 64),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 HMMA_BF16 = "HMMA.16816.F32.BF16"
@@ -220,6 +266,59 @@ TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # their magnitude (the port's plain version against the JAX kernels); the
 # step's loss moves by about 1e-4 of itself
 TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-3, 5e-2
+# configs/ssl_train.yaml, spelled out likewise (its save_dir and
+# train_split are the smoke's own); configs/base.yaml gives its clip shape
+SSL_TRAIN_YAML = {
+    "dataset": {"name": "UCF101", "val_split": "UCF101_val.txt"},
+    "training": {"epochs": 200, "batch_size": 48, "learning_rate": 0.0005,
+                 "weight_decay": 0.05, "save_every": 10, "clip_grad_norm": 1.0,
+                 "log_interval": 20,
+                 "scheduler": {"enable": True, "warmup_epochs": 5, "eta_min_ratio": 0.05}},
+    "model": {"backbone": "mobilevit_s", "embed_dim": 256, "temporal_layers": 4,
+              "temporal_heads": 4},
+    "ssl_objectives": {"mask_ratio": 0.75, "mfm_weight": 1.0, "ema_momentum": 0.996,
+                       "var_weight": 25.0, "var_eps": 0.0001, "var_target_std": 1.0,
+                       "top_weight": 1.0, "top_start_epoch": 6, "top_every": 2,
+                       "top_subsample": 0.5, "top_detach_backbone": False},
+    "optimizer": {"type": "adamw"},
+}
+BASE_CLIP = {"dataset": {"clip_len": 32, "stride": 2, "image_size": 112}}
+# the smoke's departures: TOP from the first epoch (steps with and without
+# it alternate) and a checkpoint every epoch
+SSL_TRAIN_SMOKE_OVERRIDES = {"ssl_objectives": {"top_start_epoch": 1},
+                             "training": {"save_every": 1}}
+SSL_TRAIN_STEPS = 6
+# attention layers per forward_tokens: 3 MobileViT blocks x depth 2, and 4
+# temporal layers. Teacher and student run K1, the student K2; the TOP
+# branch one more forward and backward
+SSL_K1_K2 = {False: (20, 10), True: (30, 20)}
+
+# configs/mae_train.yaml, spelled out likewise (its train_split and
+# output dir are the smoke's own)
+MAE_TRAIN_YAML = {
+    "seed": 42,
+    "dataset": {"image_size": 112, "clip_len": 32, "stride": 4, "channels": 3},
+    "training": {"epochs": 200, "batch_size": 256, "grad_accum": 1, "clip_grad_norm": 1.0,
+                 "lr": 0.0003, "min_lr": 0.000001, "weight_decay": 0.05,
+                 "betas": [0.9, 0.95], "lr_schedule": "cosine", "warmup_epochs": 10,
+                 "save_every": 5, "keep_last": 5, "log_interval": 20},
+    "mae": {"stage4_pool": 3, "mask_mode": "tube", "mask_ratio": 0.8,
+            "mask_ratio_schedule": [{"start": 1, "end": 21, "value": 0.7},
+                                    {"start": 21, "end": 81, "value": 0.8},
+                                    {"start": 81, "end": 100000, "value": 0.9}],
+            "loss": {"type": "l2", "normalize_target": True},
+            "decoder": {"dim": 512, "depth": 2, "num_heads": 8, "mlp_ratio": 4.0},
+            "vis_every": 10},
+}
+# the smoke's departures: 16 clips a batch (256 x 32 frames through the full
+# TinyViT do not fit one card) and a checkpoint every epoch
+MAE_TRAIN_SMOKE_OVERRIDES = {"training": {"batch_size": 16, "save_every": 1}}
+MAE_TRAIN_STEPS, MAE_RESUME_STEPS = 4, 2
+# 10 TinyViT attention layers (2 + 6 + 2), each run again when its
+# checkpointed stage is recomputed, and 2 decoder layers
+MAE_K1_CALLS, MAE_K2_CALLS = 22, 12
+# the sanity check: an eval forward, then a forward and backward (no remat)
+SANITY_K1_CALLS, SANITY_K2_CALLS = 24, 12
 TOL_DW_FP32 = 1e-5                 # abs; bf16: this plus one ulp of the output
 # (N, H, W, C) crossing every tile edge of P1: 9 rows (8-row bands), 300
 # columns (column tiles), 40 channels (32 bf16 or 16 fp32 a chunk)
@@ -532,6 +631,28 @@ def ssl_mae_cfg(split: str, save_dir: str) -> dict:
     return cfg
 
 
+def ssl_train_cfg(split: str, save_dir: str) -> dict:
+    """Phases 12-13's config: configs/ssl_train.yaml over configs/base.yaml
+    with the smoke's departures, split and save dir."""
+    cfg = merged(BASE_YAML, BASE_CLIP, SSL_TRAIN_YAML, SSL_TRAIN_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"]["train_split"] = split
+    cfg["training"]["save_dir"] = save_dir
+    cfg["paths"] = {"split_root": ""}
+    return cfg
+
+
+def mae_train_cfg(split: str, out_dir: str) -> dict:
+    """Phases 14-16's config: configs/mae_train.yaml over configs/base.yaml
+    with the smoke's departures, split and output dir."""
+    cfg = merged(BASE_YAML, MAE_TRAIN_YAML, MAE_TRAIN_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"]["train_split"] = split
+    cfg["output"] = {"dir": out_dir}
+    cfg["paths"] = {"split_root": ""}
+    return cfg
+
+
 def finetune_cfg(train_split: str, val_split: str, pretrained_ssl: str, out: str) -> dict:
     """Phase 11's config: configs/finetune.yaml over configs/base.yaml, the
     campaign's pipeline-B overrides, and the smoke's split, class count,
@@ -570,7 +691,6 @@ def phase_train_step(fa, dev) -> list[dict]:
 
     from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
     from ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae import build_model
-    from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
     from ssl_vit_video_analytics_tpu_torch.ops.patchify import patchify
     from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
     from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
@@ -600,9 +720,7 @@ def phase_train_step(fa, dev) -> list[dict]:
         names = [n for n, _ in model.named_parameters()]
         res = {}
         for impl in ("kernel", "plain", "kernel", "plain"):  # the first of each warms up
-            for m in model.modules():
-                if isinstance(m, MultiHeadAttention):
-                    m.attn_impl = impl
+            set_attn_impl(model, impl)
             fa.launches.reset()
             fa.bwd_launches.reset()
             torch.cuda.synchronize()
@@ -985,15 +1103,106 @@ def phase_chain(dev) -> dict:
             "bound_ms": sum(r["bound_hi_ms"] for r in rows)}
 
 
-def phase_finetune_step(fa, dev) -> list[dict]:
+def set_attn_impl(model, impl: str) -> None:
+    from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
+
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_impl = impl
+
+
+def compare_impls(model, run, want_k1_k2: tuple, record: dict) -> dict:
+    """``run()`` (loss, grads) through the kernels and through the plain
+    versions, twice each (the first of each warms up), from the same
+    ``state_dict`` every time. Returns each impl's loss, grads, ms and
+    launches; fails unless the kernel runs launch ``want_k1_k2`` and the
+    plain ones none."""
+    import torch
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    res = {}
+    for impl in ("kernel", "plain", "kernel", "plain"):
+        set_attn_impl(model, impl)
+        model.load_state_dict(start)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        res[impl] = {"loss": float(loss), "grads": grads, "ms": 1e3 * (time.perf_counter() - t0),
+                     "k1_k2": (counts["flash_attention_fwd"], counts["flash_attention_bwd"])}
+    set_attn_impl(model, "kernel")
+    model.load_state_dict(start)
+    if res["kernel"]["k1_k2"] != want_k1_k2 or res["plain"]["k1_k2"] != (0, 0):
+        raise AssertionError(f"kernel calls in the step: kernel {res['kernel']['k1_k2']}, "
+                             f"plain {res['plain']['k1_k2']}, want {want_k1_k2}: {record}")
+    return res
+
+
+def judge_step(out: dict, dtype, res: dict, names: list, ref32: dict) -> dict:
+    """Phase 10's rule on one dtype's kernel and plain runs: the loss to
+    TOL_STEP_LOSS(_BF16) relative, every gradient to TOL_STEP_GRAD(_BF16)
+    relative L2 of the plain run's (a norm below 1e-4 of the largest taken
+    as that floor). In bf16 only the gradients that are not zero in the
+    fp32 plain run are held, and a loss or gradient beyond its limit passes
+    if the kernel run lies within the limit of the fp32 plain run beyond
+    the bf16 plain run's own distance from it. ``ref32`` keeps the fp32
+    plain run for the bf16 pass. Emits ``out`` with the findings and raises
+    on a failure."""
+    import torch
+
+    fp32 = dtype == torch.float32
+    tol_loss, tol_grad = ((TOL_STEP_LOSS, TOL_STEP_GRAD) if fp32
+                          else (TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16))
+    kern, plain = res["kernel"], res["plain"]
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    loss32 = {impl: 0.0 if fp32 else abs(r["loss"] - ref32["loss"]) / abs(ref32["loss"])
+              for impl, r in (("kernel", kern), ("plain", plain))}
+    loss_ok = loss_rel <= tol_loss or (
+        not fp32 and loss32["kernel"] <= loss32["plain"] + tol_loss)
+    rels, norms = rel_l2_by_leaf(kern["grads"], plain["grads"])
+    if fp32:
+        ref32.update(live=[n >= 1e-4 * max(norms) for n in norms], grads=plain["grads"],
+                     loss=plain["loss"])
+    checked = [i for i, on in enumerate(ref32["live"]) if on or fp32]
+    k32 = p32 = [0.0] * len(rels)
+    if not fp32:
+        k32, _ = rel_l2_by_leaf(kern["grads"], ref32["grads"])
+        p32, _ = rel_l2_by_leaf(plain["grads"], ref32["grads"])
+    beyond = [i for i in checked if not rels[i] <= tol_grad]
+    failed = [i for i in beyond if not k32[i] <= p32[i] + tol_grad]
+    worst = max(checked, key=lambda i: rels[i] if math.isfinite(rels[i]) else math.inf)
+    out.update({"dtype": str(dtype).replace("torch.", ""),
+                "loss_kernel": kern["loss"], "loss_plain": plain["loss"], "loss_rel": loss_rel,
+                "worst_grad_rel_l2": rels[worst], "worst_grad": names[worst],
+                "grads": len(names), "grads_zero_in_fp32": len(rels) - len(checked),
+                "worst_grads": [{"grad": names[i], "kernel_vs_plain": rels[i],
+                                 "kernel_vs_fp32": k32[i], "plain_vs_fp32": p32[i]}
+                                for i in sorted(checked, key=lambda i: -rels[i])[:3]],
+                "beyond_tol_grad": len(beyond), "failed": len(failed),
+                "tol_loss": tol_loss, "tol_grad": tol_grad,
+                "ms_kernel": kern["ms"], "ms_plain": plain["ms"],
+                "k1_k2": list(kern["k1_k2"])})
+    if not fp32:  # how far bf16 rounding alone moves each run's loss
+        out["loss_rel_vs_fp32"] = loss32
+        out["loss_beyond_tol"] = not loss_rel <= tol_loss
+    emit(out)
+    if not (loss_ok and not failed and math.isfinite(kern["loss"])):
+        raise AssertionError(f"{out['phase']} {dtype}: loss rel {loss_rel}, grad "
+                             f"{names[worst]} rel L2 {rels[worst]}, failed "
+                             f"{[names[i] for i in failed]}")
+    return out
+
+
+def phase_finetune_step(dev) -> list[dict]:
     """The full-width TinyViT classifier's finetune step through the kernels
     and through the plain versions, on the same weights and drop-path
     decisions, unfrozen (ft_ssl) and frozen (two_stage before its boundary),
-    in fp32 (TF32 off) and in bf16; then one real step of each mode through
-    the kernels."""
+    in fp32 (TF32 off) and in bf16, held by :func:`judge_step`; then one
+    real step of each mode through the kernels."""
     import torch
 
-    from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
     from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
     from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
     from ssl_vit_video_analytics_tpu_torch.train.state import create_train_state
@@ -1006,17 +1215,8 @@ def phase_finetune_step(fa, dev) -> list[dict]:
     clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
     labels = torch.randint(0, FT_CLASSES, (B,), dtype=torch.int32, device=dev, generator=g)
     outs, drop = [], None
-    live = {}  # by mode: the gradients that are not zero in the fp32 plain run
-    ref32 = {}  # by mode: the fp32 plain run's gradients
-
-    def set_impl(model, impl):
-        for m in model.modules():
-            if isinstance(m, MultiHeadAttention):
-                m.attn_impl = impl
-
-    for dtype, tol_loss, tol_grad in ((torch.float32, TOL_STEP_LOSS, TOL_STEP_GRAD),
-                                      (torch.bfloat16, TOL_STEP_LOSS_BF16,
-                                       TOL_STEP_GRAD_BF16)):
+    ref32 = {}  # by mode: the fp32 plain run (judge_step's reference)
+    for dtype in (torch.float32, torch.bfloat16):
         model = eng.build_model(FT_CLASSES, 256, dtype=dtype, backbone="tinyvit")
         eng.init_model(model, torch.Generator().manual_seed(0))
         model.to(dev)
@@ -1025,50 +1225,16 @@ def phase_finetune_step(fa, dev) -> list[dict]:
         if drop is None:  # one set of decisions for every run
             drop = model.draw_drop_path(B, T, g)
         for mode, freeze in (("ft_ssl", False), (FINETUNE_MODE, True)):
-            res = {}
-            for impl in ("kernel", "plain", "kernel", "plain"):  # the first of each warms up
-                set_impl(model, impl)
-                model.load_state_dict(start)
-                params = eng.build_finetune_tx(training, mode, model, freeze).params
-                names = {id(p): n for n, p in model.named_parameters()}
-                reset_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                loss, _, grads = eng.loss_and_grads(model, params, clip, labels, drop)
-                torch.cuda.synchronize()
-                res[impl] = {"loss": float(loss), "grads": grads,
-                             "ms": 1e3 * (time.perf_counter() - t0),
-                             "k1": fa.launches.count, "k2": fa.bwd_launches.count}
-            kern, plain = res["kernel"], res["plain"]
-            loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
-            rels, norms = rel_l2_by_leaf(kern["grads"], plain["grads"])
-            if mode not in live:  # fp32, first: which gradients are zero in exact arithmetic
-                live[mode] = [n >= 1e-4 * max(norms) for n in norms]
-                ref32[mode] = plain["grads"]
-            # a gradient that is zero in exact arithmetic (a per-channel shift
-            # ahead of a train-mode BatchNorm, as stage 1's last MLP bias ahead
-            # of stage 2's downsample) is rounding noise in both runs; in bf16
-            # that noise can pass phase 5's floor, so bf16 holds only the
-            # gradients the fp32 plain run finds above it
-            checked = [i for i, on in enumerate(live[mode])
-                       if on or dtype == torch.float32]
-            # in bf16, each run's distance from the fp32 plain run: a leaf
-            # beyond tol_grad of the plain run passes only where the kernel
-            # run is within tol_grad of the exact result as far again as bf16
-            # rounding alone puts the plain run (SE weights at B=2 move by
-            # about 5e-2 under bf16 rounding, as in phase 5)
-            k32 = p32 = [0.0] * len(rels)
-            if dtype != torch.float32:
-                k32, _ = rel_l2_by_leaf(kern["grads"], ref32[mode])
-                p32, _ = rel_l2_by_leaf(plain["grads"], ref32[mode])
-            beyond = [i for i in checked if not rels[i] <= tol_grad]
-            failed = [i for i in beyond if not k32[i] <= p32[i] + tol_grad]
-            worst = max(checked, key=lambda i: rels[i] if math.isfinite(rels[i]) else math.inf)
+            params = eng.build_finetune_tx(training, mode, model, freeze).params
+            names = {id(p): n for n, p in model.named_parameters()}
+            k2_want = 0 if freeze else FT_K2_CALLS
+            out = {"phase": "finetune_step_kernel_vs_plain", "B": B, "T": T, "mode": mode,
+                   "frozen_backbone": freeze}
+            res = compare_impls(model, lambda: eng.loss_and_grads(
+                model, params, clip, labels, drop)[::2], (FT_K1_CALLS, k2_want), out)
 
             # one step of the mode through the kernels: the frozen backbone
             # keeps every param and moves its BatchNorm statistics
-            set_impl(model, "kernel")
-            model.load_state_dict(start)
             state = create_train_state(model, eng.build_finetune_tx(training, mode, model,
                                                                     freeze))
             reset_counts()
@@ -1084,44 +1250,21 @@ def phase_finetune_step(fa, dev) -> list[dict]:
                               for k in backbone)
             stats_moved = sum(not torch.equal(after[k], start[k]) for k in stats)
             head_moved = not torch.equal(after["head.weight"], start["head.weight"])
-            k2_want = 0 if freeze else FT_K2_CALLS
-            out = {"phase": "finetune_step_kernel_vs_plain", "B": B, "T": T,
-                   "dtype": str(dtype).replace("torch.", ""), "mode": mode,
-                   "frozen_backbone": freeze,
-                   "loss_kernel": kern["loss"], "loss_plain": plain["loss"],
-                   "loss_rel": loss_rel, "worst_grad_rel_l2": rels[worst],
-                   "worst_grad": names[id(params[worst])], "grads": len(params),
-                   "grads_below_floor": sum(n < 1e-4 * max(norms) for n in norms),
-                   "grads_zero_in_fp32": len(rels) - len(checked),
-                   "worst_grads": [{"grad": names[id(params[i])], "kernel_vs_plain": rels[i],
-                                    "kernel_vs_fp32": k32[i], "plain_vs_fp32": p32[i]}
-                                   for i in sorted(checked, key=lambda i: -rels[i])[:3]],
-                   "beyond_tol_grad": len(beyond), "failed": len(failed),
-                   "zero_in_fp32_max_rel": max((rels[i] for i in range(len(rels))
-                                                if i not in checked), default=0.0),
-                   "tol_loss": tol_loss, "tol_grad": tol_grad,
-                   "ms_kernel": kern["ms"], "ms_plain": plain["ms"],
-                   "k1_calls": kern["k1"], "k2_calls": kern["k2"],
-                   "plain_k1_k2": [plain["k1"], plain["k2"]],
-                   "step_k1_k2": [step_calls["flash_attention_fwd"],
-                                  step_calls["flash_attention_bwd"]],
-                   "step_loss": float(metrics["loss"]),
-                   "backbone_params_unchanged": params_kept,
-                   "backbone_bn_stats_moved": f"{stats_moved}/{len(stats)}",
-                   "head_moved": head_moved}
-            emit(out)
-            if not (loss_rel <= tol_loss and not failed):
-                raise AssertionError(f"finetune step kernel vs plain, {mode} {dtype}: loss "
-                                     f"rel {loss_rel}, grad {out['worst_grad']} rel L2 "
-                                     f"{rels[worst]}")
-            if (kern["k1"], kern["k2"], plain["k1"], plain["k2"]) != (
-                    FT_K1_CALLS, k2_want, 0, 0) or out["step_k1_k2"] != [FT_K1_CALLS, k2_want]:
+            out.update({"step_k1_k2": [step_calls["flash_attention_fwd"],
+                                       step_calls["flash_attention_bwd"]],
+                        "step_loss": float(metrics["loss"]),
+                        "backbone_params_unchanged": params_kept,
+                        "backbone_bn_stats_moved": f"{stats_moved}/{len(stats)}",
+                        "head_moved": head_moved})
+            outs.append(judge_step(out, dtype, res, [names[id(p)] for p in params],
+                                   ref32.setdefault(mode, {})))
+            if out["step_k1_k2"] != [FT_K1_CALLS, k2_want]:
                 raise AssertionError(f"kernel calls in the finetune step: {out}")
             if not (head_moved and stats_moved and params_kept == freeze
                     and math.isfinite(out["step_loss"])):
                 raise AssertionError(f"finetune step state after one {mode} step: {out}")
-            outs.append(out)
-            del res, kern, plain, state
+            model.load_state_dict(start)
+            del res, state
         del model, start
     return outs
 
@@ -1271,6 +1414,263 @@ def phase_transfer(fa, dev, tmp: str, ssl_ckpt: str) -> dict:
     return {"train_finetune": launches, "evaluate": ev_launches}
 
 
+def phase_ssl_step(dev, seed: int = 6) -> list[dict]:
+    """Pipeline A's loss and gradients (teacher, student, TOP) at full width
+    through the kernels and through the plain versions; ``seed`` draws the
+    clips, the frame mask and the TOP draws."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.masking import frame_mask
+    from ssl_vit_video_analytics_tpu_torch.entry.train_ssl import build_model
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
+    from ssl_vit_video_analytics_tpu_torch.train.ssl_engine import SSLObjective
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ssl_train_cfg("", "")
+    obj = SSLObjective(cfg["ssl_objectives"], with_top=True)
+    B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
+    mask = frame_mask(g, B, T, obj.mask_ratio)
+    sel = torch.randperm(B, generator=g, device=dev)[:obj.top_count(B)]
+    labels = torch.randint(0, 4, (len(sel),), generator=g, device=dev)
+    outs, ref32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg, T, dtype)
+        init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        clip = normalize_clip(clip_u8, dtype=dtype)
+        with torch.no_grad():  # BatchNorm statistics of a trained model's kind
+            model.train()
+            for _ in range(3):
+                model(clip)
+        noise = torch.Generator().manual_seed(1)
+        ema = {n: p.detach() + 0.01 * torch.randn(p.shape, generator=noise).to(dev)
+               for n, p in model.named_parameters()}
+        names, params = zip(*model.named_parameters())
+        out = {"phase": "ssl_step_kernel_vs_plain", "B": B, "T": T, "top": True, "seed": seed}
+        res = compare_impls(model, lambda: obj.loss_and_grads(
+            model, list(params), ema, clip, mask, sel, labels)[::2], SSL_K1_K2[True], out)
+        outs.append(judge_step(out, dtype, res, list(names), ref32))
+        del model, ema, res
+    return outs
+
+
+class StepRecorder:
+    """Callbacks for an entry run: each step's loss, ms since the previous
+    one (a checkpoint write left out), clips/s, K1/K2 calls, peak memory and
+    ``extra(metrics)``; the launch counts summed in ``totals``; the log
+    lines in ``lines``. Call :meth:`start` just before each run."""
+
+    def __init__(self, batch: int, phase: str, extra=None):
+        self.batch, self.phase, self.extra = batch, phase, extra
+        self.steps, self.lines = [], []
+        self.totals = dict.fromkeys(counters(), 0)
+        self.t, self.setup = 0.0, False
+
+    def start(self) -> None:
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        self.t, self.setup = time.perf_counter(), True
+
+    def take_counts(self) -> dict:
+        launched = read_counts()
+        for name, n in launched.items():
+            self.totals[name] += n
+        reset_counts()
+        return launched
+
+    def on_step(self, i, state, metrics) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        launched = self.take_counts()
+        self.steps.append({
+            "step": i, "includes_setup": self.setup, "loss": float(metrics["loss"]),
+            "step_ms": 1e3 * (now - self.t), "clips_per_s": self.batch / (now - self.t),
+            "k1_calls": launched["flash_attention_fwd"],
+            "k2_calls": launched["flash_attention_bwd"],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **(self.extra(metrics) if self.extra else {})})
+        emit({"phase": self.phase, **self.steps[-1]})
+        torch.cuda.reset_peak_memory_stats()
+        self.t, self.setup = time.perf_counter(), False
+
+    def on_log(self, msg: str) -> None:
+        self.lines.append(msg)
+        if "saved" in msg:  # the next step's time starts after the write
+            self.t = time.perf_counter()
+
+
+def phase_ssl_train(dev, tmp: str) -> dict:
+    """The pipeline-A entry on configs/ssl_train.yaml for SSL_TRAIN_STEPS
+    steps; its last checkpoint then fills the MobileViT classifier."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.entry import train_ssl
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.utils.checkpoint import read_checkpoint
+
+    B = SSL_TRAIN_YAML["training"]["batch_size"]
+    d = BASE_CLIP["dataset"]
+    # 8 classes x 12 train videos = 96 clips (2 steps an epoch) of 64 frames
+    # (32 at stride 2), 112x112
+    splits = make_synthetic_dataset(os.path.join(tmp, "ssl_a_data"), num_classes=8,
+                                    videos_per_class=13, num_frames=d["clip_len"] * d["stride"],
+                                    image_size=d["image_size"], seed=2)
+    cfg = ssl_train_cfg(splits["train"], os.path.join(tmp, "ssl_a_out"))
+    rec = StepRecorder(B, "ssl_train_step", extra=lambda m: {"top": "top" in m})
+    rec.start()
+    t0 = time.perf_counter()
+    out = train_ssl.run(cfg, log=rec.on_log, max_steps=SSL_TRAIN_STEPS, on_step=rec.on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec.take_counts()
+    steps, lines = rec.steps, rec.lines
+    ckpt = os.path.join(cfg["training"]["save_dir"],
+                        f"ssl_epoch_{SSL_TRAIN_STEPS // 2}")
+    clf = eng.build_model(8, SSL_TRAIN_YAML["model"]["embed_dim"], backbone="mobilevit_s")
+    eng.load_pretrained_ssl(clf, read_checkpoint(ckpt))  # raises on a missing or extra key
+    summary = {"phase": "ssl_train", "steps": out["steps"], "seconds": seconds,
+               "device_resident": any("device-resident store" in m for m in lines),
+               "checkpoint_into_classifier": os.path.basename(ckpt), "log": lines[-3:]}
+    emit(summary)
+    bad = [s for s in steps if (s["k1_calls"], s["k2_calls"]) != SSL_K1_K2[s["top"]]]
+    if out["steps"] != SSL_TRAIN_STEPS or bad or [s["top"] for s in steps] != [
+            i % 2 == 0 for i in range(1, SSL_TRAIN_STEPS + 1)]:
+        raise AssertionError(f"train_ssl: {out['steps']} steps; kernel calls or TOP off "
+                             f"in {bad or steps}")
+    if not (all(math.isfinite(s["loss"]) for s in steps) and summary["device_resident"]):
+        raise AssertionError(f"train_ssl: {summary}")
+    return rec.totals
+
+
+def phase_mae_step(dev, seed: int = 7) -> list[dict]:
+    """Pipeline C's loss and gradients at full width through the kernels
+    and through the plain versions; ``seed`` draws the clips, the token
+    mask and the drop-path decisions."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.masking import get_mask_ratio, make_token_mask
+    from ssl_vit_video_analytics_tpu_torch.entry.train_mae import build_model
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
+    from ssl_vit_video_analytics_tpu_torch.train.losses import build_mae_loss
+    from ssl_vit_video_analytics_tpu_torch.train.mae_engine import token_mae_loss_and_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mae_train_cfg("", "")
+    mae = cfg["mae"]
+    B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    P = mae["stage4_pool"] ** 2
+    g = torch.Generator(device=dev).manual_seed(seed)
+    clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
+    mask = make_token_mask(g, B, T, P, get_mask_ratio(1, mae["mask_ratio_schedule"],
+                                                      mae["mask_ratio"]), mae["mask_mode"])
+    loss_fn = build_mae_loss(mae["loss"]["type"], mae["loss"]["normalize_target"])
+    outs, ref32, drop = [], {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg, dtype)
+        init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        if drop is None:  # one set of decisions for both dtypes
+            drop = model.draw_drop_path(B, T, g)
+        clip = normalize_clip(clip_u8, dtype=dtype)
+        names, params = zip(*model.named_parameters())
+        out = {"phase": "mae_step_kernel_vs_plain", "B": B, "T": T, "seed": seed}
+        res = compare_impls(model, lambda: token_mae_loss_and_grads(
+            model, list(params), clip, mask, drop, loss_fn)[::3], (MAE_K1_CALLS, MAE_K2_CALLS),
+            out)
+        outs.append(judge_step(out, dtype, res, list(names), ref32))
+        del model, res
+    return outs
+
+
+def phase_mae_train(dev, tmp: str) -> dict:
+    """The pipeline-C entry on configs/mae_train.yaml (batch 16) for
+    MAE_TRAIN_STEPS steps, then a resume from its own checkpoint for
+    MAE_RESUME_STEPS more; then the sanity check on the same config."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.entry import sanity_check_mae, train_mae
+
+    B = MAE_TRAIN_SMOKE_OVERRIDES["training"]["batch_size"]
+    d = MAE_TRAIN_YAML["dataset"]
+    # 8 classes x 4 train videos = 32 clips (2 steps an epoch) of 128
+    # frames (32 at stride 4), 112x112
+    splits = make_synthetic_dataset(os.path.join(tmp, "mae_c_data"), num_classes=8,
+                                    videos_per_class=5, num_frames=d["clip_len"] * d["stride"],
+                                    image_size=d["image_size"], seed=3)
+    cfg = mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out"))
+    rec = StepRecorder(B, "mae_train_step", extra=lambda m: {
+        "pred_std": float(m["pred_std"]), "grad_norm": float(m["grad_norm"])})
+    t0 = time.perf_counter()
+    rec.start()
+    first = train_mae.run(cfg, log=rec.on_log, max_steps=MAE_TRAIN_STEPS, on_step=rec.on_step)
+    rec.start()
+    resumed = train_mae.run(cfg, log=rec.on_log, max_steps=MAE_TRAIN_STEPS + MAE_RESUME_STEPS,
+                            on_step=rec.on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec.take_counts()
+    steps, lines = rec.steps, rec.lines
+    epoch = MAE_TRAIN_STEPS // 2 + 1
+    summary = {"phase": "mae_train", "steps": [first["steps"], resumed["steps"]],
+               "seconds": seconds, "best": resumed["best"],
+               "resumed": [m for m in lines if m.startswith("[INFO] resumed from")],
+               "vis_warning": [m for m in lines if "item 16" in m][:1],
+               "device_resident": sum("device-resident store" in m for m in lines),
+               "checkpoints": sorted(f for f in os.listdir(cfg["output"]["dir"])
+                                     if f.endswith(".pt"))}
+    emit(summary)
+    bad = [s for s in steps if (s["k1_calls"], s["k2_calls"]) != (MAE_K1_CALLS, MAE_K2_CALLS)]
+    if (first["steps"], resumed["steps"]) != (MAE_TRAIN_STEPS,
+                                              MAE_TRAIN_STEPS + MAE_RESUME_STEPS) or bad:
+        raise AssertionError(f"train_mae: steps {summary['steps']}; kernel calls off in {bad}")
+    if not (len(summary["resumed"]) == 1 and summary["resumed"][0].endswith(f"epoch {epoch}")
+            and summary["vis_warning"] and summary["device_resident"] == 2
+            and all(math.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"train_mae: {summary}")
+
+    reset_counts()
+    sanity = []
+    sanity_check_mae.run(cfg, device=dev, log=sanity.append)
+    torch.cuda.synchronize()
+    sanity_counts = read_counts()
+    emit({"phase": "sanity_check_mae", "log": sanity,
+          "k1_calls": sanity_counts["flash_attention_fwd"],
+          "k2_calls": sanity_counts["flash_attention_bwd"]})
+    if sanity[-1] != "[SANITY] PASSED" or (sanity_counts["flash_attention_fwd"],
+                                           sanity_counts["flash_attention_bwd"]) != (
+            SANITY_K1_CALLS, SANITY_K2_CALLS):
+        raise AssertionError(f"sanity_check_mae: {sanity[-2:]}, {sanity_counts}")
+    return {"train_mae": rec.totals, "sanity_check_mae": sanity_counts}
+
+
+def step_seeds(dev, seeds: list[int]) -> None:
+    """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
+    weights stay those of seed 0), every judgement emitted; fails at the
+    end if any seed failed."""
+    failed = []
+    for seed in seeds:
+        for phase in (phase_ssl_step, phase_mae_step):
+            try:
+                phase(dev, seed)
+            except AssertionError as e:
+                failed.append(f"{phase.__name__} seed {seed}: {e}")
+                emit({"phase": "step_seed_failed", "seed": seed, "step": phase.__name__})
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     import torch
@@ -1280,6 +1680,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run "
                          "needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -1289,6 +1690,9 @@ def main() -> None:
           "count": torch.cuda.device_count()})
 
     phase_build()
+    if len(sys.argv) > 2 and sys.argv[1] == "--step-seeds":
+        step_seeds(dev, [int(a) for a in sys.argv[2:]])
+        return
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
     phase_train_step(fa, dev)
@@ -1302,8 +1706,12 @@ def main() -> None:
         paths["probe_dw"] = p1.pop("launched")
         p2 = phase_chain(dev)
         paths["probe_exp"] = p2.pop("launched")
-        phase_finetune_step(fa, dev)
+        phase_finetune_step(dev)
         paths.update(phase_transfer(fa, dev, tmp, ssl_ckpt))
+        phase_ssl_step(dev)
+        paths["train_ssl"] = phase_ssl_train(dev, tmp)
+        phase_mae_step(dev)
+        paths.update(phase_mae_train(dev, tmp))
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}
@@ -1311,6 +1719,7 @@ def main() -> None:
     ms_is = ("sum over the pipeline-B shapes (tinyvit_stage1, tinyvit_stage2, "
              "mae_decoder) in bf16, one call each; library: "
              "torch.nn.functional.scaled_dot_product_attention")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,

@@ -36,6 +36,22 @@ def sample_frame_indices(num_frames: int, index: int, clip_len: int, stride: int
     return [min(start + i * stride, num_frames - 1) for i in range(clip_len)]
 
 
+def sample_frame_indices_mae(num_frames: int, index: int, clip_len: int, stride: int,
+                             seed: int) -> list[int]:
+    """Pipeline-B sampling: linspace over short videos, random strided window
+    otherwise (ref: src/datasets/mae_loader.py:48-59; deterministic per-index
+    RNG instead of global np.random so val sampling is reproducible)."""
+    rng = random.Random(seed + index)
+    window = clip_len * stride
+    if num_frames < window:
+        if clip_len == 1:
+            return [0]
+        step = (num_frames - 1) / (clip_len - 1)
+        return [min(int(round(i * step)), num_frames - 1) for i in range(clip_len)]
+    start = rng.randint(0, num_frames - window)
+    return list(range(start, start + window, stride))[:clip_len]
+
+
 class ClipDataset:
     """Lazy frame-folder clip dataset.
 
@@ -51,6 +67,7 @@ class ClipDataset:
         image_size: int = 112,
         seed: int = 42,
         backend: str = "packed",
+        sampling: str = "strided",  # strided (ref loader) | mae (linspace fallback)
         verbose: bool = True,
     ):
         self.samples = read_split(split_file)
@@ -59,6 +76,7 @@ class ClipDataset:
         self.stride = stride
         self.image_size = image_size
         self.seed = seed
+        self.sampling = sampling
         self.store = make_store(backend, image_size)
         if verbose:
             print(f"[INFO] Loaded {len(self.samples)} samples from {split_file}")
@@ -77,8 +95,9 @@ class ClipDataset:
             frame_dir, _ = self.samples[index]
             num_frames = self.store.num_frames(frame_dir)
             if num_frames > 0:
-                idxs = sample_frame_indices(num_frames, index, self.clip_len,
-                                            self.stride, self.seed)
+                sampler = (sample_frame_indices_mae if self.sampling == "mae"
+                           else sample_frame_indices)
+                idxs = sampler(num_frames, index, self.clip_len, self.stride, self.seed)
                 return self.store.read_frames(frame_dir, idxs, self.image_size)
             index = random.randint(0, len(self.samples) - 1)
         raise RuntimeError(

@@ -45,8 +45,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
                update_stats: bool = True) -> torch.Tensor:
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=bn.eps)`` over NCHW, with
-    fp32 statistics and parameters.
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=bn.eps)`` over NCHW (or the
+    rows of ``[N, C]``), with fp32 statistics and parameters.
 
     Eval: normalizes in fp32. Training: batch statistics, and with
     ``update_stats`` the running mean and (biased) variance move 0.1 of the
@@ -295,3 +295,12 @@ class TransformerEncoder(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x
+
+
+def adaptive_avg_pool_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Adaptive average pool ``[B, H, W, C]`` -> ``[B, s, s, C]`` with torch's
+    bins ``[floor(i*H/s), ceil((i+1)*H/s))``, the JAX package's rule: 7 -> 3
+    pools the overlapping rows [0,3), [2,5), [4,7)."""
+    if x.shape[1] == out_size and x.shape[2] == out_size:
+        return x
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_size).permute(0, 2, 3, 1)

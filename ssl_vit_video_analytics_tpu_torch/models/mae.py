@@ -1,5 +1,8 @@
-"""Pixel-space TinyVideoMAE, pipeline B (counterpart of the JAX package's
-``models/mae.py:TinyVideoMAE``; ref: src/models/mae_vit_adapter.py:5-116).
+"""MAE models (counterpart of the JAX package's ``models/mae.py``):
+pixel-space TinyVideoMAE (pipeline B) and feature-space TinyViTMAE
+(pipeline C).
+
+Pipeline B (ref: src/models/mae_vit_adapter.py:5-116):
 
 Frames folded into the batch -> TinyViT stage-3 features ``[BT, 14, 14,
 384]`` -> linear to the decoder width -> factorized temporal ``[1, T, 1, D]``
@@ -8,6 +11,13 @@ Frames folded into the batch -> TinyViT stage-3 features ``[BT, 14, 14,
 full-sequence transformer decoder over T*196 = 3136 tokens -> per-patch
 pixel head (8*8*3 = 192). Returns the full ``[B, N, 192]`` prediction; the
 loss masks with weights.
+
+Pipeline C (ref: src/models/tinyvit_mae.py:35-115): per-frame full TinyViT
+(four stages) -> stage-4 feature map adaptively pooled to ``stage4_pool**2``
+tokens -> mask-token substitution -> decoder -> prediction back to the
+encoder width. Returns ``(rec, target)`` over all ``[B, N, D]`` tokens; the
+target is the encoder's tokens, detached, while the encoder still gets a
+gradient through the unmasked tokens of the decoder's input.
 """
 from __future__ import annotations
 
@@ -15,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import TransformerEncoder, linear
+from .layers import TransformerEncoder, adaptive_avg_pool_nhwc, linear
 from .tiny_vit import TinyViT
 
 
@@ -81,3 +91,55 @@ class TinyVideoMAE(nn.Module):
         masked); drop: the encoder's decisions (:meth:`draw_drop_path`).
         Returns pred ``[B, T*L, patch_size**2 * 3]``."""
         return self.predict_pixels(self.decoder(self.embed_tokens(clip, mask, drop)))
+
+
+class MAEDecoder(nn.Module):
+    """proj -> transformer blocks -> predict back to the embedding width
+    (ref: src/models/tinyvit_mae.py:12-32)."""
+
+    def __init__(self, embed_dim: int, decoder_dim: int, depth: int, num_heads: int,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.proj = nn.Linear(embed_dim, decoder_dim)
+        self.blocks = TransformerEncoder(decoder_dim, depth, num_heads, mlp_ratio=mlp_ratio,
+                                         dtype=dtype)
+        self.pred = nn.Linear(decoder_dim, embed_dim)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.blocks(linear(x, self.proj, self.dtype))
+        return linear(x, self.pred, self.dtype)
+
+
+class TinyViTMAE(nn.Module):
+    """Feature-space token MAE: targets are the detached encoder tokens."""
+
+    def __init__(self, encoder: TinyViT, stage4_pool: int = 3, decoder_dim: int = 512,
+                 decoder_depth: int = 2, decoder_num_heads: int = 8, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        embed_dim = encoder.embed_dims[len(encoder.stages) - 1]
+        self.encoder = encoder
+        self.stage4_pool = stage4_pool
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        nn.init.trunc_normal_(self.mask_token, 0.0, 0.02, -0.04, 0.04)
+        self.decoder = MAEDecoder(embed_dim, decoder_dim, decoder_depth, decoder_num_heads,
+                                  mlp_ratio=mlp_ratio, dtype=dtype)
+
+    def draw_drop_path(self, batch: int, frames: int, generator: torch.Generator,
+                       device=None) -> list:
+        """The encoder's stochastic-depth decisions for ``batch`` clips of
+        ``frames`` frames (the decoder has none)."""
+        return self.encoder.draw_drop_path(batch * frames, generator, device)
+
+    def forward(self, clip: torch.Tensor, token_mask: torch.Tensor,
+                drop: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """clip ``[B, T, H, W, 3]``; token_mask ``[B, T*P]`` bool, P =
+        stage4_pool**2; drop: the encoder's decisions (:meth:`draw_drop_path`).
+        Returns ``(rec [B, N, D], target [B, N, D])``."""
+        B, T, H, W, C = clip.shape
+        feat = self.encoder(clip.reshape(B * T, H, W, C), drop=drop)      # [BT, h, w, D]
+        pooled = adaptive_avg_pool_nhwc(feat, self.stage4_pool)           # [BT, s, s, D]
+        tok = pooled.reshape(B, T * self.stage4_pool ** 2, pooled.shape[-1])
+        tok_in = torch.where(token_mask[..., None], self.mask_token.to(tok.dtype), tok)
+        return self.decoder(tok_in), tok.detach()

@@ -67,8 +67,8 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     lecun-normal conv/dense kernels, zero biases, unit BN/LN scales (zero BN
     scale where a ``ConvBNAct`` asks for it: residual MBConvs), BN running
     mean 0 and variance 1, and ``truncated_normal(0.02)`` (within +-0.04)
-    for the MAE's position embeddings and mask token. Draws from
-    ``generator``."""
+    for the MAE's and pipeline A's position embeddings and mask tokens.
+    Draws from ``generator``."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
@@ -77,13 +77,13 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(m.weight, m.weight.shape[1], generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.reset_running_stats()
         for name, p in m.named_parameters(recurse=False):
-            if name in ("temporal_pos_embed", "spatial_pos_embed", "mask_token"):
+            if name in ("temporal_pos_embed", "spatial_pos_embed", "mask_token", "pos"):
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
     for m in model.modules():  # after their BatchNorm2d children got scale 1
         if isinstance(m, ConvBNAct) and m.bn_zero_init:

@@ -27,12 +27,18 @@ to the step count. The optimizer stack is optax's, transform by transform:
   one (``(1 - emit) * acc``), the accumulator restarts from zeros after
   every k-th call, so one non-finite microbatch skips one update, not all
   later ones.
+
+Each of the three has ``state_dict()``/``load_state_dict()`` over flat
+``{name: tensor}`` entries (the moments, the count of updates, the skip and
+accumulation counters), so an optimizer round-trips through the port's
+``.pt`` checkpoints and a resumed run continues exactly. :func:`update_ema`
+is pipeline A's teacher update over a ``{name: tensor}`` copy of the params.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import torch
 from torch import nn
@@ -68,14 +74,15 @@ def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip)?, adamw(learning_rate,
-    b1=0.9, b2=0.999, eps=1e-8, weight_decay))`` over ``params``, or, when
+    b1, b2, eps=1e-8, weight_decay))`` over ``params``, or, when
     ``params`` holds group dicts ``{"name", "params", "lr"}``, one such chain
     per group (``optax.multi_transform``: clipped by the group's own norm, at
     the group's learning rate). ``params`` (all groups, in order) are what
     :meth:`update` takes gradients for."""
 
     def __init__(self, params, learning_rate: float | Callable[[int], float] | None = None,
-                 weight_decay: float = 0.05, grad_clip: float | None = None):
+                 weight_decay: float = 0.05, grad_clip: float | None = None,
+                 betas: tuple[float, float] = (0.9, 0.999)):
         params = list(params)
         if params and isinstance(params[0], dict):
             groups = [g for g in params if g["params"]]
@@ -89,7 +96,7 @@ class AdamW:
         self.grad_clip = grad_clip
         self.count = 0  # updates applied
         self.opt = torch.optim.AdamW([{"params": list(g["params"])} for g in groups],
-                                     lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                     lr=0.0, betas=tuple(betas), eps=1e-8,
                                      weight_decay=weight_decay)
 
     def update(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -110,6 +117,24 @@ class AdamW:
         self.count += 1
         return True
 
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """``count`` and, for the i-th param, ``{i}.exp_avg``,
+        ``{i}.exp_avg_sq`` and ``{i}.step`` once it has been updated."""
+        out = {"count": torch.tensor(self.count)}
+        for i, p in enumerate(self.params):
+            for key, value in self.opt.state.get(p, {}).items():
+                out[f"{i}.{key}"] = value
+        return out
+
+    def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        self.count = int(sd["count"])
+        for i, p in enumerate(self.params):
+            st = {k.split(".", 1)[1]: v for k, v in sd.items() if k.startswith(f"{i}.")}
+            if st:
+                # torch keeps ``step`` on the host, the moments beside the param
+                self.opt.state[p] = {k: v.clone() if k == "step" else v.to(p.device, p.dtype)
+                                     for k, v in st.items()}
+
 
 class ApplyIfFinite:
     """``optax.apply_if_finite(inner, max_consecutive_errors)``."""
@@ -127,6 +152,16 @@ class ApplyIfFinite:
         if finite or self.notfinite_count > self.max_consecutive_errors:
             return self.inner.update(grads)
         return False
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        return {"notfinite_count": torch.tensor(self.notfinite_count),
+                "total_notfinite": torch.tensor(self.total_notfinite),
+                **{f"inner.{k}": v for k, v in self.inner.state_dict().items()}}
+
+    def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        self.notfinite_count = int(sd["notfinite_count"])
+        self.total_notfinite = int(sd["total_notfinite"])
+        self.inner.load_state_dict(_inner(sd))
 
 
 class MultiSteps:
@@ -154,17 +189,38 @@ class MultiSteps:
             a.zero_()
         return applied
 
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        out = {"mini_step": torch.tensor(self.mini_step)}
+        for i, a in enumerate(self.acc or []):
+            out[f"acc.{i}"] = a
+        return {**out, **{f"inner.{k}": v for k, v in self.inner.state_dict().items()}}
+
+    def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        self.mini_step = int(sd["mini_step"])
+        params = adamw_of(self).params
+        acc = [sd.get(f"acc.{i}") for i in range(len(params))]
+        self.acc = (None if acc[0] is None
+                    else [a.to(p.device, p.dtype).clone() for a, p in zip(acc, params)])
+        self.inner.load_state_dict(_inner(sd))
+
+
+def _inner(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k[len("inner."):]: v for k, v in sd.items() if k.startswith("inner.")}
+
 
 def make_optimizer(params, learning_rate: float | Callable[[int], float],
                    weight_decay: float = 0.05, grad_clip: float | None = None,
+                   betas: tuple[float, float] = (0.9, 0.999),
                    trainable_mask: Sequence[bool] | None = None) -> AdamW:
     """AdamW + opt-in global-norm clip (None: no clipping; pipeline B never
-    clips). ``trainable_mask`` (one bool per param of ``params``): the
-    ``False`` ones are frozen, left out of the optimizer."""
+    clips). ``betas`` are optax's ``b1, b2`` (pipeline C: 0.9, 0.95).
+    ``trainable_mask`` (one bool per param of ``params``): the ``False``
+    ones are frozen, left out of the optimizer."""
     params = list(params)
     if trainable_mask is not None:
         params = [p for p, t in zip(params, trainable_mask, strict=True) if t]
-    return AdamW(params, learning_rate, weight_decay=weight_decay, grad_clip=grad_clip)
+    return AdamW(params, learning_rate, weight_decay=weight_decay, grad_clip=grad_clip,
+                 betas=betas)
 
 
 def adamw_of(tx) -> AdamW:
@@ -178,18 +234,21 @@ def adamw_of(tx) -> AdamW:
 class TrainState:
     """``step`` counts train-step calls (skipped or not, as the JAX state's
     ``step``); ``model`` holds params and BatchNorm statistics; ``tx`` is the
-    optimizer over ``model``'s params."""
+    optimizer over ``model``'s params; ``ema`` (pipeline A's teacher) maps
+    each param's name to its moving average."""
     step: int
     model: nn.Module
     tx: object
+    ema: dict[str, torch.Tensor] | None = None
 
     @property
     def params(self) -> list[torch.Tensor]:
         return adamw_of(self.tx).params
 
 
-def create_train_state(model: nn.Module, tx) -> TrainState:
-    return TrainState(step=0, model=model, tx=tx)
+def create_train_state(model: nn.Module, tx,
+                       ema: Mapping[str, torch.Tensor] | None = None) -> TrainState:
+    return TrainState(step=0, model=model, tx=tx, ema=None if ema is None else dict(ema))
 
 
 def apply_updates(state: TrainState, grads: Sequence[torch.Tensor]) -> bool:
@@ -198,3 +257,14 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor]) -> bool:
     applied = state.tx.update(grads)
     state.step += 1
     return applied
+
+
+@torch.no_grad()
+def update_ema(ema: Mapping[str, torch.Tensor], params: Mapping[str, torch.Tensor],
+               momentum: float) -> None:
+    """EMA teacher update in place, ``e = m*e + (1-m)*p`` for every param
+    (ref: src/train_ssl.py:36-39)."""
+    names = list(ema)
+    e = [ema[n] for n in names]
+    torch._foreach_mul_(e, momentum)
+    torch._foreach_add_(e, [params[n].to(ema[n].dtype) * (1.0 - momentum) for n in names])

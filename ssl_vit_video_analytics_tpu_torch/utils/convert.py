@@ -11,9 +11,11 @@ ported module, given the port module's own ``state_dict`` as a template. The lay
 - BatchNorm ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
   ``running_mean/running_var``; LayerNorm ``scale/bias`` -> ``weight/bias``
 - raw parameters (``temporal_pos_embed``, ``spatial_pos_embed``,
-  ``mask_token``) keep their name and shape
+  ``mask_token``, ``pos``) keep their name and shape
 
 :func:`mae_state_dict_from_flax` does it for a pipeline-B ``TinyVideoMAE``,
+:func:`token_mae_state_dict_from_flax` for a pipeline-C ``TinyViTMAE``,
+:func:`temporal_state_dict_from_flax` for pipeline A's ``TemporalSSL``,
 and :func:`encoder_state_dict_from_flax` for an encoder-only pretraining
 checkpoint (``{"params": {"encoder": ...}, "batch_stats": {"encoder":
 ...}}``), whose tensors come out as ``encoder.*``, the keys of the port's own
@@ -46,7 +48,7 @@ _NUMBERED = (("tblock", "tblocks"), ("mbconv", "mbconvs"), ("block", "blocks"),
 _INVERTED_RESIDUAL = ("expand", "dw", "project")  # also TinyViT's MBConv
 _MOBILEVIT_BLOCK = ("local_conv", "local_proj", "fuse_proj", "fuse_conv")
 _PATCH_EMBED = ("conv1", "conv2")
-_RAW_PARAMS = ("temporal_pos_embed", "spatial_pos_embed", "mask_token")
+_RAW_PARAMS = ("temporal_pos_embed", "spatial_pos_embed", "mask_token", "pos")
 
 
 def _module_name(name: str, siblings: Mapping) -> str:
@@ -198,6 +200,48 @@ def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
                          decoder_depth=sum(1 for n in params["decoder"]
                                            if re.fullmatch(r"block\d+", n)),
                          decoder_num_heads=1)
+    return state_dict_from_flax(variables, model.state_dict())
+
+
+def _encoder_shape(blocks: Mapping) -> dict:
+    """Depth, heads and MLP ratio of a flax ``TransformerEncoder`` tree: a
+    head count giving the tree's attention width (the true count or
+    another: the shapes are the same)."""
+    names = [n for n in blocks if re.fullmatch(r"block\d+", n)]
+    blk = blocks[names[0]]
+    dim, hidden = np.shape(blk["Mlp_0"]["Dense_0"]["kernel"])
+    hd = np.shape(blk["MultiHeadAttention_0"]["proj"]["kernel"])[0]
+    heads = next(h for h in range(1, dim + 1) if h * (dim // h) == hd)
+    return {"depth": len(names), "heads": heads, "mlp_ratio": hidden / dim}
+
+
+def temporal_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``TemporalSSL`` variables (pipeline A) -> the port's
+    ``state_dict``. Embedding width, clip length and temporal depth are read
+    off the flax tree."""
+    from ..models.temporal import TemporalSSL
+
+    params = variables["params"]
+    _, clip_len, embed_dim = np.shape(params["pos"])
+    shape = _encoder_shape(params["temporal"])
+    model = TemporalSSL(embed_dim=int(embed_dim), layers=shape["depth"], heads=shape["heads"],
+                        clip_len=int(clip_len))
+    return state_dict_from_flax(variables, model.state_dict())
+
+
+def token_mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``TinyViTMAE`` variables (pipeline C) -> the port's
+    ``state_dict``. The encoder's widths, depths and attention widths and
+    the decoder's width, depth and MLP ratio are read off the flax tree."""
+    from ..models.mae import TinyViTMAE
+
+    params = variables["params"]
+    dec = params["decoder"]
+    shape = _encoder_shape(dec["blocks"])
+    model = TinyViTMAE(_tinyvit_template(params["encoder"]),
+                       decoder_dim=int(np.shape(dec["proj"]["kernel"])[1]),
+                       decoder_depth=shape["depth"], decoder_num_heads=shape["heads"],
+                       mlp_ratio=shape["mlp_ratio"])
     return state_dict_from_flax(variables, model.state_dict())
 
 

@@ -21,3 +21,11 @@ def set_seed(seed: int) -> torch.Generator:
     torch.manual_seed(seed)
     return torch.Generator().manual_seed(seed)
 
+
+
+def step_generator(seed: int, step: int, device: torch.device | str) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)`` alone (the
+    counterpart of ``jax.random.fold_in(base, step)``): a run resumed at
+    ``step`` draws what an uninterrupted run drew there."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))

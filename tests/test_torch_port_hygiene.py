@@ -59,6 +59,9 @@ importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.run_dynamic")
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae")
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_finetune")
 importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.evaluate")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_ssl")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.train_mae")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.sanity_check_mae")
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
@@ -75,7 +78,9 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "scripts/__init__.py", "scripts/probe_dw.py", "scripts/probe_exp.py",
             "scripts/profile_step.py", "entry/train_finetune.py", "entry/evaluate.py",
             "entry/common.py", "data/device_store.py", "train/finetune_engine.py",
-            "models/classifier.py", "utils/convert.py"} <= walked
+            "models/classifier.py", "utils/convert.py", "entry/train_ssl.py",
+            "entry/train_mae.py", "entry/sanity_check_mae.py", "models/temporal.py",
+            "models/heads.py", "train/ssl_engine.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
@@ -232,6 +237,54 @@ def test_chip_smoke_transfer_config_is_finetune_yaml_under_the_campaign_b_overri
     assert {k: v for k, v in cfg.items() if k not in own} == {
         k: v for k, v in merged.items()
         if k not in own and k.split(".")[0] != "paths" and k != "device.prefetch"}
+
+
+def test_chip_smoke_pipeline_a_run_departs_from_ssl_train_yaml_in_top_and_saves_only():
+    """Phases 12-13 run configs/ssl_train.yaml over configs/base.yaml with
+    two departures: TOP from epoch 1 (steps with and without it alternate)
+    and a checkpoint every epoch."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    yml = _flat(load_config(str(REPO / "configs" / "ssl_train.yaml"),
+                            base=str(REPO / "configs" / "base.yaml")))
+    cfg = _flat(chip_smoke.ssl_train_cfg("train.txt", "out"))
+    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
+           "device.name": "cuda", "paths.split_root": ""}
+    assert chip_smoke.SSL_TRAIN_SMOKE_OVERRIDES == {"ssl_objectives": {"top_start_epoch": 1},
+                                                    "training": {"save_every": 1}}
+    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
+    assert differ == {"ssl_objectives.top_start_epoch", "training.save_every"}
+    assert (yml["ssl_objectives.top_start_epoch"], yml["training.save_every"]) == (6, 10)
+    assert {k: cfg[k] for k in own} == own
+    # every key the pipeline-A entry reads from the yaml is in the smoke's copy
+    assert {k for k in yml if k.split(".")[0] in ("model", "ssl_objectives", "training",
+                                                  "dataset", "seed")} - {
+        "dataset.train_split", "training.save_dir"} <= set(cfg)
+    assert (cfg["training.batch_size"], cfg["dataset.clip_len"]) == (48, 32)
+
+
+def test_chip_smoke_pipeline_c_run_departs_from_mae_train_yaml_in_batch_and_saves_only():
+    """Phases 14-16 run configs/mae_train.yaml over configs/base.yaml with
+    two departures: 16 clips a batch (the published 256 x 32 frames do not
+    fit one card) and a checkpoint every epoch."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    yml = _flat(load_config(str(REPO / "configs" / "mae_train.yaml"),
+                            base=str(REPO / "configs" / "base.yaml")))
+    cfg = _flat(chip_smoke.mae_train_cfg("train.txt", "out"))
+    own = {"dataset.train_split": "train.txt", "output.dir": "out",
+           "device.name": "cuda", "paths.split_root": ""}
+    assert chip_smoke.MAE_TRAIN_SMOKE_OVERRIDES == {"training": {"batch_size": 16,
+                                                                 "save_every": 1}}
+    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
+    assert differ == {"training.batch_size", "training.save_every"}
+    assert (yml["training.batch_size"], yml["training.save_every"]) == (256, 5)
+    assert {k: cfg[k] for k in own} == own
+    assert {k for k in yml if k.split(".")[0] in ("mae", "training", "dataset", "seed")} - {
+        "dataset.train_split"} <= set(cfg)
+    assert cfg["dataset.clip_len"] == 32 and cfg["mae.decoder.num_heads"] == 8
 
 
 PTXAS_LOG = """\
