@@ -141,9 +141,40 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 16. sanity check: the port's entry.sanity_check_mae on the card
    (configs/mae_train.yaml, one clip of 32 frames): PASSED, K1 24 and K2 12.
 
+17. FedAvg client step, kernel vs plain: the full-width MobileViT-S
+   classifier of configs/federated.yaml (embed 256, 101 classes) at B=2
+   clips x 32 frames, the client step's loss and gradients through the
+   kernels and through the plain versions, on a full step and on a step with
+   one padded row, fp32 and bf16, held as phase 10 holds its step (K1 6, K2
+   6); then one client's update through the kernels a step at a time: K1/K2
+   6/6 on each real step, 0/0 on a fully padded third step, which leaves
+   params, BatchNorm statistics and the AdamW count bit-unchanged; then the
+   steady time of a client step at the config's 16 clips (512 frames) and
+   of an eval batch there.
+18. privacy: the port's entry.run_privacy.run on configs/privacy.yaml (embed
+   256, batch 8 x 32 frames, bf16, device-resident split) with one
+   departure, the feature grid cut to sigma {0, 0.5} x r {0, 0.2} (attacker
+   10 epochs as the yaml), on 32 synthetic 224x224 face frames
+   (data/fixtures.make_synthetic_faces) and a synthetic split of 160 clips:
+   the detector that ran (YuNet from assets/yunet.onnx where the card
+   machine's cv2 has FaceDetectorYN, else the stub), visual frames/s, clean
+   top-1 and entropy, embedding ms per batch, K1 6 per embedding batch and
+   K2 none; one frame anonymized on the card against the CPU within 1 grey
+   level.
+19. federated: the port's entry.run_federated.run on configs/federated.yaml
+   (5 clients, batch 16 x 32 frames, lr 3e-4, wd 0.01, bf16) with three
+   departures: 2 rounds, min_samples_per_client 32 (so that the 160-clip
+   split shards to 32 clips a client) and the centralized baseline at 1
+   epoch. Per round: seconds, client steps, avg_local_loss, val top-1/5,
+   model_mb (equal to the formula over params + BN mean/var), K1/K2 6/6 per
+   client step, K1 6 per eval batch, peak memory; the centralized epoch's
+   K1/K2; the three CSVs with the JAX entry's headers; then
+   privacy.system_federated.run_federated_from_privacy once, in-process.
+
 Every kernel launch count is set to 0 just before each path (train,
-serving, each probe, finetune, evaluate, the pipeline-A and -C entries and
-the sanity check) is driven and read just after. The line before the
+serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
+sanity check, privacy, and the federated baseline, client steps, evaluation
+and the in-process bridge) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -171,7 +202,8 @@ P2_TPU = "scripts/probe_exp.py:35"
 P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
 PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
          "probe_exp", "train_finetune", "evaluate", "train_ssl", "train_mae",
-         "sanity_check_mae")
+         "sanity_check_mae", "run_privacy", "fed_centralized", "fed_client_steps", "fed_eval",
+         "system_federated")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -236,8 +268,9 @@ K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
 # (B, Lq, Lk, H, d): the slice's MobileViT blocks at 8 clips x 16 frames,
 # then pipeline-B's TinyViT stages, its decoder, and a sequence-parallel
 # shard; then pipeline A's MobileViT blocks at 48 clips x 32 frames and its
-# temporal transformer, and pipeline C's TinyViT stages 1-3 at 16 clips x
-# 32 frames and its decoder
+# temporal transformer, pipeline C's TinyViT stages 1-3 at 16 clips x
+# 32 frames and its decoder, and the MobileViT blocks at the FedAvg client
+# step's 16 clips x 32 frames and the privacy embedding's 8 x 32
 KERNEL_SHAPES = [
     ("mvit1", 128, 196, 196, 4, 32),
     ("mvit2", 128, 64, 64, 4, 40),
@@ -254,6 +287,12 @@ KERNEL_SHAPES = [
     ("tinyvit_stage2_mae", 512, 196, 196, 12, 32),
     ("tinyvit_stage3", 512, 49, 49, 18, 32),
     ("token_mae_decoder", 16, 288, 288, 8, 64),
+    ("mvit1_fed", 512, 196, 196, 4, 32),
+    ("mvit2_fed", 512, 64, 64, 4, 40),
+    ("mvit3_fed", 512, 16, 16, 4, 48),
+    ("mvit1_priv", 256, 196, 196, 4, 32),
+    ("mvit2_priv", 256, 64, 64, 4, 40),
+    ("mvit3_priv", 256, 16, 16, 4, 48),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 HMMA_BF16 = "HMMA.16816.F32.BF16"
@@ -319,6 +358,48 @@ MAE_TRAIN_STEPS, MAE_RESUME_STEPS = 4, 2
 MAE_K1_CALLS, MAE_K2_CALLS = 22, 12
 # the sanity check: an eval forward, then a forward and backward (no remat)
 SANITY_K1_CALLS, SANITY_K2_CALLS = 24, 12
+# configs/privacy.yaml, spelled out likewise (its split, frame root and
+# save dir are the smoke's own; no finetune checkpoint is at the yaml's
+# path in a checkout, so the entry warns and embeds with random weights)
+PRIVACY_YAML = {
+    "dataset": {"name": "UCF101", "num_classes": 101},
+    "model": {"embed_dim": 256, "finetune_ckpt": "results/finetune/two_stage/best"},
+    "visual_privacy": {"enabled": True, "max_images": 2000, "save_examples": 8,
+                       "detector": "yunet", "yunet_model": "assets/yunet.onnx",
+                       "conf_threshold": 0.6, "nms_threshold": 0.3, "method": "face_blur",
+                       "blur_kernel": 31},
+    "feature_privacy": {"enabled": True,
+                        "noise_sigmas": [0.0, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 4.0],
+                        "mask_ratios": [0.0, 0.2, 0.4], "attacker_epochs": 10,
+                        "attacker_lr": "1e-3"},  # a string to YAML 1.1, as loaded
+    "runtime": {"batch_size": 8},
+}
+# the smoke's one departure: a 2 x 2 corner of the feature grid
+PRIVACY_SMOKE_OVERRIDES = {"feature_privacy": {"noise_sigmas": [0.0, 0.5],
+                                               "mask_ratios": [0.0, 0.2]}}
+# configs/federated.yaml, spelled out likewise (its splits, split root and
+# save dir are the smoke's own)
+FEDERATED_YAML = {
+    "dataset": {"name": "UCF101", "num_classes": 101},
+    "model": {"embed_dim": 256, "init_ckpt": None},
+    "federated": {"num_clients": 5, "rounds": 10, "client_fraction": 1.0, "local_epochs": 1,
+                  "batch_size": 16, "step_chunk": None, "lr": 0.0003, "weight_decay": 0.01,
+                  "non_iid": {"enabled": True, "strategy": "class_shard",
+                              "shards_per_client": 6, "min_samples_per_client": 200}},
+    "centralized": {"enabled": True, "epochs": None, "batch_size": 16, "lr": 0.0003,
+                    "weight_decay": 0.01},
+    "output": {"split_prefix": "fed"},
+    "system_privacy": {"estimate_raw_upload": True, "raw_dtype_bytes": 1},
+}
+# the smoke's departures: 2 rounds, clients of 32 clips from a 160-clip
+# split, and the centralized baseline at 1 epoch (rounds x local_epochs = 2)
+FEDERATED_SMOKE_OVERRIDES = {"federated": {"rounds": 2,
+                                           "non_iid": {"min_samples_per_client": 32}},
+                             "centralized": {"epochs": 1}}
+# 8 classes x 20 train videos of 64 frames (32 at stride 2) and 1 val video each
+FED_DATA = {"num_classes": 8, "videos_per_class": 21}
+# attention layers per MobileViT-S forward: 3 blocks x depth 2
+MVIT_ATTN = 6
 TOL_DW_FP32 = 1e-5                 # abs; bf16: this plus one ulp of the output
 # (N, H, W, C) crossing every tile edge of P1: 9 rows (8-row bands), 300
 # columns (column tiles), 40 channels (32 bf16 or 16 fp32 a chunk)
@@ -610,15 +691,19 @@ def phase_backward(fa, dev) -> dict:
 
 
 def merged(*cfgs: dict) -> dict:
-    """Section-wise merge, later configs winning (as configs/base.yaml under
-    a task config)."""
-    out: dict = {}
-    for cfg in cfgs:
-        for key, value in json.loads(json.dumps(cfg)).items():
-            if isinstance(value, dict):
-                out.setdefault(key, {}).update(value)
+    """Recursive merge, later configs winning (as configs/base.yaml under a
+    task config)."""
+    def into(out: dict, cfg: dict) -> dict:
+        for key, value in cfg.items():
+            if isinstance(value, dict) and isinstance(out.get(key), dict):
+                into(out[key], value)
             else:
                 out[key] = value
+        return out
+
+    out: dict = {}
+    for cfg in cfgs:
+        into(out, json.loads(json.dumps(cfg)))
     return out
 
 
@@ -665,6 +750,30 @@ def finetune_cfg(train_split: str, val_split: str, pretrained_ssl: str, out: str
     cfg["paths"] = {"split_root": "", "save_dir": os.path.join(out, "finetune"),
                     "result_dir": os.path.join(out, "results"),
                     "log_dir": os.path.join(out, "logs")}
+    return cfg
+
+
+def privacy_cfg(split: str, frame_root: str, out: str) -> dict:
+    """Phase 18's config: configs/privacy.yaml over configs/base.yaml with
+    the smoke's departure, split, frame root, checkpoint and save dir."""
+    cfg = merged(BASE_YAML, BASE_CLIP, PRIVACY_YAML, PRIVACY_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"]["split"] = split
+    cfg["visual_privacy"]["frame_root"] = frame_root
+    cfg["output"] = {"save_dir": out}
+    cfg["paths"] = {"split_root": ""}
+    return cfg
+
+
+def federated_cfg(train_split: str, val_split: str, split_root: str, out: str) -> dict:
+    """Phases 17 and 19's config: configs/federated.yaml over
+    configs/base.yaml with the smoke's departures, splits, split root and
+    save dir."""
+    cfg = merged(BASE_YAML, BASE_CLIP, FEDERATED_YAML, FEDERATED_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"].update(train_split=train_split, val_split=val_split)
+    cfg["output"]["save_dir"] = out
+    cfg["paths"] = {"split_root": split_root}
     return cfg
 
 
@@ -1655,6 +1764,323 @@ def phase_mae_train(dev, tmp: str) -> dict:
     return {"train_mae": rec.totals, "sanity_check_mae": sanity_counts}
 
 
+def phase_fed_client_step(dev) -> list[dict]:
+    """A FedAvg client's step at full MobileViT-S width through the kernels
+    and through the plain versions (a full step, a step with a padded row),
+    held by :func:`judge_step`; one client's update a step at a time with a
+    fully padded last step; the steady time of a client step and of an eval
+    batch at the config's batch of 16 clips."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.federated import core
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.train.state import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = federated_cfg("", "", "", "")
+    fed, d = cfg["federated"], cfg["dataset"]
+    classes, embed = d["num_classes"], cfg["model"]["embed_dim"]
+    B, T, S = 2, d["clip_len"], d["image_size"]
+    rng = np.random.default_rng(8)
+    clips = rng.integers(0, 256, (3, B, T, S, S, 3), dtype=np.uint8)
+    labels = rng.integers(0, classes, (3, B)).astype(np.int32)
+    valid = np.ones((3, B), bool)
+    valid[1, 1] = False  # a partly padded step
+    valid[2] = False     # a fully padded one
+    clips[~valid] = 0    # as the round sampler pads
+    outs, ref32 = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = eng.build_model(classes, embed, dtype=dtype)
+        eng.init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        names, params = zip(*model.named_parameters())
+        for step in (0, 1):
+            clip = normalize_clip(torch.from_numpy(clips[step]).to(dev), dtype=dtype)
+            y = torch.from_numpy(labels[step]).to(dev)
+            v = torch.from_numpy(valid[step]).to(dev)
+            out = {"phase": "fed_client_step_kernel_vs_plain", "B": B, "T": T, "step": step,
+                   "padded_rows": int((~valid[step]).sum())}
+            res = compare_impls(model, lambda: core.client_loss_and_grads(
+                model, params, clip, y, v), (MVIT_ATTN, MVIT_ATTN), out)
+            outs.append(judge_step(out, dtype, res, list(names), ref32.setdefault(step, {})))
+
+        # one client's update through the kernels, a step at a time
+        start = {k: t.clone() for k, t in model.state_dict().items()}
+        tx = make_optimizer(model.parameters(), fed["lr"], weight_decay=fed["weight_decay"])
+        norm = (lambda c, dt=dtype: normalize_clip(c, dtype=dt))
+        per_step, before = [], None
+        for step in range(3):
+            before = {k: t.clone() for k, t in model.state_dict().items()}
+            reset_counts()
+            loss_sum, count = core.client_update(model, tx, norm, clips[step:step + 1],
+                                                 labels[step:step + 1],
+                                                 valid[step:step + 1], 1)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            per_step.append({"k1_k2": [counts["flash_attention_fwd"],
+                                       counts["flash_attention_bwd"]],
+                             "loss": float(loss_sum / count.clamp_min(1)),
+                             "rows": float(count), "adamw_count": tx.count})
+        after = model.state_dict()
+        unchanged = all(torch.equal(after[k], before[k]) for k in after)
+        moved = sum(not torch.equal(after[k], start[k]) for k in after)
+        out = {"phase": "fed_client_update", "dtype": str(dtype).replace("torch.", ""),
+               "steps": per_step, "padded_step_left_state_unchanged": unchanged,
+               "tensors_moved_by_the_update": f"{moved}/{len(after)}"}
+        emit(out)
+        want = [[MVIT_ATTN, MVIT_ATTN], [MVIT_ATTN, MVIT_ATTN], [0, 0]]
+        if ([s_["k1_k2"] for s_ in per_step] != want
+                or [s_["adamw_count"] for s_ in per_step] != [1, 2, 2]
+                or [s_["rows"] for s_ in per_step] != [2.0, 1.0, 0.0]
+                or not unchanged or not moved
+                or not all(math.isfinite(s_["loss"]) for s_ in per_step[:2])):
+            raise AssertionError(f"fed client update: {out}")
+        del model, start, before, after, tx
+    return outs + [phase_fed_step_time(dev, cfg)]
+
+
+def phase_fed_step_time(dev, cfg: dict) -> dict:
+    """The steady time of one client step (upload, forward, backward, AdamW)
+    at the config's 16 clips x 32 frames in bf16, and of an eval batch
+    there: host clock after a sync, the least of 5 after 2 warm-up calls."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.federated import core
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.train.state import make_optimizer
+
+    fed, d = cfg["federated"], cfg["dataset"]
+    B, T, S = fed["batch_size"], d["clip_len"], d["image_size"]
+    model = eng.build_model(d["num_classes"], cfg["model"]["embed_dim"], dtype=torch.bfloat16)
+    eng.init_model(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    rng = np.random.default_rng(9)
+    clips = rng.integers(0, 256, (1, B, T, S, S, 3), dtype=np.uint8)
+    labels = rng.integers(0, d["num_classes"], (1, B)).astype(np.int32)
+    valid = np.ones((1, B), bool)
+    tx = make_optimizer(model.parameters(), fed["lr"], weight_decay=fed["weight_decay"])
+    norm = (lambda c: normalize_clip(c, dtype=torch.bfloat16))
+    eval_step = eng.make_eval_step(model, torch.bfloat16)
+    batch = {"clip": torch.from_numpy(clips[0]).to(dev)}
+
+    def least(fn) -> float:
+        times = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return min(times[2:])
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = least(lambda: core.client_update(model, tx, norm, clips, labels, valid, 1))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eval_ms = least(lambda: eval_step(batch))
+    out = {"phase": "fed_step_time", "B": B, "T": T, "frames": B * T,
+           "client_step_ms": step_ms, "eval_batch_ms": eval_ms,
+           "client_step_peak_gb": peak, "timer": "host clock after a sync, least of 5"}
+    emit(out)
+    del model, tx
+    return out
+
+
+def fed_data(tmp: str) -> dict:
+    """Phases 18-19's synthetic split: 160 training clips and 8 val clips of
+    64 frames at 112x112 (8 classes)."""
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+
+    d = BASE_CLIP["dataset"]
+    return make_synthetic_dataset(os.path.join(tmp, "fed_data"), seed=5,
+                                  num_frames=d["clip_len"] * d["stride"],
+                                  image_size=d["image_size"], **FED_DATA)
+
+
+def phase_privacy(dev, tmp: str, splits: dict) -> dict:
+    """The port's privacy entry on configs/privacy.yaml (feature grid cut to
+    2 x 2) on synthetic face frames and the synthetic split."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_faces
+    from ssl_vit_video_analytics_tpu_torch.entry import run_privacy
+    from ssl_vit_video_analytics_tpu_torch.privacy import StubFaceDetector, VisualAnonymizer
+    from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
+
+    faces = make_synthetic_faces(os.path.join(tmp, "faces"), num_frames=32, size=224, seed=4)
+    cfg = privacy_cfg(splits["train"], faces, os.path.join(tmp, "privacy_out"))
+    B = cfg["runtime"]["batch_size"]
+    n_clips = sum(1 for _ in open(splits["train"]))
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_privacy.run(cfg, log=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    visual = read_csv_dicts(out["visual_csv"])[0]
+    grid = read_csv_dicts(out["feature_csv"])
+    clean = next(m for m in lines if m.startswith("[INFO] Clean embeddings"))
+    embedded = next(m for m in lines if m.startswith("[INFO] embedded "))
+    total_ms = float(embedded.split(": ")[1].split(" ms")[0])
+    first_ms = float(embedded.rsplit("first batch ", 1)[1].split(" ms")[0])
+    batches = -(-n_clips // B)
+
+    # one frame anonymized on the card against the CPU (the stub's box)
+    img = cv2.imread(sorted(os.path.join(faces, f) for f in os.listdir(faces))[0])
+    card, _ = VisualAnonymizer(StubFaceDetector(), 31, device=dev).apply(img)
+    host, _ = VisualAnonymizer(StubFaceDetector(), 31, device="cpu").apply(img)
+    blur_diff = int(np.abs(card.astype(int) - host.astype(int)).max())
+
+    summary = {"phase": "privacy", "seconds": seconds,
+               "detector": next(m for m in lines if m.startswith("[INFO] detector: ")),
+               "visual_frames": int(visual["total_frames"]),
+               "visual_frames_per_s": int(visual["total_frames"]) / float(visual["seconds"]),
+               "face_frame_rate_before": float(visual["face_frame_rate_before"]),
+               "face_frame_rate_after": float(visual["face_frame_rate_after"]),
+               "blur_card_vs_cpu_max_grey_levels": blur_diff,
+               "clean": clean, "embedding_batches": batches, "batch": B,
+               "embedding_ms_per_batch": (total_ms - first_ms) / max(1, batches - 1),
+               "embedding_first_batch_ms": first_ms,
+               "grid": [{k: r[k] for k in ("sigma", "mask_ratio", "top1", "attacker_top1")}
+                        for r in grid],
+               "k1_calls": launches["flash_attention_fwd"],
+               "k2_calls": launches["flash_attention_bwd"],
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "warned_random_weights": any("[WARN] finetune ckpt not found" in m
+                                            for m in lines),
+               "device_resident": any("device-resident store" in m for m in lines)}
+    emit(summary)
+    clean_top1 = float(clean.split("Top-1=")[1].split(",")[0])
+    if (launches["flash_attention_fwd"], launches["flash_attention_bwd"]) != (
+            MVIT_ATTN * batches, 0):
+        raise AssertionError(f"privacy kernel calls: {launches}, {batches} embedding batches")
+    if not (blur_diff <= 1 and len(grid) == 4 and summary["device_resident"]
+            and f"{float(grid[0]['top1']):.4f}" == f"{clean_top1:.4f}"
+            and all(math.isfinite(float(r["attacker_top1"])) for r in grid)):
+        raise AssertionError(f"privacy: {summary}")
+    return launches
+
+
+def phase_federated(dev, tmp: str, splits: dict) -> dict:
+    """The port's federated entry on configs/federated.yaml with the smoke's
+    departures, then the in-process bridge of privacy/system_federated."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.entry import run_federated
+    from ssl_vit_video_analytics_tpu_torch.federated.comm_cost import bytes_to_mb
+    from ssl_vit_video_analytics_tpu_torch.privacy import system_federated
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
+
+    cfg = federated_cfg(splits["train"], splits["val"], os.path.join(tmp, "fed_splits"),
+                        os.path.join(tmp, "fed_out"))
+    B = cfg["federated"]["batch_size"]
+    n_train = sum(1 for _ in open(splits["train"]))
+    val_batches = -(-sum(1 for _ in open(splits["val"])) // B)
+    paths = {name: dict.fromkeys(counters(), 0) for name in (
+        "fed_centralized", "fed_client_steps", "fed_eval")}
+    rounds, lines, last = [], [], {"t": 0.0}
+
+    def take(path: str) -> dict:
+        launched = read_counts()
+        for name, n in launched.items():
+            paths[path][name] += n
+        reset_counts()
+        return launched
+
+    def on_log(msg: str) -> None:
+        lines.append(msg)
+        if msg.startswith("[INFO][Centralized] ep="):
+            launched = take("fed_centralized")
+            emit({"phase": "fed_centralized", "log": msg,
+                  "k1_calls": launched["flash_attention_fwd"],
+                  "k2_calls": launched["flash_attention_bwd"]})
+        elif " selected_clients=" in msg:
+            if read_counts()["flash_attention_fwd"]:
+                raise AssertionError(f"federated: kernel calls outside a segment before {msg}")
+            torch.cuda.reset_peak_memory_stats()
+            last["t"] = time.perf_counter()
+        elif " local updates: " in msg:
+            launched = take("fed_client_steps")
+            rounds.append({"round": len(rounds) + 1,
+                           "client_steps": int(msg.split(": ")[1].split()[0]),
+                           "local_seconds": time.perf_counter() - last["t"],
+                           "k1_calls": launched["flash_attention_fwd"],
+                           "k2_calls": launched["flash_attention_bwd"],
+                           "max_memory_allocated_gb":
+                               torch.cuda.max_memory_allocated() / 2 ** 30})
+        elif msg.startswith("[INFO] Round ") and " val_top1=" in msg:
+            launched = take("fed_eval")
+            rounds[-1].update({"seconds": time.perf_counter() - last["t"], "log": msg,
+                               "eval_k1_calls": launched["flash_attention_fwd"],
+                               "eval_k2_calls": launched["flash_attention_bwd"]})
+            emit({"phase": "fed_round", **rounds[-1]})
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_federated.run(cfg, log=on_log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rows = out["records"]
+    model = eng.build_model(cfg["dataset"]["num_classes"], cfg["model"]["embed_dim"])
+    formula_mb = bytes_to_mb(4 * (sum(p.numel() for p in model.parameters()) + sum(
+        b.numel() for n, b in model.named_buffers() if n.endswith(("running_mean",
+                                                                   "running_var")))))
+    csvs = {name: list(read_csv_dicts(os.path.join(cfg["output"]["save_dir"], name))[0])
+            for name in ("fed_summary.csv", "centralized_summary.csv",
+                         "system_privacy_summary.csv", "fed_client_stats.csv")}
+    summary = {"phase": "federated", "seconds": seconds, "rounds": rows,
+               "model_mb_formula": round(formula_mb, 6),
+               "client_splits": next(m for m in lines if m.startswith("[INFO] client splits")),
+               "mesh": next(m for m in lines if m.startswith("[INFO] mesh")),
+               "csv_headers": csvs, "launches": paths}
+    emit(summary)
+    steps_centralized = n_train // B
+    bad = [r for r in rounds if (r["k1_calls"], r["k2_calls"], r["eval_k1_calls"],
+                                 r["eval_k2_calls"]) != (
+        MVIT_ATTN * r["client_steps"], MVIT_ATTN * r["client_steps"],
+        MVIT_ATTN * val_batches, 0)]
+    if bad or len(rounds) != cfg["federated"]["rounds"] or (
+            paths["fed_centralized"]["flash_attention_fwd"],
+            paths["fed_centralized"]["flash_attention_bwd"]) != (
+            MVIT_ATTN * (steps_centralized + val_batches), MVIT_ATTN * steps_centralized):
+        raise AssertionError(f"federated kernel calls: {bad or rounds}, {paths}")
+    if not (all(float(r["model_mb"]) == round(formula_mb, 6) for r in rows)
+            and all(math.isfinite(float(r["avg_local_loss"])) for r in rows)
+            and csvs["fed_summary.csv"] == list(run_federated.FED_SUMMARY_FIELDS)
+            and csvs["centralized_summary.csv"] == list(run_federated.CENTRALIZED_FIELDS)
+            and csvs["system_privacy_summary.csv"] == list(
+                run_federated.SYSTEM_PRIVACY_FIELDS)
+            and csvs["fed_client_stats.csv"] == ["client", "num_samples", "num_classes",
+                                                 "classes"]
+            and summary["mesh"].startswith("[INFO] mesh: None")
+            and all(r["client_steps"] >= cfg["federated"]["num_clients"] for r in rounds)):
+        raise AssertionError(f"federated: {summary}")
+
+    # the in-process bridge of the privacy package, once
+    reset_counts()
+    bridge_lines = []
+    t0 = time.perf_counter()
+    bridged = system_federated.run_federated_from_privacy(cfg, log=bridge_lines.append)
+    torch.cuda.synchronize()
+    bridge = read_counts()
+    emit({"phase": "system_federated", "seconds": time.perf_counter() - t0,
+          "rounds": len(bridged["records"]), "k1_calls": bridge["flash_attention_fwd"],
+          "k2_calls": bridge["flash_attention_bwd"],
+          "same_records": bridged["records"] == rows})
+    if len(bridged["records"]) != len(rows) or not bridge["flash_attention_bwd"]:
+        raise AssertionError(f"system_federated: {bridged['records']}, {bridge}")
+    return {**paths, "system_federated": bridge}
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -1712,6 +2138,10 @@ def main() -> None:
         paths["train_ssl"] = phase_ssl_train(dev, tmp)
         phase_mae_step(dev)
         paths.update(phase_mae_train(dev, tmp))
+        phase_fed_client_step(dev)
+        splits = fed_data(tmp)
+        paths["run_privacy"] = phase_privacy(dev, tmp, splits)
+        paths.update(phase_federated(dev, tmp, splits))
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

@@ -13,7 +13,9 @@ ported module, given the port module's own ``state_dict`` as a template. The lay
 - raw parameters (``temporal_pos_embed``, ``spatial_pos_embed``,
   ``mask_token``, ``pos``) keep their name and shape
 
-:func:`mae_state_dict_from_flax` does it for a pipeline-B ``TinyVideoMAE``,
+:func:`attacker_state_dict_from_flax` does it for the privacy layer's
+``FeatureAttacker``, :func:`mae_state_dict_from_flax` for a pipeline-B
+``TinyVideoMAE``,
 :func:`token_mae_state_dict_from_flax` for a pipeline-C ``TinyViTMAE``,
 :func:`temporal_state_dict_from_flax` for pipeline A's ``TemporalSSL``,
 and :func:`encoder_state_dict_from_flax` for an encoder-only pretraining
@@ -165,6 +167,16 @@ def classifier_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tenso
     template["head.weight"] = torch.empty(int(num_classes), int(embed_dim))
     template["head.bias"] = torch.empty(int(num_classes))
     return state_dict_from_flax(variables, template)
+
+
+def attacker_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``FeatureAttacker`` variables (``params/Dense_0``, ``Dense_1``)
+    -> the port's ``state_dict``; width and class count read off the tree."""
+    from ..privacy.attacker import FeatureAttacker
+
+    dim, num_classes = np.shape(variables["params"]["Dense_1"]["kernel"])
+    return state_dict_from_flax(variables,
+                                FeatureAttacker(int(dim), int(num_classes)).state_dict())
 
 
 def encoder_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:

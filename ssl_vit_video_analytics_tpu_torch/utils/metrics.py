@@ -1,7 +1,8 @@
-"""Metrics: top-k accuracy, best tracking, the epoch-summary line, and
-throughput accounting for pipeline B (the hardware-free parts of the JAX
-package's ``utils/metrics.py``): analytic train-step FLOPs per clip from the
-model config. No device peak lives here: the training log prints clips/s.
+"""Metrics: top-k accuracy, prediction entropy, the privacy exposure rate,
+best tracking, the epoch-summary line, and throughput accounting for
+pipeline B (the hardware-free parts of the JAX package's
+``utils/metrics.py``): analytic train-step FLOPs per clip from the model
+config. No device peak lives here: the training log prints clips/s.
 """
 from __future__ import annotations
 
@@ -19,6 +20,18 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
     maxk = min(max(ks), C)
     correct = logits.topk(maxk, dim=-1).indices == labels[:, None].long()  # [B, maxk]
     return {f"top{k}": correct[:, :min(k, C)].any(dim=1).float().mean() for k in ks}
+
+
+def prediction_entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Mean Shannon entropy of softmax predictions, an fp32 scalar on the
+    logits' device (ref: src/privacy/metrics_privacy.py:5-8)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return (-(logp.exp() * logp).sum(dim=-1)).mean()
+
+
+def privacy_exposure_rate(before: float, after: float) -> float:
+    """PER = after / max(before, 1e-6) (ref: src/privacy/metrics_privacy.py:11-12)."""
+    return after / max(before, 1e-6)
 
 
 def update_best(best: Mapping | None, metrics: Mapping, key: str,

@@ -310,3 +310,75 @@ def test_chip_smoke_reads_every_kernels_ptxas_report():
         "flash_fwd_kernel<bf16,64>: spill 0/0, 252 regs",
         "dw3x3_kernel<f32,4>: spill 8/4, 30 regs",
         "unary_chain_kernel<2,1>: spill 0/0, 32 regs"]
+
+
+@pytest.mark.parametrize("entry", ["run_privacy", "run_federated"])
+def test_privacy_and_federated_entries_load_no_jax(entry):
+    """In a fresh interpreter with JAX-family imports blocked, the port's
+    privacy or federated entry (and the privacy bridge to it) imports, and
+    none of those packages is in sys.modules."""
+    code = f"""
+import importlib, json, sys
+BLOCK = {sorted(FORBIDDEN)!r}
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Blocker())
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.entry.{entry}")
+importlib.import_module("ssl_vit_video_analytics_tpu_torch.privacy.system_federated")
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"entry/run_privacy.py", "entry/run_federated.py", "privacy/__init__.py",
+            "privacy/feature.py", "privacy/attacker.py", "privacy/visual.py",
+            "privacy/metrics.py", "privacy/system_federated.py", "federated/__init__.py",
+            "federated/core.py", "federated/comm_cost.py", "data/transforms.py"} <= walked
+
+
+def test_chip_smoke_privacy_and_federated_runs_depart_from_their_yamls_as_listed():
+    """Phase 18 runs configs/privacy.yaml over configs/base.yaml with one
+    departure (the feature grid cut to sigma {0, 0.5} x r {0, 0.2}); phases
+    17 and 19 run configs/federated.yaml with three (2 rounds, 32 samples a
+    client, the centralized baseline at 1 epoch)."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    base = str(REPO / "configs" / "base.yaml")
+    for name, spelled in (("privacy", chip_smoke.PRIVACY_YAML),
+                          ("federated", chip_smoke.FEDERATED_YAML)):
+        yml = load_yaml(str(REPO / "configs" / f"{name}.yaml"))
+        for section, values in spelled.items():
+            assert _flat(values) == {k: v for k, v in _flat(yml[section]).items()
+                                     if k not in ("split", "train_split", "val_split",
+                                                  "frame_root", "save_dir")}, section
+
+    yml = _flat(load_config(str(REPO / "configs" / "privacy.yaml"), base=base))
+    cfg = _flat(chip_smoke.privacy_cfg("s.txt", "faces", "out"))
+    own = {"dataset.split": "s.txt", "visual_privacy.frame_root": "faces",
+           "output.save_dir": "out", "device.name": "cuda", "paths.split_root": ""}
+    assert {k: cfg[k] for k in own} == own
+    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
+    assert differ == {"feature_privacy.noise_sigmas", "feature_privacy.mask_ratios"}
+    assert (cfg["feature_privacy.noise_sigmas"], cfg["feature_privacy.mask_ratios"]) == (
+        [0.0, 0.5], [0.0, 0.2])
+    assert {k for k in yml if k.split(".")[0] not in ("paths", "device")} - set(own) <= set(cfg)
+    assert (cfg["runtime.batch_size"], cfg["dataset.clip_len"], cfg["model.embed_dim"],
+            cfg["feature_privacy.attacker_epochs"]) == (8, 32, 256, 10)
+
+    yml = _flat(load_config(str(REPO / "configs" / "federated.yaml"), base=base))
+    cfg = _flat(chip_smoke.federated_cfg("t.txt", "v.txt", "splits", "out"))
+    own = {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
+           "paths.split_root": "splits", "output.save_dir": "out", "device.name": "cuda"}
+    assert {k: cfg[k] for k in own} == own
+    differ = {k: (yml.get(k), cfg[k]) for k in cfg if k not in own and cfg[k] != yml.get(k)}
+    assert differ == {"federated.rounds": (10, 2),
+                      "federated.non_iid.min_samples_per_client": (200, 32),
+                      "centralized.epochs": (None, 1)}
+    assert {k for k in yml if k.split(".")[0] not in ("paths", "device")} - set(own) <= set(cfg)
+    assert (cfg["federated.batch_size"], cfg["federated.num_clients"], cfg["federated.lr"],
+            cfg["federated.weight_decay"], cfg["dataset.clip_len"]) == (16, 5, 3e-4, 0.01, 32)

@@ -56,11 +56,17 @@ def _strided_qkv(dev, B, Lq, Lk, H, d, dtype, seed=0):
 # ragged Lq (not a multiple of the 64-row tile) and Lk (not of the 32-key
 # tile), Lq != Lk, one-row and one-key edges, every supported head dim;
 # then pipeline A's temporal transformer, pipeline C's TinyViT stage 3 and
-# its decoder (fewer clips)
+# its decoder (fewer clips); then the MobileViT-S blocks at the FedAvg
+# client step's 512 frames (16 clips x 32) and the privacy embedding's 256
+MOBILEVIT_FRAMES = [(n, L, L, 4, d) for n in (512, 256)
+                    for L, d in ((196, 32), (64, 40), (16, 48))]
+
+
 @pytest.mark.parametrize("B,Lq,Lk,H,d", [
     (4, 196, 196, 4, 32), (4, 64, 64, 4, 40), (8, 16, 16, 4, 48),
     (2, 100, 300, 2, 64), (3, 65, 33, 3, 32), (1, 1, 1, 1, 40), (2, 7, 129, 2, 48),
     (3, 32, 32, 4, 64), (2, 49, 49, 18, 32), (2, 288, 288, 8, 64),
+    *MOBILEVIT_FRAMES,
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
@@ -110,11 +116,13 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor, scale: float = 0.0) -> float:
 
 # ragged Lq and Lk (not multiples of the 64-row tiles or the 32-key tile),
 # Lq != Lk both ways, one-row and one-key edges, every supported head dim;
-# then the shapes of pipelines A and C, as above
+# then the shapes of pipelines A and C, as above, and the client step's
+# MobileViT-S blocks at 512 frames
 @pytest.mark.parametrize("B,Lq,Lk,H,d", [
     (2, 196, 196, 3, 32), (2, 64, 64, 4, 40), (3, 100, 300, 2, 48), (2, 65, 33, 2, 64),
     (1, 1, 1, 1, 32), (2, 7, 129, 2, 64), (1, 130, 5, 3, 40),
     (3, 32, 32, 4, 64), (2, 49, 49, 18, 32), (2, 288, 288, 8, 64),
+    *MOBILEVIT_FRAMES[:3],
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
