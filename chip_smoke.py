@@ -30,7 +30,12 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    error of each gradient over its max magnitude, tolerance 1e-4) and bf16
    (2e-2); the time per call of each, of the backward of
    scaled_dot_product_attention (autograd.grad on a retained forward), and
-   the bound with 10*B*H*Lq*Lk*d flops.
+   the bound with 10*B*H*Lq*Lk*d flops. Then K1 and K2 at the long-clip
+   decoder's attention (8 clips x 12544 tokens, 6 heads of 64): launched on
+   the whole batch, held on its first and last clip against the plain
+   versions of that clip (the plain logits of all 8 would take 30 GB), fp32
+   and bf16 at the tolerances above; in bf16 the kernels' and SDPA's times
+   and the bound at the whole batch, the plain versions' at one clip.
 5. train step, kernel vs plain: the full-width TinyVideoMAE (configs/
    ssl_mae.yaml widths) at B=2 clips, the same weights, mask and drop-path
    decisions through the kernels and through the plain versions: in fp32,
@@ -171,10 +176,43 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    K1/K2; the three CSVs with the JAX entry's headers; then
    privacy.system_federated.run_federated_from_privacy once, in-process.
 
+20. MoE step, kernel vs plain: the full-width TinyVideoMAE of
+   configs/ssl_mae_moe.yaml (8 top-1 experts in each decoder block, capacity
+   1.25, groups of 392 tokens) at B=2 clips, its loss with the load-balance
+   auxiliary weighted 0.01 as the step adds it, the same weights, mask and
+   drop-path decisions through the kernels and the plain versions, fp32 and
+   bf16, held as phase 10 holds its step (K1 20, K2 12); the auxiliary
+   (held to [1/E, E]) and, per decoder block, the tokens the two runs route
+   differently (another expert, or the other side of the capacity).
+21. MoE pretraining: the port's entry.train_ssl_mae.run on
+   configs/ssl_mae_moe.yaml as it stands (B=40, accumulation 2, bf16,
+   resident split; expert_parallel 4 is ignored on one device with JAX's
+   warning) with phase 6's departure (a checkpoint every epoch) and
+   logging.profile_dir set, on phase 6's split, 4 steps. Per step: loss,
+   moe_aux, gnorm, update applied or skipped, ms, clips/s, MFU against the
+   H100's 989 TFLOP/s bf16, K1 20 and K2 12, peak memory; the warning; the
+   profiler's two log lines and its trace's size and whether it names K1's
+   and K2's kernels.
+22. Long-clip step, kernel vs plain: as phase 20 for
+   configs/ssl_mae_longclip.yaml (T=64, a 12544-token decoder) at one clip,
+   with its peak memory.
+23. Long-clip pretraining: entry.train_ssl_mae.run on
+   configs/ssl_mae_longclip.yaml as it stands (B=8 x 64 frames at stride 1,
+   accumulation 2, bf16; sequence_parallel falls back to the single-device
+   kernel with JAX's warning) on phase 6's split of 64-frame videos, 4
+   steps, per step as phase 21.
+24. Finetune augmentation: one real step of phase 10's classifier (fp32,
+   ft_ssl) with training.augment: true through the kernels (K1 8, K2 8),
+   whose augmented clip the CPU reproduces from the same draws to 1e-6;
+   then phase 11's entry run with training.augment: true (two_stage, 2
+   epochs, phase 6's checkpoint): the enabling line, K1 8 a step, K2 0
+   while frozen and 8 after.
+
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
-sanity check, privacy, and the federated baseline, client steps, evaluation
-and the in-process bridge) is driven and read just after. The line before the
+sanity check, privacy, the federated baseline, client steps, evaluation and
+the in-process bridge, the MoE and long-clip pretraining, and the augmented
+finetune) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -203,7 +241,8 @@ P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
 PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
          "probe_exp", "train_finetune", "evaluate", "train_ssl", "train_mae",
          "sanity_check_mae", "run_privacy", "fed_centralized", "fed_client_steps", "fed_eval",
-         "system_federated")
+         "system_federated", "train_ssl_mae_moe", "train_ssl_mae_longclip",
+         "train_finetune_augment")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -232,6 +271,47 @@ BASE_YAML = {"seed": 42, "device": {"compute_dtype": "bfloat16"},
 # every epoch, so that the 4 steps leave one for phase 11
 SSL_MAE_SMOKE_OVERRIDES = {"training": {"save_every": 1}}
 TRAIN_STEPS = 4
+
+# configs/ssl_mae_moe.yaml and configs/ssl_mae_longclip.yaml, spelled out
+# likewise and held to the files by a CPU test
+SSL_MAE_MOE_YAML = {
+    "dataset": {"clip_len": 16, "stride": 4, "image_size": 112},
+    "model": {"type": "tiny_vit_21m_variant", "embed_dims": [96, 192, 384, 576],
+              "decoder_embed_dim": 384, "decoder_depth": 4, "decoder_num_heads": 6,
+              "decoder_moe_experts": 8, "decoder_moe_capacity_factor": 1.25,
+              "decoder_moe_group_size": 392},
+    "ssl": {"mask_ratio": 0.9, "mask_strategy": "tube", "norm_pix_loss": True,
+            "moe_aux_weight": 0.01},
+    "training": {"epochs": 200, "batch_size": 40, "accumulation_steps": 2, "lr": 0.0005,
+                 "min_lr": 0.000001, "warmup_epochs": 40, "weight_decay": 0.05,
+                 "save_every": 10, "log_interval": 20},
+    "device": {"expert_parallel": 4, "data_parallel": "auto"},
+}
+SSL_MAE_LONGCLIP_YAML = {
+    "dataset": {"clip_len": 64, "stride": 1, "image_size": 112},
+    "model": {"type": "tiny_vit_21m_variant", "embed_dims": [96, 192, 384, 576],
+              "decoder_embed_dim": 384, "decoder_depth": 4, "decoder_num_heads": 6,
+              "sequence_parallel": True},
+    "ssl": {"mask_ratio": 0.9, "mask_strategy": "tube", "norm_pix_loss": True},
+    "training": {"epochs": 200, "batch_size": 8, "accumulation_steps": 2, "lr": 0.0005,
+                 "min_lr": 0.000001, "warmup_epochs": 40, "weight_decay": 0.05,
+                 "save_every": 10, "log_interval": 20},
+}
+OPT_IN_YAML = {"moe": SSL_MAE_MOE_YAML, "longclip": SSL_MAE_LONGCLIP_YAML}
+OPT_IN_STEPS = 4  # each opt-in entry run: 2 optimizer updates at accumulation 2
+# the warning each opt-in run logs where the JAX entry logs it on one device
+OPT_IN_WARNING = {
+    "moe": "[WARN] expert_parallel requested on 1 device; ignoring",
+    "longclip": "[WARN] sequence_parallel requested on 1 device; attention falls back "
+                "to the single-device kernel"}
+# clips in each opt-in step check: phase 5's 2 for the MoE decoder; one
+# 64-frame clip for the long clip (the plain decoder attention of one clip
+# takes [6, 12544, 12544] fp32 logits, 3.8 GB, and as much for each of the
+# backward's four such terms)
+OPT_IN_STEP_CLIPS = {"moe": 2, "longclip": 1}
+# the long-clip decoder's attention (B, L, H, d): held to the plain version
+# on its first and last clip, timed at the config's batch
+LONGCLIP_SHAPE = ("longclip_decoder", 8, 12544, 6, 64)
 
 # configs/finetune.yaml, spelled out likewise (its split and checkpoint
 # paths are the smoke's own) ...
@@ -690,6 +770,81 @@ def phase_backward(fa, dev) -> dict:
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
 
 
+def phase_longclip_kernels(fa, dev) -> dict:
+    """K1 and K2 at the long-clip decoder's shape (LONGCLIP_SHAPE): each
+    launched on the whole batch and held on its first and last clip against
+    the plain version of that clip, in fp32 (TF32 off) and bf16 at phases
+    3-4's tolerances; in bf16 the kernels' and scaled_dot_product_attention's
+    times at the whole batch, with the bound, and the plain version's at one
+    clip (its logits of the whole batch would take 30 GB). Returns each
+    kernel's row."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, B, L, H, d = LONGCLIP_SHAPE
+    hd = H * d
+    g = torch.Generator(device=dev).manual_seed(4)
+    qkv32 = torch.randn(B, L, 3 * hd, device=dev, generator=g)
+    dout32 = torch.randn(B, L, hd, device=dev, generator=g)
+    timed = {}
+    for dtype, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
+        qkv, dout = qkv32.to(dtype), dout32.to(dtype)
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        out, lse = fa.flash_attention_fwd(q, k, v, H)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, H)
+        torch.cuda.synchronize()
+        errs = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0.0)
+        for b in (0, B - 1):
+            one = [t[b:b + 1].float() for t in (q, k, v)]
+            ref_out, ref_lse = fa.flash_attention_plain(*one, H)
+            errs["out"] = max(errs["out"], rel_err(out[b:b + 1], ref_out))
+            errs["lse"] = max(errs["lse"], float((lse[b:b + 1] - ref_lse).abs().max()))
+            del ref_out, ref_lse
+            refs = fa.flash_attention_bwd_plain(*one, out[b:b + 1].float(), lse[b:b + 1],
+                                                dout[b:b + 1].float(), H)
+            for key, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+                errs[key] = max(errs[key], rel_err(got[b:b + 1], ref))
+            del refs, one
+        ok = all(math.isfinite(e) and e <= tol for e in errs.values())
+        row = {"phase": "longclip_kernels_vs_plain", "shape": name, "B": B, "Lq": L, "Lk": L,
+               "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
+               "checked_clips": [0, B - 1], "rel_err": errs, "tol": tol, "ok": ok}
+        if dtype == torch.bfloat16:
+            q1, k1, v1, out1, lse1, dout1 = (t[:1] for t in (q, k, v, out, lse, dout))
+            qh, kh, vh = heads(q, H), heads(k, H), heads(v, H)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            views = [heads(t, H) for t in leaves]
+            lib_out = F.scaled_dot_product_attention(*views)
+            dout_h = heads(dout, H)
+            times = {
+                "fwd": {"ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, H)),
+                        "plain_ms_one_clip": time_ms(
+                            lambda: fa.flash_attention_plain(q1, k1, v1, H)),
+                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh))},
+                "bwd": {"ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                                     H)),
+                        "plain_ms_one_clip": time_ms(lambda: fa.flash_attention_bwd_plain(
+                            q1, k1, v1, out1, lse1, dout1, H)),
+                        "library_ms": time_ms(lambda: torch.autograd.grad(
+                            lib_out, leaves, dout_h, retain_graph=True))}}
+            for key, backward in (("fwd", False), ("bwd", True)):
+                bound = attention_bound(B, L, L, H, d, dtype, backward=backward)
+                times[key].update(bound_ms=bound[0], bound_by=bound[1])
+            row["sdpa_backend"] = sdpa_backend(*views)
+            row.update(times)
+            timed = times
+            del lib_out, leaves, views
+        emit(row)
+        if not ok:
+            raise AssertionError(f"K1/K2 disagree with the plain versions at {name} {dtype}: "
+                                 f"{errs} > {tol}")
+        del out, lse, grads
+    return timed
+
+
 def merged(*cfgs: dict) -> dict:
     """Recursive merge, later configs winning (as configs/base.yaml under a
     task config)."""
@@ -709,6 +864,22 @@ def merged(*cfgs: dict) -> dict:
 
 def ssl_mae_cfg(split: str, save_dir: str) -> dict:
     cfg = merged(BASE_YAML, SSL_MAE_YAML, SSL_MAE_SMOKE_OVERRIDES)
+    cfg["device"]["name"] = "cuda"
+    cfg["dataset"]["train_split"] = split
+    cfg["training"]["save_dir"] = save_dir
+    cfg["paths"] = {"split_root": ""}
+    return cfg
+
+
+def opt_in_cfg(name: str, split: str, save_dir: str, profile_dir: str) -> dict:
+    """Phases 20-23's config: ``OPT_IN_YAML[name]`` (the MoE or long-clip
+    pipeline-B yaml) over configs/base.yaml with the smoke's split and save
+    dir; the MoE run with phase 6's departure (an encoder checkpoint every
+    epoch) and a profiler trace under ``profile_dir``, the long clip as the
+    yaml stands."""
+    cfg = merged(BASE_YAML, OPT_IN_YAML[name])
+    if name == "moe":
+        cfg = merged(cfg, SSL_MAE_SMOKE_OVERRIDES, {"logging": {"profile_dir": profile_dir}})
     cfg["device"]["name"] = "cuda"
     cfg["dataset"]["train_split"] = split
     cfg["training"]["save_dir"] = save_dir
@@ -888,9 +1059,10 @@ def phase_train_step(fa, dev) -> list[dict]:
     return outs
 
 
-def phase_train(fa, dev, tmp: str) -> tuple[dict, str]:
+def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
     """The pipeline-B entry on configs/ssl_mae.yaml for TRAIN_STEPS steps.
-    Returns the launches and the last encoder checkpoint (under ``tmp``)."""
+    Returns the launches, the last encoder checkpoint (under ``tmp``) and
+    the training split (64-frame videos, which phases 21 and 23 reuse)."""
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
@@ -971,7 +1143,7 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str]:
         raise AssertionError(f"train: non-finite result or no update applied: {summary}")
     if ckpt is None or not ckpt.endswith(f"ckpt_epoch_{TRAIN_STEPS}.pt"):
         raise AssertionError(f"train: no encoder checkpoint of the last epoch: {ckpt}")
-    return totals, ckpt
+    return totals, ckpt, splits["train"]
 
 
 def slice_cfg(split: str, save_dir: str, impl: str) -> dict:
@@ -1570,8 +1742,9 @@ def phase_ssl_step(dev, seed: int = 6) -> list[dict]:
 class StepRecorder:
     """Callbacks for an entry run: each step's loss, ms since the previous
     one (a checkpoint write left out), clips/s, K1/K2 calls, peak memory and
-    ``extra(metrics)``; the launch counts summed in ``totals``; the log
-    lines in ``lines``. Call :meth:`start` just before each run."""
+    ``extra(metrics, state, row)`` (``row``: the step's entries so far); the
+    launch counts summed in ``totals``; the log lines in ``lines``. Call
+    :meth:`start` just before each run."""
 
     def __init__(self, batch: int, phase: str, extra=None):
         self.batch, self.phase, self.extra = batch, phase, extra
@@ -1599,13 +1772,12 @@ class StepRecorder:
         torch.cuda.synchronize()
         now = time.perf_counter()
         launched = self.take_counts()
-        self.steps.append({
-            "step": i, "includes_setup": self.setup, "loss": float(metrics["loss"]),
-            "step_ms": 1e3 * (now - self.t), "clips_per_s": self.batch / (now - self.t),
-            "k1_calls": launched["flash_attention_fwd"],
-            "k2_calls": launched["flash_attention_bwd"],
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-            **(self.extra(metrics) if self.extra else {})})
+        row = {"step": i, "includes_setup": self.setup, "loss": float(metrics["loss"]),
+               "step_ms": 1e3 * (now - self.t), "clips_per_s": self.batch / (now - self.t),
+               "k1_calls": launched["flash_attention_fwd"],
+               "k2_calls": launched["flash_attention_bwd"],
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        self.steps.append({**row, **(self.extra(metrics, state, row) if self.extra else {})})
         emit({"phase": self.phase, **self.steps[-1]})
         torch.cuda.reset_peak_memory_stats()
         self.t, self.setup = time.perf_counter(), False
@@ -1634,7 +1806,7 @@ def phase_ssl_train(dev, tmp: str) -> dict:
                                     videos_per_class=13, num_frames=d["clip_len"] * d["stride"],
                                     image_size=d["image_size"], seed=2)
     cfg = ssl_train_cfg(splits["train"], os.path.join(tmp, "ssl_a_out"))
-    rec = StepRecorder(B, "ssl_train_step", extra=lambda m: {"top": "top" in m})
+    rec = StepRecorder(B, "ssl_train_step", extra=lambda m, *_: {"top": "top" in m})
     rec.start()
     t0 = time.perf_counter()
     out = train_ssl.run(cfg, log=rec.on_log, max_steps=SSL_TRAIN_STEPS, on_step=rec.on_step)
@@ -1719,7 +1891,7 @@ def phase_mae_train(dev, tmp: str) -> dict:
                                     videos_per_class=5, num_frames=d["clip_len"] * d["stride"],
                                     image_size=d["image_size"], seed=3)
     cfg = mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out"))
-    rec = StepRecorder(B, "mae_train_step", extra=lambda m: {
+    rec = StepRecorder(B, "mae_train_step", extra=lambda m, *_: {
         "pred_std": float(m["pred_std"]), "grad_norm": float(m["grad_norm"])})
     t0 = time.perf_counter()
     rec.start()
@@ -2081,6 +2253,263 @@ def phase_federated(dev, tmp: str, splits: dict) -> dict:
     return {**paths, "system_federated": bridge}
 
 
+def routing_differences(model, clip, mask, drop) -> dict:
+    """Tokens that a train-mode forward through the kernels and one through
+    the plain versions, on the same weights and inputs, route differently
+    in each MoE block: to another expert, or on either side of its
+    expert's capacity. Leaves the weights and BatchNorm statistics as it
+    found them."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.models.layers import MoeMlp
+
+    moes = [m for m in model.modules() if isinstance(m, MoeMlp)]
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    routes = {}
+    for impl in ("kernel", "plain"):
+        set_attn_impl(model, impl)
+        model.load_state_dict(start)
+        seen = routes[impl] = []
+        hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(
+            mod.assignments(args[0]))) for m in moes]
+        with torch.no_grad():
+            model.train()
+            model(clip, mask, drop)
+        for h in hooks:
+            h.remove()
+    set_attn_impl(model, "kernel")
+    model.load_state_dict(start)
+    kern, plain = routes["kernel"], routes["plain"]
+    return {"tokens_per_block": int(kern[0].numel()),
+            "routed_differently": [int((a != b).sum()) for a, b in zip(kern, plain)],
+            "to_another_expert": [int(((a != b) & (a >= 0) & (b >= 0)).sum())
+                                  for a, b in zip(kern, plain)],
+            "dropped_kernel": [int((a < 0).sum()) for a in kern],
+            "dropped_plain": [int((b < 0).sum()) for b in plain]}
+
+
+def phase_opt_in_step(dev, name: str) -> list[dict]:
+    """The full-width pipeline-B step of an opt-in config (``name``: "moe",
+    8 top-1 experts in each decoder block; "longclip", 64 frames) through the
+    kernels and through the plain versions, on the same weights, tube mask
+    and drop-path decisions, fp32 (TF32 off) and bf16, held by
+    :func:`judge_step` (K1 20, K2 12 calls). The MoE loss adds the
+    load-balance auxiliary as the step does; its value and the tokens the
+    two runs route differently are reported, the auxiliary held to [1/E,
+    E]."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
+    from ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae import build_model
+    from ssl_vit_video_analytics_tpu_torch.ops.patchify import patchify
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
+    from ssl_vit_video_analytics_tpu_torch.train.losses import mae_loss_l2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = opt_in_cfg(name, "", "", "")
+    B, T, S = OPT_IN_STEP_CLIPS[name], cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    L = (S // 8) ** 2
+    experts = cfg["model"].get("decoder_moe_experts", 0)
+    weight = cfg["ssl"].get("moe_aux_weight", 0.01)
+    g = torch.Generator(device=dev).manual_seed(8)
+    clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
+    mask = get_tube_mask(g, B, T, L, cfg["ssl"]["mask_ratio"])
+    outs, ref32, drop = [], {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(cfg, dtype)
+        init_model(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        if drop is None:  # one set of decisions for both dtypes
+            drop = model.draw_drop_path(B, T, g)
+        clip = normalize_clip(clip_u8, dtype=dtype)
+        target = patchify(clip.float(), 8)
+        names, params = zip(*model.named_parameters())
+        auxes = []
+
+        def run():
+            model.train()
+            pred, aux = model(clip, mask, drop, with_aux=True)
+            loss = mae_loss_l2(pred, target, mask.reshape(B, T * L))
+            if aux:  # as the step with ssl.moe_aux_weight
+                aux = torch.stack(aux).mean()
+                auxes.append(float(aux.detach()))
+                loss = loss + weight * aux
+            return loss.detach(), torch.autograd.grad(loss, params)
+
+        out = {"phase": f"{name}_step_kernel_vs_plain", "B": B, "T": T}
+        torch.cuda.reset_peak_memory_stats()
+        res = compare_impls(model, run, (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP), out)
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if experts:
+            # compare_impls runs kernel, plain, kernel, plain
+            out["moe_aux"] = {"kernel": auxes[2], "plain": auxes[3]}
+            out["routing"] = routing_differences(model, clip, mask, drop)
+            if not all(1 / experts <= a <= experts for a in auxes):
+                raise AssertionError(f"{name} step: moe_aux outside [1/E, E]: {auxes}")
+        outs.append(judge_step(out, dtype, res, list(names), ref32))
+        del model, res
+    return outs
+
+
+def phase_opt_in_train(dev, tmp: str, name: str, split: str) -> dict:
+    """The pipeline-B entry on an opt-in config (``name``: "moe" or
+    "longclip", :func:`opt_in_cfg`) for OPT_IN_STEPS steps on phase 6's
+    split of 64-frame videos: per step loss, gnorm, update applied or
+    skipped, ms, clips/s, MFU, K1/K2 (20/12 required), peak memory and the
+    MoE auxiliary; JAX's one-device warning; the MoE run's profiler trace
+    (its size, and whether it names K1's and K2's kernels)."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+    from ssl_vit_video_analytics_tpu_torch.train.state import adamw_of
+    from ssl_vit_video_analytics_tpu_torch.utils.metrics import (
+        pipeline_b_mfu, pipeline_b_model_kwargs)
+
+    profile_dir = os.path.join(tmp, f"{name}_trace")
+    cfg = opt_in_cfg(name, split, os.path.join(tmp, f"{name}_out"), profile_dir)
+    tr, d = cfg["training"], cfg["dataset"]
+    experts = cfg["model"].get("decoder_moe_experts", 0)
+    mfu_kwargs = pipeline_b_model_kwargs(cfg)
+    applied = {"count": 0}
+
+    def extra(metrics, state, row):
+        count = adamw_of(state.tx).count
+        due = row["step"] % tr["accumulation_steps"] == 0
+        update = ("applied" if count > applied["count"] else "skipped") if due else "accumulated"
+        applied["count"] = count
+        return {"gnorm": float(metrics["grad_norm"]), "update": update,
+                "mfu": pipeline_b_mfu(row["clips_per_s"], d["clip_len"], d["image_size"],
+                                      **mfu_kwargs),
+                **({"moe_aux": float(metrics["moe_aux"])} if "moe_aux" in metrics else {})}
+
+    rec = StepRecorder(tr["batch_size"], f"{name}_train_step", extra=extra)
+    rec.start()
+    t0 = time.perf_counter()
+    out = train_ssl_mae.run(cfg, log=rec.on_log, max_steps=OPT_IN_STEPS, on_step=rec.on_step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec.take_counts()
+    steps, lines = rec.steps, rec.lines
+    summary = {"phase": f"{name}_train", "steps": out["steps"], "seconds": seconds,
+               "last_loss": out["last_loss"], "updates_applied": applied["count"],
+               "warnings": [m for m in lines if m.startswith("[WARN]")],
+               "device_resident": any("device-resident store" in m for m in lines)}
+    if name == "moe":
+        trace = os.path.join(profile_dir, "train_ssl_mae_trace.json")
+        with open(trace) as f:
+            text = f.read()
+        summary["profiler"] = {
+            "lines": [m for m in lines if "profil" in m], "trace_bytes": os.path.getsize(trace),
+            "names_k1": "flash_fwd_bf16_kernel" in text,
+            "names_k2": all(k in text for k in ("flash_bwd_dkdv_bf16_kernel",
+                                                "flash_bwd_dq_bf16_kernel"))}
+        del text
+    emit(summary)
+    bad = [s for s in steps if (s["k1_calls"], s["k2_calls"]) != (K1_CALLS_PER_STEP,
+                                                                  K2_CALLS_PER_STEP)]
+    if out["steps"] != OPT_IN_STEPS or bad:
+        raise AssertionError(f"{name} train: {out['steps']} steps; kernel calls off in {bad}")
+    if not (all(math.isfinite(s["loss"]) for s in steps) and applied["count"] >= 1
+            and OPT_IN_WARNING[name] in lines and summary["device_resident"]):
+        raise AssertionError(f"{name} train: {summary}")
+    if experts and not all(1 / experts <= s["moe_aux"] <= experts for s in steps):
+        raise AssertionError(f"{name} train: moe_aux outside [1/E, E]: {steps}")
+    prof = summary.get("profiler")
+    if prof and not (prof["names_k1"] and prof["names_k2"] and prof["lines"] == [
+            f"[INFO] profiling first steps to {profile_dir}", "[INFO] profiler trace written"]):
+        raise AssertionError(f"{name} train: profiler trace {prof}")
+    return rec.totals
+
+
+def phase_finetune_augment(dev, tmp: str, ssl_ckpt: str) -> dict:
+    """Finetuning with training.augment: true. One real step of phase 10's
+    classifier (fp32, TF32 off, full width, ft_ssl) through the kernels,
+    whose augmented clip the CPU's augment_clip reproduces from the same
+    draws to 1e-6 (K1 8, K2 8 calls); then phase 11's entry run (two_stage,
+    2 epochs, from phase 6's checkpoint) with augmentation on: the enabling
+    line, K1 8 a step and K2 0 while frozen, 8 after."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.entry import train_finetune
+    from ssl_vit_video_analytics_tpu_torch.ops import augment
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+    from ssl_vit_video_analytics_tpu_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d = CAMPAIGN_B["dataset"]
+    B, T, S = 2, d["clip_len"], d["image_size"]
+    training = merged(FINETUNE_YAML, CAMPAIGN_B)["training"]
+    g = torch.Generator(device=dev).manual_seed(9)
+    clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
+    labels = torch.randint(0, FT_CLASSES, (B,), dtype=torch.int32, device=dev, generator=g)
+    model = eng.build_model(FT_CLASSES, 256, dtype=torch.float32, backbone="tinyvit")
+    eng.init_model(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    on = augment.augment_from_cfg({"augment": True})  # training.augment: true
+    seen = {}
+
+    def recorded(clip, generator):
+        seen["clip"], seen["draws"] = clip, augment.draw_augment(generator, clip.shape[0],
+                                                                 **on.keywords)
+        seen["out"] = on(clip, draws=seen["draws"])
+        return seen["out"]
+
+    state = create_train_state(model, eng.build_finetune_tx(training, "ft_ssl", model, False))
+    reset_counts()
+    state, metrics = eng.make_train_step(model, torch.float32, augment=recorded,
+                                         seed=BASE_YAML["seed"])(
+        state, {"clip": clip_u8, "label": labels}, g)
+    torch.cuda.synchronize()
+    step_calls = read_counts()
+    draws = augment.AugmentDraws(*(None if t is None else t.cpu() for t in seen["draws"]))
+    cpu = on(seen["clip"].cpu(), draws=draws)
+    err = float((seen["out"].cpu() - cpu).abs().max())
+    moved = float((seen["out"] - seen["clip"]).abs().max())
+    emit({"phase": "finetune_augment_step", "B": B, "T": T, "dtype": "float32",
+          "augmented_clip_max_abs_err_vs_cpu": err, "tol": 1e-6, "augment_moved_clip": moved,
+          "loss": float(metrics["loss"]), "k1_k2": [step_calls["flash_attention_fwd"],
+                                                    step_calls["flash_attention_bwd"]]})
+    if not (err <= 1e-6 and moved > 0 and math.isfinite(float(metrics["loss"]))):
+        raise AssertionError(f"augmented finetune step: clip {err} from the CPU's, moved {moved}")
+    if (step_calls["flash_attention_fwd"], step_calls["flash_attention_bwd"]) != (
+            FT_K1_CALLS, FT_K2_CALLS):
+        raise AssertionError(f"kernel calls in the augmented finetune step: {step_calls}")
+    del model, state, seen
+
+    # phase 11's run with augmentation on: 8 classes x 8 train videos of 16
+    # frames, 4 steps an epoch
+    splits = make_synthetic_dataset(os.path.join(tmp, "ft_aug_data"), num_classes=FT_CLASSES,
+                                    videos_per_class=9, num_frames=T, image_size=S, seed=5)
+    cfg = finetune_cfg(splits["train"], splits["train"], ssl_ckpt[:-len(".pt")],
+                       os.path.join(tmp, "ft_aug_out"))
+    cfg["training"]["augment"] = True
+    rec = StepRecorder(cfg["training"]["batch_size"], "finetune_augment_step")
+
+    def on_log(msg: str) -> None:
+        rec.on_log(msg)
+        if msg.startswith("[INFO] val "):  # validation's launches are not a step's
+            rec.take_counts()
+
+    rec.start()
+    out = train_finetune.run(cfg, mode=FINETUNE_MODE, log=on_log, on_step=rec.on_step)
+    torch.cuda.synchronize()
+    rec.take_counts()
+    steps, lines = rec.steps, rec.lines
+    per_epoch = len(steps) // CAMPAIGN_B["training"]["epochs"]
+    enabled = "[INFO] on-device augmentation enabled (training.augment)" in lines
+    emit({"phase": "finetune_augment", "steps": len(steps), "best_top1": out["best_top1"],
+          "augmentation_line": enabled, "launches": rec.totals})
+    want = [(FT_K1_CALLS, 0 if i < per_epoch else FT_K2_CALLS) for i in range(len(steps))]
+    if not (enabled and steps and [(s["k1_calls"], s["k2_calls"]) for s in steps] == want
+            and all(math.isfinite(s["loss"]) for s in steps)):
+        raise AssertionError(f"finetune with training.augment: {lines[-3:]}, {steps}")
+    return rec.totals
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -2108,10 +2537,10 @@ def main() -> None:
                          "needs an NVIDIA GPU")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    emit({"phase": "device", "device_name": name, "nvidia_smi": smi,
+    emit({"phase": "device", "device_name": device_name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
@@ -2121,10 +2550,11 @@ def main() -> None:
         return
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
+    longclip = phase_longclip_kernels(fa, dev)
     phase_train_step(fa, dev)
     with tempfile.TemporaryDirectory() as tmp:  # phase 6's checkpoint serves phase 11
         paths = {}
-        paths["train_ssl_mae"], ssl_ckpt = phase_train(fa, dev, tmp)
+        paths["train_ssl_mae"], ssl_ckpt, ssl_split = phase_train(fa, dev, tmp)
         serving = phase_slice(fa, dev)
         paths["run_dynamic_streaming"] = serving["streaming"]
         paths["run_dynamic_batched"] = serving["batched"]
@@ -2142,6 +2572,10 @@ def main() -> None:
         splits = fed_data(tmp)
         paths["run_privacy"] = phase_privacy(dev, tmp, splits)
         paths.update(phase_federated(dev, tmp, splits))
+        for regime in OPT_IN_YAML:
+            phase_opt_in_step(dev, regime)
+            paths[f"train_ssl_mae_{regime}"] = phase_opt_in_train(dev, tmp, regime, ssl_split)
+        paths["train_finetune_augment"] = phase_finetune_augment(dev, tmp, ssl_ckpt)
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}
@@ -2154,12 +2588,13 @@ def main() -> None:
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_TPU, "launches": paths["train_ssl_mae"]["flash_attention_fwd"],
-         "launches_by_path": by_path("flash_attention_fwd"), **k1, "ms_is": ms_is},
+         "launches_by_path": by_path("flash_attention_fwd"), **k1, "ms_is": ms_is,
+         "longclip_decoder": longclip["fwd"]},
         {"name": "flash_attention_bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_TPU, "launches": paths["train_ssl_mae"]["flash_attention_bwd"],
          "launches_is": "calls, each launching the dK/dV and the dQ kernel",
          "launches_by_path": by_path("flash_attention_bwd"), **k2,
-         "ms_is": ms_is + " (backward, autograd.grad)"},
+         "ms_is": ms_is + " (backward, autograd.grad)", "longclip_decoder": longclip["bwd"]},
         {"name": "dw3x3", "route": "cuda", "source": P1_SOURCE, "replaces": P1_TPU,
          "launches": paths["probe_dw"]["dw3x3"], "launches_by_path": by_path("dw3x3"),
          **p1, "ms_is": "bf16 [256, 56*56, 384], one call; library: cuDNN grouped "
@@ -2173,7 +2608,7 @@ def main() -> None:
                   "896x6272; library: none, no single PyTorch call applies an n-step "
                   "chain"},
     ]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
 
 

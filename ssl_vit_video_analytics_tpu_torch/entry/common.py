@@ -1,8 +1,7 @@
-"""Shared runtime plumbing for the CLI entry points (the single-device parts
-of the JAX package's ``entry/common.py``): config and device resolution, the
-device-resident split, epoch batches, and the refusal of the JAX knobs the
-port does not have (multi-device runs, step tracing, on-device
-augmentation)."""
+"""Shared runtime plumbing for the CLI entry points (the JAX package's
+``entry/common.py`` on one device): config and device resolution, the
+multi-device knobs resolved as JAX resolves them on one device, the
+device-resident split and epoch batches."""
 from __future__ import annotations
 
 import argparse
@@ -40,32 +39,66 @@ def device_from(cfg: dict, device: str | torch.device | None = None) -> torch.de
     return device
 
 
-def refuse_unported(cfg: dict) -> None:
-    """Raise on a knob of the JAX entries that the port does not have: the
-    multi-device layouts, the profiler trace of the first steps and the
-    on-device augmentation of the finetune step."""
+ONE_DEVICE = "the port runs on one device until ROADMAP item 15b"
+
+
+def _data_parallel_request(cfg: dict) -> int:
+    """``device.data_parallel`` as a device count: 1 for auto, true, false
+    or unset (what one device resolves them to)."""
+    want = cfg.get("device", {}).get("data_parallel", "auto")
+    return 1 if isinstance(want, (bool, str)) or want is None else int(want)
+
+
+def setup_data_parallel(cfg: dict, log=print) -> None:
+    """The JAX entries' ``setup_data_parallel`` on one device: nothing to
+    set up. JAX is silent there; an explicit ``device.data_parallel: N`` > 1
+    logs one warning."""
+    n = _data_parallel_request(cfg)
+    if n > 1:
+        log(f"[WARN] device.data_parallel={n} requested; {ONE_DEVICE}; ignoring")
+
+
+def setup_parallelism(cfg: dict, log=print, allow_pp: bool = False) -> None:
+    """The JAX entries' ``setup_parallelism`` (pipelines B and C) resolved
+    on one device, with JAX's warnings where it logs one:
+    ``device.expert_parallel`` and ``device.pipeline_parallel`` are ignored
+    (``allow_pp``: the pipeline-B entry, which alone takes them),
+    ``model.sequence_parallel`` falls back to the single-device attention
+    kernel. Where JAX is silent on one device (``device.model_parallel``,
+    ``device.data_parallel``), one warning names the knobs this ignores."""
     dev = cfg.get("device", {})
-    knobs = {
-        "device.model_parallel": int(dev.get("model_parallel", 1) or 1) > 1,
-        "device.pipeline_parallel": int(dev.get("pipeline_parallel", 1) or 1) > 1,
-        "device.expert_parallel": int(dev.get("expert_parallel", 1) or 1) > 1,
-        "model.sequence_parallel": bool(cfg.get("model", {}).get("sequence_parallel")
-                                        or dev.get("sequence_parallel")),
-        "device.data_parallel": (not isinstance(dev.get("data_parallel", "auto"), (bool, str))
-                                 and int(dev.get("data_parallel") or 1) > 1),
-    }
-    for knob, on in knobs.items():
-        if on:
-            raise NotImplementedError(
-                f"{knob} is not ported yet: multi-GPU training arrives with ROADMAP "
-                "queue 1, item 15 (this entry runs on one device)")
-    if cfg.get("logging", {}).get("profile_dir"):
-        raise NotImplementedError("logging.profile_dir is not ported yet: tracing the "
-                                  "train step arrives with ROADMAP queue 1, item 8")
-    if cfg.get("training", {}).get("augment"):
-        raise NotImplementedError("training.augment is not ported yet: on-device "
-                                  "augmentation (ops/augment.py) arrives with ROADMAP "
-                                  "queue 1, item 15")
+    sp_on = bool(cfg.get("model", {}).get("sequence_parallel", False)
+                 or dev.get("sequence_parallel", False))
+    tp = int(dev.get("model_parallel", 1) or 1)
+    pp = int(dev.get("pipeline_parallel", 1) or 1)
+    ep = int(dev.get("expert_parallel", 1) or 1)
+    if ep > 1:
+        if not allow_pp:
+            log("[WARN] device.expert_parallel is only supported by the "
+                "pipeline-B entry (train_ssl_mae); ignoring")
+        elif sp_on or tp > 1 or pp > 1:
+            log("[WARN] expert_parallel is exclusive with the other "
+                "model-sharding knobs; ignoring expert_parallel")
+        elif int(cfg.get("model", {}).get("decoder_moe_experts", 0) or 0) <= 0:
+            log("[WARN] expert_parallel needs model.decoder_moe_experts > 0; ignoring")
+        else:
+            log("[WARN] expert_parallel requested on 1 device; ignoring")
+    if pp > 1:
+        if not allow_pp:
+            log("[WARN] device.pipeline_parallel is only supported by the "
+                "pipeline-B entry (train_ssl_mae); ignoring")
+        elif sp_on or tp > 1:
+            log("[WARN] pipeline_parallel is exclusive with sequence_parallel"
+                "/model_parallel; ignoring pipeline_parallel")
+        else:
+            log("[WARN] pipeline_parallel requested on 1 device; ignoring")
+    if sp_on:
+        log("[WARN] sequence_parallel requested on 1 device; attention "
+            "falls back to the single-device kernel")
+    silent = {"device.model_parallel": tp, "device.data_parallel": _data_parallel_request(cfg)}
+    asked = ", ".join(f"{knob}={n}" for knob, n in silent.items() if n > 1)
+    if asked:
+        log(f"[WARN] {asked} requested; {ONE_DEVICE}; ignoring")
 
 
 def compute_dtype_from(cfg: dict, device: torch.device) -> torch.dtype:

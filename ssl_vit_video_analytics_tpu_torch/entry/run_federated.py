@@ -7,7 +7,7 @@ system_privacy_summary.csv (raw-upload counterfactual vs FL comm).
 
 On one card the selected clients train one after another from the global
 state (``federated/core.py``), as the JAX package does without a mesh; the
-multi-GPU client axis is ROADMAP queue 1, item 15. CSV headers and float
+multi-GPU client axis is ROADMAP queue 1, item 15b. CSV headers and float
 formats match the reference (ref: :325-363).
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.run_federated \\

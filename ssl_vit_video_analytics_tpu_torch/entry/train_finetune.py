@@ -7,8 +7,10 @@ pipeline-A MobileViT or a pipeline-B TinyViT backbone (``model.backbone``,
 loaded from ``model.pretrained_ssl``: a port ``.pt`` or a JAX ``.npz``),
 best-top1 checkpoints with metric-encoded names
 (``finetune_epoch_{e}_top1_{acc:.4f}.pt``, plus the ``best.pt`` alias), a
-``metrics.csv`` per epoch, and the JAX entry's log lines. One device; the
-split goes device-resident as ``dataset.device_resident`` says.
+``metrics.csv`` per epoch, the JAX entry's log lines, and the opt-in
+on-device augmentation of the train step (``training.augment``,
+``ops/augment.py``). One device (an explicit ``device.data_parallel: N``
+warns); the split goes device-resident as ``dataset.device_resident`` says.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_finetune \\
         --config configs/finetune.yaml --mode two_stage --device cuda
@@ -20,6 +22,7 @@ import time
 
 import torch
 
+from ..ops.augment import augment_from_cfg
 from ..train import finetune_engine as eng
 from ..train.state import create_train_state
 from ..utils.checkpoint import best_ckpt_name, checkpoint_path, read_checkpoint, save_checkpoint
@@ -34,7 +37,7 @@ def run(cfg: dict, mode: str | None = None, log=print,
     ``device.name``, else cuda. ``on_step(global_step, state, metrics)`` is
     called after every step. Returns ``{"best_top1", "best_ckpt"}``."""
     device = common.device_from(cfg, device)
-    common.refuse_unported(cfg)
+    common.setup_data_parallel(cfg, log)
     mode = eng.resolve_mode(cfg, mode)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
@@ -86,7 +89,10 @@ def run(cfg: dict, mode: str | None = None, log=print,
     state = create_train_state(model, eng.build_finetune_tx(tr, mode, model, freeze_backbone))
     train_ds = common.maybe_device_resident(cfg, train_ds, device, log)
     val_ds = common.maybe_device_resident(cfg, val_ds, device, log)
-    train_step = eng.make_train_step(model, compute_dtype=dtype)
+    augment = augment_from_cfg(tr)
+    if augment is not None:
+        log("[INFO] on-device augmentation enabled (training.augment)")
+    train_step = eng.make_train_step(model, compute_dtype=dtype, augment=augment, seed=seed)
     eval_step = eng.make_eval_step(model, compute_dtype=dtype)
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 

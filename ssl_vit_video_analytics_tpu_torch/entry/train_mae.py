@@ -10,8 +10,10 @@ detection; full resume (params, BatchNorm statistics, optimizer moments and
 counters, step, epoch, with a cfg-hash check); keep-last-N checkpoint GC;
 ``training.max_epochs_per_run`` segments. One device, the split
 device-resident as ``dataset.device_resident`` says; the multi-device knobs
-raise. ``mae.vis_every`` waits for ``reporting/visualize.py`` (ROADMAP
-queue 1, item 16): the run warns once and trains on.
+are resolved as the JAX entry resolves them on one device
+(``common.setup_parallelism``). ``mae.vis_every`` waits for
+``reporting/visualize.py`` (ROADMAP queue 1, item 16): the run warns once
+and trains on.
 
 Every step draws from a generator seeded by ``(seed, global step)``, not
 from one stream, so a resumed run replays the masks, flips and drop-path
@@ -83,7 +85,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
     """Train. ``device``: argument, else ``device.name``, else cuda.
     ``on_step(global_step, state, metrics)`` is called after every step."""
     device = common.device_from(cfg, device)
-    common.refuse_unported(cfg)
+    common.setup_parallelism(cfg, log)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)

@@ -7,7 +7,8 @@ copy of the student, TOP on from ``ssl_objectives.top_start_epoch`` every
 ``top_every`` steps, ``ssl_metrics.csv`` and full checkpoints
 ``ssl_epoch_{e}`` (student, EMA, BatchNorm statistics, optimizer state;
 step and epoch in the sidecar). One device, the split device-resident as
-``dataset.device_resident`` says; the multi-device knobs raise.
+``dataset.device_resident`` says; the multi-device knobs are resolved as
+the JAX entry resolves them on one device (``common.setup_data_parallel``).
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl \\
         --config configs/ssl_train.yaml --device cuda
@@ -53,7 +54,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     """Train. ``device``: argument, else ``device.name``, else cuda.
     ``on_step(global_step, state, metrics)`` is called after every step."""
     device = common.device_from(cfg, device)
-    common.refuse_unported(cfg)
+    common.setup_data_parallel(cfg, log)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)

@@ -4,16 +4,24 @@ src/train_ssl_mae.py).
 
 TinyViT stage-3 features + tube mask (default 0.9) + norm-pix masked MSE,
 AdamW with warmup-cosine schedule, gradient accumulation and non-finite
-skip, bf16 compute on the card, throughput (clips/s) + ETA logging,
-encoder-only checkpoints every ``save_every`` epochs (full ones with
-``training.save_full``). One device, the split device-resident as
-``dataset.device_resident`` says; the multi-device knobs raise.
+skip, bf16 compute on the card, throughput (clips/s, and MFU against the
+H100's bf16 peak on a card) + ETA logging, encoder-only checkpoints every
+``save_every`` epochs (full ones with ``training.save_full``). The opt-in
+MoE decoder (``model.decoder_moe_*``, its load-balance auxiliary weighted by
+``ssl.moe_aux_weight``, default 0.01) and the 64-frame long clip
+(``configs/ssl_mae_longclip.yaml``) run as configured;
+``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``.
+One device, the split device-resident as ``dataset.device_resident`` says;
+the multi-device knobs are resolved as the JAX entry resolves them on one
+device (``common.setup_parallelism``: expert and sequence parallelism fall
+back with JAX's warnings).
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae \\
         --config configs/ssl_mae.yaml --device cuda
 """
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -25,6 +33,7 @@ from ..train.mae_engine import make_pixel_mae_step, wrap_accum_and_skip
 from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
 from ..utils.checkpoint import save_checkpoint
 from ..utils.io import ensure_dir
+from ..utils.metrics import pipeline_b_mfu, pipeline_b_model_kwargs
 from ..utils.prng import set_seed
 from . import common
 
@@ -52,7 +61,32 @@ def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None) -> 
         dtype=dtype,
         attn_impl=attn_impl,
         decoder_moe_experts=int(m.get("decoder_moe_experts", 0) or 0),
+        decoder_moe_capacity_factor=float(m.get("decoder_moe_capacity_factor", 2.0)),
+        decoder_moe_group_size=int(m.get("decoder_moe_group_size", 0) or 0),
     )
+
+
+PROFILE_STEPS = 8  # logging.profile_dir traces the first steps, as the JAX entry
+
+
+def start_profiler(device: torch.device):
+    """A started ``torch.profiler`` over the host and, on a card, the device."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=acts)
+    profiler.start()
+    return profiler
+
+
+def stop_profiler(profiler, profile_dir: str, log=print) -> str:
+    """Stop ``profiler`` and write its chrome trace under ``profile_dir``."""
+    profiler.stop()
+    ensure_dir(profile_dir)
+    path = os.path.join(profile_dir, "train_ssl_mae_trace.json")
+    profiler.export_chrome_trace(path)
+    log("[INFO] profiler trace written")
+    return path
 
 
 def run(cfg: dict, log=print, max_steps: int | None = None,
@@ -60,7 +94,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     """Train. ``device``: argument, else ``device.name``, else cuda.
     ``on_step(global_step, state, metrics)`` is called after every step."""
     device = common.device_from(cfg, device)
-    common.refuse_unported(cfg)
+    common.setup_parallelism(cfg, log, allow_pp=True)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -68,6 +102,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     log(f"[INFO] ssl_mae: device={device} ({name}) dtype={str(dtype).replace('torch.', '')}")
     if cfg.get("logging", {}).get("tensorboard", False):
         log("[WARN] TensorBoard logging is not ported; skipping")
+    profile_dir = cfg.get("logging", {}).get("profile_dir")
 
     ds = common.dataset_from_cfg(cfg, common.split_path(cfg, cfg["dataset"]["train_split"]),
                                  "ssl", seed=seed)
@@ -104,17 +139,25 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     step_fn = make_pixel_mae_step(model, mask_ratio=float(ssl.get("mask_ratio", 0.9)),
                                   patch_size=8,
                                   norm_pix_loss=bool(ssl.get("norm_pix_loss", True)),
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype,
+                                  # the Switch-Transformer default; no-op for
+                                  # the dense decoder
+                                  moe_aux_weight=float(ssl.get("moe_aux_weight", 0.01)))
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     save_dir = tr.get("save_dir", "results/tinymae_v1")
     ensure_dir(save_dir)
     log_interval = int(tr.get("log_interval", 20))
     save_every = int(tr.get("save_every", 10))
+    mfu_kwargs = pipeline_b_model_kwargs(cfg)
 
     global_step = 0
     t_start = time.perf_counter()
     last_loss = float("nan")
+    profiler = None
+    if profile_dir:
+        profiler = start_profiler(device)
+        log(f"[INFO] profiling first steps to {profile_dir}")
     for epoch in range(1, epochs + 1):
         t_ep = time.perf_counter()
         seen = 0
@@ -129,6 +172,9 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
             epoch_losses.append(metrics["loss"])
             global_step += 1
             seen += B
+            if profiler is not None and global_step >= PROFILE_STEPS:
+                stop_profiler(profiler, profile_dir, log)
+                profiler = None
             if on_step is not None:
                 on_step(global_step, state, metrics)
             if step % log_interval == 0:
@@ -136,10 +182,14 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                 dt = time.perf_counter() - t_ep
                 ips = seen / max(dt, 1e-9)
                 eta = (steps_per_epoch - step) * (dt / step)
+                mfu = (pipeline_b_mfu(ips, T, S, **mfu_kwargs) if device.type == "cuda"
+                       else 0.0)
+                moe = (f" moe_aux={float(metrics['moe_aux']):.3f}"
+                       if "moe_aux" in metrics else "")
                 log(f"[INFO] ep={epoch} step={step}/{steps_per_epoch} "
                     f"loss={last_loss:.4f} pred_std={float(metrics['pred_std']):.4f} "
                     f"gnorm={float(metrics['grad_norm']):.2e} "
-                    f"clips/s={ips:.1f} eta={eta:.0f}s")
+                    f"clips/s={ips:.1f} mfu={mfu:.3f} eta={eta:.0f}s{moe}")
                 if float(metrics["collapse"]) > 0:
                     log("[WARN:pred_std_low] possible representation collapse")
             if max_steps is not None and global_step >= max_steps:
@@ -162,6 +212,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
         if max_steps is not None and global_step >= max_steps:
             break
 
+    if profiler is not None:
+        stop_profiler(profiler, profile_dir, log)
     total = time.perf_counter() - t_start
     return {"steps": global_step, "seconds": total, "last_loss": last_loss}
 

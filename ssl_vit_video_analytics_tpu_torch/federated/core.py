@@ -6,7 +6,7 @@ trained one after another, state dicts averaged in-process
 JAX package stacks the clients on a mesh axis; on one card the port runs
 them in a loop, as the JAX package's ``mesh=None`` path does: each client
 starts from the global ``state_dict`` with a fresh AdamW and runs its steps
-in order. The multi-GPU client axis is ROADMAP queue 1, item 15.
+in order. The multi-GPU client axis is ROADMAP queue 1, item 15b.
 
 Aggregation dtype rules match the reference exactly
 (ref: src/federated/fed_loop.py:46-58): floating tensors get the
@@ -169,7 +169,7 @@ def make_parallel_client_update(
 def pad_clients_to_axis(client_batches: dict, client_sizes: np.ndarray,
                         axis_size: int) -> tuple[dict, np.ndarray, int]:
     """Pad the stacked client dim to a multiple of a device axis (for the
-    multi-GPU client axis of ROADMAP item 15; one card needs no padding).
+    multi-GPU client axis of ROADMAP item 15b; one card needs no padding).
 
     Dummy clients get all-False ``valid`` masks (their local updates are
     no-ops) and zero aggregation weight. Returns (padded_batches,

@@ -177,6 +177,95 @@ class Mlp(nn.Module):
         return linear(gelu(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
 
 
+class MoeMlp(nn.Module):
+    """Top-1-routed mixture-of-experts MLP (the JAX package's opt-in
+    ``MoeMlp``, GShard-style static-shape dispatch).
+
+    Tokens route within groups of ``group_size`` (all ``B*L`` tokens when
+    0; a size that does not divide them raises, as in JAX: one flat group
+    would make the dispatch quadratic in tokens). The router (``nn.Linear``)
+    runs in fp32 on fp32 inputs, then softmax; each token takes the argmax
+    expert, gated by that expert's probability. Its slot in the expert's
+    buffer of ``C = max(1, ceil(S * capacity_factor / E))`` per group is
+    ``cumsum(onehot) - 1``; tokens past C are dropped (their output is 0, so
+    the block's residual passes them through). Dispatch ``[G, S, E, C]`` in
+    the compute dtype feeds the ``gsec,gsd->egcd`` einsum, the expert bank
+    (``w1 [E, D, H]``, ``b1``, ``w2 [E, H, D]``, ``b2``) runs as batched
+    matmuls over experts (JAX's ``expert_parallel_apply`` without a mesh),
+    and the gated combine ``gsec,egcd->gsd`` brings the outputs back.
+
+    ``forward`` returns ``(y, aux)``: ``aux`` is the Switch load-balance
+    auxiliary ``E * sum_e mean(onehot_e) * mean(probs_e)``, differentiable
+    through the probabilities: 1 when the tokens spread evenly, E when every
+    token picks one expert with certainty, never under 1/E (a token's
+    argmax probability is at least 1/E), and it can dip just under 1.
+    """
+
+    def __init__(self, dim: int, hidden: int, num_experts: int,
+                 capacity_factor: float = 2.0, group_size: int = 0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        E = num_experts
+        self.num_experts, self.capacity_factor, self.group_size = E, capacity_factor, group_size
+        self.router = nn.Linear(dim, E)
+        self.w1 = nn.Parameter(torch.empty(E, dim, hidden))
+        self.b1 = nn.Parameter(torch.zeros(E, hidden))
+        self.w2 = nn.Parameter(torch.empty(E, hidden, dim))
+        self.b2 = nn.Parameter(torch.zeros(E, dim))
+        for w in (self.w1, self.w2):
+            nn.init.normal_(w, 0.0, w.shape[1] ** -0.5)
+        self.dtype = dtype
+
+    def capacity(self, tokens: int) -> tuple[int, int, int]:
+        """``(G, S, C)``: groups, tokens a group and slots an expert a group
+        for ``tokens`` tokens."""
+        if self.group_size > 0 and tokens % self.group_size:
+            raise ValueError(
+                f"moe group_size={self.group_size} must divide the token count "
+                f"B*L={tokens}; pick a divisor of the per-clip token count")
+        S = self.group_size if self.group_size > 0 else tokens
+        C = max(1, int(-(-S * self.capacity_factor // self.num_experts)))
+        return tokens // S, S, C
+
+    def _route(self, x: torch.Tensor):
+        """Router probabilities ``[N, E]`` (fp32), each token's one-hot
+        expert ``[G, S, E]``, its slot in the group and the one-hot of the
+        tokens that fit their expert's buffer."""
+        B, L, D = x.shape
+        G, S, C = self.capacity(B * L)
+        probs = torch.softmax(F.linear(x.reshape(B * L, D).float(), self.router.weight,
+                                       self.router.bias), -1)
+        onehot = F.one_hot(probs.argmax(-1), self.num_experts).float().reshape(G, S, -1)
+        pos = onehot.cumsum(1) - 1.0                              # slot in group
+        return probs, onehot, pos, (pos < C).float() * onehot
+
+    @torch.no_grad()
+    def assignments(self, x: torch.Tensor) -> torch.Tensor:
+        """Each token's expert ``[B*L]``, or -1 where its expert's buffer
+        was full (the token was dropped)."""
+        _, onehot, _, keep = self._route(x)
+        expert = onehot.argmax(-1).flatten()
+        return torch.where(keep.sum(-1).flatten() > 0, expert, -1)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        B, L, D = x.shape
+        E, dt = self.num_experts, self.dtype
+        G, S, C = self.capacity(B * L)
+        probs, onehot, pos, keep = self._route(x)
+        gate = probs.amax(-1)                                     # top-1 prob
+        aux = E * (onehot.reshape(B * L, E).mean(0) * probs.mean(0)).sum()
+        xt = x.reshape(B * L, D)
+        slots = torch.arange(C, device=x.device, dtype=pos.dtype)
+        dispatch = (keep[..., None] * (pos[..., None] == slots)).to(dt)  # [G, S, E, C]
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
+                                 xt.reshape(G, S, D).to(dt)).reshape(E, G * C, D)
+        h = gelu(torch.bmm(expert_in, self.w1.to(dt)) + self.b1.to(dt)[:, None])
+        out = (torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]).reshape(E, G, C, D)
+        combine = dispatch * gate.reshape(G, S, 1, 1).to(dt)
+        y = torch.einsum("gsec,egcd->gsd", combine, out)
+        return y.reshape(B, L, D).to(dt), aux
+
+
 class SELayer(nn.Module):
     """Squeeze-and-excitation over NCHW, bias-free denses
     (ref: src/models/tiny_vit.py:20-34)."""
@@ -251,16 +340,20 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm transformer block: x + attn(ln(x)); x + mlp(ln(x)). The two
-    residual branches have their own stochastic-depth decisions."""
+    residual branches have their own stochastic-depth decisions.
+    ``moe_experts`` > 0 puts a :class:`MoeMlp` in the MLP's place."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path: float = 0.0, dtype: torch.dtype = torch.float32,
-                 attn_impl: str | None = None):
+                 attn_impl: str | None = None, moe_experts: int = 0,
+                 moe_capacity_factor: float = 2.0, moe_group_size: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads, dtype=dtype, attn_impl=attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = (MoeMlp(dim, hidden, moe_experts, moe_capacity_factor, moe_group_size,
+                           dtype=dtype) if moe_experts else Mlp(dim, hidden, dtype=dtype))
         self.drop_path = DropPath(drop_path)
         self.dtype = dtype
 
@@ -274,27 +367,44 @@ class TransformerBlock(nn.Module):
         return (self.drop_path.draw(n, generator, device),
                 self.drop_path.draw(n, generator, device))
 
-    def forward(self, x: torch.Tensor, keep: tuple | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: tuple | None = None,
+                with_aux: bool = False):
+        """``x``, or ``(x, aux)`` with ``with_aux`` (the MoE load-balance
+        auxiliary, None for a dense MLP)."""
         k_attn, k_mlp = keep if keep is not None else (None, None)
         x = x + self.drop_path(self.attn(self._norm(x, self.norm1)), k_attn)
-        return x + self.drop_path(self.mlp(self._norm(x, self.norm2)), k_mlp)
+        h = self.mlp(self._norm(x, self.norm2))
+        h, aux = h if isinstance(self.mlp, MoeMlp) else (h, None)
+        x = x + self.drop_path(h, k_mlp)
+        return (x, aux) if with_aux else x
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of pre-norm TransformerBlocks (flax names ``block{i}``)."""
+    """Stack of pre-norm TransformerBlocks (flax names ``block{i}``), with
+    MoE MLPs when ``moe_experts`` > 0."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, attn_impl: str | None = None):
+                 dtype: torch.dtype = torch.float32, attn_impl: str | None = None,
+                 moe_experts: int = 0, moe_capacity_factor: float = 2.0,
+                 moe_group_size: int = 0):
         super().__init__()
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_heads, mlp_ratio=mlp_ratio, dtype=dtype,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, moe_experts=moe_experts,
+                             moe_capacity_factor=moe_capacity_factor,
+                             moe_group_size=moe_group_size)
             for _ in range(depth))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, with_aux: bool = False):
+        """``x``, or ``(x, auxes)`` with ``with_aux``: each MoE block's
+        load-balance auxiliary, in block order (empty when dense). The
+        blocks hand them back as values: no module keeps one."""
+        auxes = []
         for blk in self.blocks:
-            x = blk(x)
-        return x
+            x, aux = blk(x, with_aux=True)
+            if aux is not None:
+                auxes.append(aux)
+        return (x, auxes) if with_aux else x
 
 
 def adaptive_avg_pool_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:

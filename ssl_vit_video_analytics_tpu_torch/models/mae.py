@@ -10,7 +10,9 @@ Frames folded into the batch -> TinyViT stage-3 features ``[BT, 14, 14,
 (masking happens AFTER encoding; the encoder sees every frame) ->
 full-sequence transformer decoder over T*196 = 3136 tokens -> per-patch
 pixel head (8*8*3 = 192). Returns the full ``[B, N, 192]`` prediction; the
-loss masks with weights.
+loss masks with weights. With ``decoder_moe_experts`` > 0 the decoder's MLPs
+are top-1-routed experts (``layers.MoeMlp``, ``configs/ssl_mae_moe.yaml``),
+whose load-balance auxiliaries ``forward(..., with_aux=True)`` returns.
 
 Pipeline C (ref: src/models/tinyvit_mae.py:35-115): per-frame full TinyViT
 (four stages) -> stage-4 feature map adaptively pooled to ``stage4_pool**2``
@@ -35,17 +37,15 @@ class TinyVideoMAE(nn.Module):
     def __init__(self, encoder: TinyViT, clip_len: int = 16, img_size: int = 112,
                  patch_size: int = 8, decoder_embed_dim: int = 384, decoder_depth: int = 4,
                  decoder_num_heads: int = 6, dtype: torch.dtype = torch.float32,
-                 attn_impl: str | None = None, decoder_moe_experts: int = 0):
+                 attn_impl: str | None = None, decoder_moe_experts: int = 0,
+                 decoder_moe_capacity_factor: float = 2.0, decoder_moe_group_size: int = 0):
         super().__init__()
-        if decoder_moe_experts:
-            raise NotImplementedError(
-                "the MoE decoder (model.decoder_moe_experts) is not ported yet: it "
-                "arrives with the opt-in extras, ROADMAP queue 1, item 15")
         if len(encoder.stages) < 3:
             raise ValueError("TinyVideoMAE taps TinyViT stage 3: build it with num_stages >= 3")
         D = decoder_embed_dim
         self.num_patches = (img_size // patch_size) ** 2
         self.decoder_embed_dim = D
+        self.decoder_moe_experts = decoder_moe_experts
         self.dtype = dtype
         self.encoder = encoder
         self.enc_to_dec = nn.Linear(encoder.embed_dims[2], D)
@@ -55,7 +55,10 @@ class TinyVideoMAE(nn.Module):
         for p in (self.temporal_pos_embed, self.spatial_pos_embed, self.mask_token):
             nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04)  # flax truncated_normal(0.02)
         self.decoder = TransformerEncoder(D, decoder_depth, decoder_num_heads, mlp_ratio=4.0,
-                                          dtype=dtype, attn_impl=attn_impl)
+                                          dtype=dtype, attn_impl=attn_impl,
+                                          moe_experts=decoder_moe_experts,
+                                          moe_capacity_factor=decoder_moe_capacity_factor,
+                                          moe_group_size=decoder_moe_group_size)
         self.decoder_norm = nn.LayerNorm(D, eps=1e-5)
         self.decoder_pred = nn.Linear(D, patch_size ** 2 * 3)
 
@@ -86,11 +89,15 @@ class TinyVideoMAE(nn.Module):
         return linear(x.to(self.dtype), self.decoder_pred, self.dtype)
 
     def forward(self, clip: torch.Tensor, mask: torch.Tensor,
-                drop: list | None = None) -> torch.Tensor:
+                drop: list | None = None, with_aux: bool = False):
         """clip ``[B, T, H, W, 3]`` float; mask ``[B, T, L]`` bool (True =
         masked); drop: the encoder's decisions (:meth:`draw_drop_path`).
-        Returns pred ``[B, T*L, patch_size**2 * 3]``."""
-        return self.predict_pixels(self.decoder(self.embed_tokens(clip, mask, drop)))
+        Returns pred ``[B, T*L, patch_size**2 * 3]``, or with ``with_aux``
+        ``(pred, auxes)``: the MoE decoder blocks' load-balance auxiliaries
+        (empty for the dense decoder)."""
+        x, auxes = self.decoder(self.embed_tokens(clip, mask, drop), with_aux=True)
+        pred = self.predict_pixels(x)
+        return (pred, auxes) if with_aux else pred
 
 
 class MAEDecoder(nn.Module):

@@ -1,19 +1,26 @@
 """Where the pretraining step's device time goes: ``torch.profiler`` over a
 few steps (2, after 3 warm-up steps) of the port's ``entry.train_ssl_mae.run`` on
-``configs/ssl_mae.yaml`` (over ``configs/base.yaml``) as it stands, on a
-synthetic 40-clip split of 64-frame 112x112 videos with random weights.
+``configs/ssl_mae.yaml`` (or another pipeline-B config: ``--config``; over
+``configs/base.yaml``) as it stands, on a synthetic 40-clip split of
+64-frame 112x112 videos with random weights.
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step \
+        --config configs/ssl_mae_moe.yaml
 
 Prints one JSON object: the host-clock ms of each profiled step, the
 device time per step summed over every kernel, the idle share (1 - device
 time / wall time of the window; one stream, so kernels do not overlap),
-K1's and K2's part, the kernels with the most device time per step, and
-the device time of every 3x3 depthwise conv (cuDNN's, forward and
-backward, by input shape, with the kernels each launched).
+K1's and K2's part, the forward MoE dispatch and combine (the device time
+under ``aten::einsum``: no other op of the step is an einsum; their
+backward runs as batched matmuls among the expert bank's and is not told
+apart), the kernels with the most device time per step, and the device time
+of every 3x3 depthwise conv (cuDNN's, forward and backward, by input shape,
+with the kernels each launched).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import tempfile
@@ -76,11 +83,11 @@ def depthwise_3x3(events, steps: int) -> list[dict]:
             for r in sorted(rows.values(), key=lambda r: -r["us"])]
 
 
-def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
+def run(warm: int = 3, steps: int = 2, top: int = 25,
+        config: str = os.path.join(REPO, "configs", "ssl_mae.yaml")) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU")
-    cfg = load_config(os.path.join(REPO, "configs", "ssl_mae.yaml"),
-                      base=os.path.join(REPO, "configs", "base.yaml"))
+    cfg = load_config(config, base=os.path.join(REPO, "configs", "base.yaml"))
     with tempfile.TemporaryDirectory() as tmp:
         splits = make_synthetic_dataset(os.path.join(tmp, "data"), num_classes=8,
                                         videos_per_class=6, num_frames=64, image_size=112,
@@ -113,8 +120,11 @@ def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
     by_name = sorted(kernels, key=_device_us, reverse=True)
     groups = {g: sum(_device_us(e) for e in kernels if any(p in e.key for p in prefixes))
               / 1e3 / steps for g, prefixes in GROUPS.items()}
+    groups["MoE dispatch+combine forward (aten::einsum)"] = sum(
+        e.device_time_total for e in prof.events() if e.name == "aten::einsum") / 1e3 / steps
     return {
         "device": torch.cuda.get_device_name(0),
+        "config": os.path.relpath(config, REPO),
         "steps": steps,
         "step_ms": [1e3 * (marks[i + 1] - marks[i]) for i in range(warm, warm + steps)],
         "device_ms_per_step": device_ms / steps,
@@ -128,7 +138,9 @@ def run(warm: int = 3, steps: int = 2, top: int = 25) -> dict:
 
 
 def main() -> None:
-    print(json.dumps(run()))
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default=os.path.join(REPO, "configs", "ssl_mae.yaml"))
+    print(json.dumps(run(config=os.path.abspath(p.parse_args().config))))
 
 
 if __name__ == "__main__":

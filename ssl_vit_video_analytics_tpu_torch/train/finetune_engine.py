@@ -18,11 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.classifier import VideoClassifier
-from ..models.layers import ConvBNAct
+from ..models.layers import ConvBNAct, MoeMlp
 from ..models.mobilevit import MobileViTBackbone
 from ..models.tiny_vit import TinyViTBackbone
 from ..ops.preprocess import normalize_clip
 from ..utils.metrics import topk_accuracy
+from ..utils.prng import step_generator
 from .state import AdamW, TrainState, apply_updates, make_optimizer
 
 VALID_MODES = ("ft_random", "linear_probe", "ft_ssl", "two_stage")
@@ -64,8 +65,9 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 @torch.no_grad()
 def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize ``model`` in place as flax initializes the JAX model:
-    lecun-normal conv/dense kernels, zero biases, unit BN/LN scales (zero BN
-    scale where a ``ConvBNAct`` asks for it: residual MBConvs), BN running
+    lecun-normal conv/dense kernels and MoE expert banks (per expert), zero
+    biases, unit BN/LN scales (zero BN scale where a ``ConvBNAct`` asks for
+    it: residual MBConvs), BN running
     mean 0 and variance 1, and ``truncated_normal(0.02)`` (within +-0.04)
     for the MAE's and pipeline A's position embeddings and mask tokens.
     Draws from ``generator``."""
@@ -77,6 +79,13 @@ def init_model(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _lecun_normal_(m.weight, m.weight.shape[1], generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
+        elif isinstance(m, MoeMlp):
+            # variance_scaling(1, fan_in, truncated_normal) with the expert
+            # axis as the batch axis: fan-in D for w1, H for w2
+            for w in (m.w1, m.w2):
+                _lecun_normal_(w, w.shape[1], generator)
+            nn.init.zeros_(m.b1)
+            nn.init.zeros_(m.b2)
         elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
@@ -179,21 +188,28 @@ def loss_and_grads(model: VideoClassifier, params: list[torch.Tensor], clip: tor
     return loss.detach(), logits.detach(), grads
 
 
-def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.float32):
-    """One supervised step: normalize -> train-mode forward -> CE -> update.
+def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.float32,
+                    augment=None, seed: int = 0):
+    """One supervised step: normalize [-> augment] -> train-mode forward ->
+    CE -> update.
 
     Returns ``step(state, batch, generator, drop=None) -> (state, metrics)``;
     ``state`` (its model is ``model``) is updated in place. ``drop``
     (``model.draw_drop_path``) replaces the stochastic-depth draws from
-    ``generator``. Metrics are device scalars: ``loss``, ``top1``, ``top5``.
-    (``training.augment``, the JAX step's on-device augmentation, is not
-    ported; the entries refuse it.)
+    ``generator``. ``augment`` is an optional ``(clip, generator=) -> clip``
+    (``ops/augment.augment_from_cfg``), applied after ``normalize_clip``
+    with a generator seeded by ``(seed + 1, state.step)``, as the JAX step
+    folds ``state.step`` into ``key(seed + 1)``; the reference has none, so
+    the default is None. Metrics are device scalars: ``loss``, ``top1``,
+    ``top5``.
     """
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
              drop: list | None = None):
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         labels = batch["label"]
+        if augment is not None:
+            clip = augment(clip, generator=step_generator(seed + 1, state.step, clip.device))
         if drop is None:
             drop = model.draw_drop_path(clip.shape[0], clip.shape[1], generator,
                                         device=clip.device)

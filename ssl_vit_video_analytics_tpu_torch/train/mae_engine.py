@@ -28,9 +28,17 @@ COLLAPSE_STD_THRESHOLD = 0.05  # ref: src/mae/engine.py:143-145
 
 def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
                         norm_pix_loss: bool = True,
-                        compute_dtype: torch.dtype = torch.float32):
+                        compute_dtype: torch.dtype = torch.float32,
+                        moe_aux_weight: float = 0.0):
     """Pipeline-B step: tube mask -> TinyVideoMAE -> masked MSE on pixels
     (ref: src/train_ssl_mae.py:66-89).
+
+    ``moe_aux_weight`` > 0 with a MoE decoder (``model.decoder_moe_experts``
+    > 0) adds that weight times the mean of the decoder blocks' Switch
+    load-balance auxiliaries to the loss, and reports the mean as the
+    ``moe_aux`` metric (1 at perfect balance). A dense decoder, or weight 0,
+    runs the plain step. (The JAX step refuses its pipeline-parallel decoder
+    with MoE; the port has no pipeline-parallel decoder yet.)
 
     Returns ``step(state, batch, generator, mask=None, drop=None) ->
     (state, metrics)``; ``state`` is updated in place. ``batch["clip"]`` is
@@ -38,8 +46,9 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
     bool and ``drop`` (``model.draw_drop_path``) replace the draws from
     ``generator``. Metrics are device scalars: ``loss``, ``pred_std``,
     ``grad_norm`` (of this call's gradient, before accumulation) and
-    ``collapse``.
+    ``collapse``, and ``moe_aux`` with the auxiliary on.
     """
+    moe_aux_on = moe_aux_weight > 0 and getattr(model, "decoder_moe_experts", 0)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
              mask: torch.Tensor | None = None, drop: list | None = None):
@@ -54,14 +63,22 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
         flat_mask = mask.reshape(B, T * L)
 
         model.train()
-        pred = model(clip, mask, drop)
-        loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss)
+        if moe_aux_on:
+            pred, auxes = model(clip, mask, drop, with_aux=True)
+            aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
+            loss = (mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss)
+                    + moe_aux_weight * aux)
+        else:
+            pred = model(clip, mask, drop)
+            loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss)
         grads = torch.autograd.grad(loss, state.params)
         apply_updates(state, grads)
         pred_std = pred.detach().float().std(unbiased=False)
         metrics = {"loss": loss.detach(), "pred_std": pred_std,
                    "grad_norm": global_norm(grads),
                    "collapse": (pred_std < COLLAPSE_STD_THRESHOLD).float()}
+        if moe_aux_on:
+            metrics["moe_aux"] = aux.detach()
         return state, metrics
 
     return step

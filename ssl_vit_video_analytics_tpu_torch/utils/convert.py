@@ -11,7 +11,9 @@ ported module, given the port module's own ``state_dict`` as a template. The lay
 - BatchNorm ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
   ``running_mean/running_var``; LayerNorm ``scale/bias`` -> ``weight/bias``
 - raw parameters (``temporal_pos_embed``, ``spatial_pos_embed``,
-  ``mask_token``, ``pos``) keep their name and shape
+  ``mask_token``, ``pos``) and a ``MoeMlp_0``'s expert bank (``w1 [E, D,
+  H]``, ``b1``, ``w2 [E, H, D]``, ``b2``) keep their name and shape; its
+  ``router`` is a Dense
 
 :func:`attacker_state_dict_from_flax` does it for the privacy layer's
 ``FeatureAttacker``, :func:`mae_state_dict_from_flax` for a pipeline-B
@@ -40,7 +42,7 @@ import torch
 _FIXED_NAMES = {
     "Conv_0": "conv", "BatchNorm_0": "bn",
     "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
-    "MultiHeadAttention_0": "attn", "Mlp_0": "mlp",
+    "MultiHeadAttention_0": "attn", "Mlp_0": "mlp", "MoeMlp_0": "mlp",
     "Dense_0": "fc1", "Dense_1": "fc2", "SELayer_0": "se",
 }
 # numbered flax names -> the port's ModuleLists
@@ -51,6 +53,8 @@ _INVERTED_RESIDUAL = ("expand", "dw", "project")  # also TinyViT's MBConv
 _MOBILEVIT_BLOCK = ("local_conv", "local_proj", "fuse_proj", "fuse_conv")
 _PATCH_EMBED = ("conv1", "conv2")
 _RAW_PARAMS = ("temporal_pos_embed", "spatial_pos_embed", "mask_token", "pos")
+# a MoeMlp's expert bank: the flax layout is the port's
+_MOE_BANK = ("w1", "b1", "w2", "b2")
 
 
 def _module_name(name: str, siblings: Mapping) -> str:
@@ -73,7 +77,7 @@ def _module_name(name: str, siblings: Mapping) -> str:
 def _convert_leaf(collection: str, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if collection == "batch_stats":
         return {"mean": "running_mean", "var": "running_var"}[name], arr
-    if name in _RAW_PARAMS:
+    if name in _RAW_PARAMS or name in _MOE_BANK:
         return name, arr
     if name == "kernel" and arr.ndim == 4:
         return "weight", arr.transpose(3, 2, 0, 1)
@@ -197,11 +201,13 @@ def encoder_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX ``TinyVideoMAE`` variables -> the port's ``state_dict``.
 
-    The widths, depths, clip length and image size are read off the flax
-    tree; head counts do not change any tensor's shape."""
+    The widths, depths, clip length, image size and the MoE decoder's
+    expert count are read off the flax tree; head counts, capacity and
+    group size do not change any tensor's shape."""
     from ..models.mae import TinyVideoMAE
 
     params = variables["params"]
+    moe = params["decoder"].get("block0", {}).get("MoeMlp_0")
     D = np.shape(params["enc_to_dec"]["kernel"])[1]
     clip_len = np.shape(params["temporal_pos_embed"])[1]
     num_patches = np.shape(params["spatial_pos_embed"])[2]
@@ -211,7 +217,8 @@ def mae_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
                          patch_size=patch, decoder_embed_dim=int(D),
                          decoder_depth=sum(1 for n in params["decoder"]
                                            if re.fullmatch(r"block\d+", n)),
-                         decoder_num_heads=1)
+                         decoder_num_heads=1,
+                         decoder_moe_experts=int(np.shape(moe["w1"])[0]) if moe else 0)
     return state_dict_from_flax(variables, model.state_dict())
 
 

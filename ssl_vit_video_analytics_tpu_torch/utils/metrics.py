@@ -1,8 +1,9 @@
 """Metrics: top-k accuracy, prediction entropy, the privacy exposure rate,
 best tracking, the epoch-summary line, and throughput accounting for
-pipeline B (the hardware-free parts of the JAX package's
-``utils/metrics.py``): analytic train-step FLOPs per clip from the model
-config. No device peak lives here: the training log prints clips/s.
+pipeline B (the JAX package's ``utils/metrics.py``): analytic train-step
+FLOPs per clip from the model config, and the model FLOPs utilization
+against one H100 SXM's dense bf16 peak, where the JAX package divides by a
+TPU v5e's.
 """
 from __future__ import annotations
 
@@ -102,6 +103,20 @@ def pipeline_b_flops_per_clip(clip_len: int, image_size: int = 112,
     dec += decoder_depth * _tblock_flops(n_tok, dd)
     dec += 2.0 * n_tok * dd * (patch_size * patch_size * 3)  # pixel head
     return 3.0 * (f * clip_len + dec)
+
+
+# NVIDIA's data sheet, H100 SXM: dense bf16 tensor-core FLOP/s at 700 W
+H100_SXM_PEAK_BF16_FLOPS = 989e12
+
+
+def pipeline_b_mfu(clips_per_sec: float, clip_len: int, image_size: int = 112,
+                   **model_kwargs) -> float:
+    """Model FLOPs utilization of the pipeline-B train step on one H100 SXM.
+    ``model_kwargs`` go to :func:`pipeline_b_flops_per_clip`, so the count
+    follows non-default widths and depths. (The MoE decoder's dispatch and
+    combine are not model FLOPs: the count is the dense model's.)"""
+    return (clips_per_sec * pipeline_b_flops_per_clip(clip_len, image_size, **model_kwargs)
+            / H100_SXM_PEAK_BF16_FLOPS)
 
 
 def pipeline_b_model_kwargs(cfg: dict) -> dict:

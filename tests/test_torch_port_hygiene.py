@@ -80,7 +80,7 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "entry/common.py", "data/device_store.py", "train/finetune_engine.py",
             "models/classifier.py", "utils/convert.py", "entry/train_ssl.py",
             "entry/train_mae.py", "entry/sanity_check_mae.py", "models/temporal.py",
-            "models/heads.py", "train/ssl_engine.py"} <= walked
+            "models/heads.py", "train/ssl_engine.py", "ops/augment.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
@@ -382,3 +382,40 @@ def test_chip_smoke_privacy_and_federated_runs_depart_from_their_yamls_as_listed
     assert {k for k in yml if k.split(".")[0] not in ("paths", "device")} - set(own) <= set(cfg)
     assert (cfg["federated.batch_size"], cfg["federated.num_clients"], cfg["federated.lr"],
             cfg["federated.weight_decay"], cfg["dataset.clip_len"]) == (16, 5, 3e-4, 0.01, 32)
+
+
+@pytest.mark.parametrize("name,short,constant", [
+    ("ssl_mae_moe", "moe", "SSL_MAE_MOE_YAML"),
+    ("ssl_mae_longclip", "longclip", "SSL_MAE_LONGCLIP_YAML")])
+def test_chip_smoke_opt_in_pipeline_b_configs_are_their_yamls(name, short, constant):
+    """chip_smoke.py's spelled-out MoE and long-clip configs must stay what
+    configs/ssl_mae_moe.yaml and configs/ssl_mae_longclip.yaml say, and its
+    runs of them depart from the yamls (over configs/base.yaml) as listed:
+    the MoE run saves every epoch and traces its steps, the long-clip run
+    not at all."""
+    chip_smoke = _chip_smoke()
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+
+    spelled = getattr(chip_smoke, constant)
+    assert chip_smoke.OPT_IN_YAML[short] is spelled
+    yml = load_yaml(str(REPO / "configs" / f"{name}.yaml"))
+    assert set(spelled) == set(yml)
+    for section, values in spelled.items():
+        assert values == {k: v for k, v in yml[section].items()
+                          if k not in ("train_split", "save_dir")}, section
+    merged = _flat(load_config(str(REPO / "configs" / f"{name}.yaml"),
+                               base=str(REPO / "configs" / "base.yaml")))
+    cfg = _flat(chip_smoke.opt_in_cfg(short, "train.txt", "out", "prof"))
+    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
+           "device.name": "cuda", "paths.split_root": ""}
+    assert {k: cfg[k] for k in own} == own
+    differ = {k: (merged.get(k), cfg[k]) for k in cfg if k not in own and cfg[k] != merged.get(k)}
+    if name == "ssl_mae_moe":
+        assert differ == {"training.save_every": (10, 1), "logging.profile_dir": (None, "prof")}
+        assert (cfg["training.batch_size"], cfg["model.decoder_moe_group_size"]) == (40, 392)
+    else:
+        assert differ == {}
+        assert (cfg["training.batch_size"], cfg["dataset.clip_len"]) == (8, 64)
+    assert {k for k in merged if k.split(".")[0] in ("model", "ssl", "training", "dataset",
+                                                     "device", "seed")} - {
+        "dataset.train_split", "training.save_dir", "device.prefetch"} <= set(cfg)
