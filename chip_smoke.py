@@ -35,7 +35,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the whole batch, held on its first and last clip against the plain
    versions of that clip (the plain logits of all 8 would take 30 GB), fp32
    and bf16 at the tolerances above; in bf16 the kernels' and SDPA's times
-   and the bound at the whole batch, the plain versions' at one clip.
+   and the bound at the whole batch, the plain versions' at one clip. The
+   same at a rank's query shard of that attention under a seq mesh of 4
+   and of 8 ranks (Lq 3136 and 1568 over the gathered Lk 12544).
 5. train step, kernel vs plain: the full-width TinyVideoMAE (configs/
    ssl_mae.yaml widths) at B=2 clips, the same weights, mask and drop-path
    decisions through the kernels and through the plain versions: in fp32,
@@ -208,11 +210,32 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    epochs, phase 6's checkpoint): the enabling line, K1 8 a step, K2 0
    while frozen and 8 after.
 
+25. The multi-process runtime over a one-rank NCCL group in this process
+   (file:// store, rank 0 of 1; the card holds one rank, and NCCL refuses
+   two ranks on one card): a data mesh, a seq mesh and a client mesh built
+   directly, so that the BatchNorm all-reduces, the gradient reduction, the
+   decoder's K/V all-gather and its reduce-scatter and the FedAvg
+   all-reduce all run through NCCL. 2 pipeline-B steps of configs/
+   ssl_mae.yaml (2 clips) over the data mesh and 2 of configs/
+   ssl_mae_longclip.yaml (one 64-frame clip, the decoder through
+   parallel/sp.sp_attention_packed) over the seq mesh, each against the
+   same steps without the runtime from the same weights and draws, fp32
+   and bf16 held by phase 10's rule (judge_step, the runtime run in the
+   kernel run's place), K1/K2 20/12 a step on both; one FedAvg round of 2
+   clients over the client mesh against the round without it (fp32, cuDNN
+   deterministic; 1e-5). A failed NCCL init fails the phase.
+26. The launcher: torchrun --standalone --nproc_per_node 1 of
+   entry.train_ssl_mae on configs/ssl_mae.yaml (phase 6's split; one epoch
+   of 2 steps of 20 clips, every step logged, a checkpoint at its end):
+   exit 0, NCCL up (the entry's process-group line), rank 0's log and
+   checkpoint.
+
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
 sanity check, privacy, the federated baseline, client steps, evaluation and
-the in-process bridge, the MoE and long-clip pretraining, and the augmented
-finetune) is driven and read just after. The line before the
+the in-process bridge, the MoE and long-clip pretraining, the augmented
+finetune, and the runtime's data steps, seq steps and FedAvg round) is
+driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -242,7 +265,8 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "probe_exp", "train_finetune", "evaluate", "train_ssl", "train_mae",
          "sanity_check_mae", "run_privacy", "fed_centralized", "fed_client_steps", "fed_eval",
          "system_federated", "train_ssl_mae_moe", "train_ssl_mae_longclip",
-         "train_finetune_augment")
+         "train_finetune_augment", "runtime_data_steps", "runtime_seq_steps",
+         "runtime_fedavg")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -309,9 +333,22 @@ OPT_IN_WARNING = {
 # takes [6, 12544, 12544] fp32 logits, 3.8 GB, and as much for each of the
 # backward's four such terms)
 OPT_IN_STEP_CLIPS = {"moe": 2, "longclip": 1}
-# the long-clip decoder's attention (B, L, H, d): held to the plain version
-# on its first and last clip, timed at the config's batch
-LONGCLIP_SHAPE = ("longclip_decoder", 8, 12544, 6, 64)
+# the long-clip decoder's attention (B, Lq, Lk, H, d), and a rank's query
+# shard of it under a seq mesh of 4 and of 8 ranks (parallel/sp.py: Lq =
+# L/n over the gathered Lk = L): each held to the plain version on its
+# first and last clip, timed at the config's batch
+LONGCLIP_SHAPES = [("longclip_decoder", 8, 12544, 12544, 6, 64),
+                   ("longclip_seq_shard4", 8, 3136, 12544, 6, 64),
+                   ("longclip_seq_shard8", 8, 1568, 12544, 6, 64)]
+# the runtime over a one-rank NCCL group (phase 25): pipeline-B steps of
+# configs/ssl_mae.yaml at 2 clips and of configs/ssl_mae_longclip.yaml at one
+RUNTIME_STEPS = 2
+RUNTIME_CLIPS = {"ssl_mae": 2, "longclip": 1}
+# phase 26: the launcher's pipeline-B run (configs/ssl_mae.yaml on phase 6's
+# 40-clip split; departures: one epoch of 2 steps of 20 clips, every step
+# logged, a checkpoint at its end)
+LAUNCH_OVERRIDES = {"training": {"epochs": 1, "batch_size": 20, "save_every": 1,
+                                 "log_interval": 1}}
 
 # configs/finetune.yaml, spelled out likewise (its split and checkpoint
 # paths are the smoke's own) ...
@@ -770,28 +807,31 @@ def phase_backward(fa, dev) -> dict:
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
 
 
-def phase_longclip_kernels(fa, dev) -> dict:
-    """K1 and K2 at the long-clip decoder's shape (LONGCLIP_SHAPE): each
-    launched on the whole batch and held on its first and last clip against
-    the plain version of that clip, in fp32 (TF32 off) and bf16 at phases
-    3-4's tolerances; in bf16 the kernels' and scaled_dot_product_attention's
-    times at the whole batch, with the bound, and the plain version's at one
-    clip (its logits of the whole batch would take 30 GB). Returns each
-    kernel's row."""
+def phase_longclip_kernels(fa, dev, shape: tuple) -> dict:
+    """K1 and K2 at a long-clip decoder shape (one of LONGCLIP_SHAPES:
+    ``(name, B, Lq, Lk, H, d)``; q the strided third of a fused projection,
+    k and v those of a fused pair): each launched on the whole batch and
+    held on its first and last clip against the plain version of that
+    clip, in fp32 (TF32 off) and bf16 at phases 3-4's tolerances; in bf16
+    the kernels' and scaled_dot_product_attention's times at the whole
+    batch, with the bound, and the plain version's at one clip (its logits
+    of the whole batch would take up to 30 GB). Returns each kernel's
+    row."""
     import torch
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name, B, L, H, d = LONGCLIP_SHAPE
+    name, B, Lq, Lk, H, d = shape
     hd = H * d
     g = torch.Generator(device=dev).manual_seed(4)
-    qkv32 = torch.randn(B, L, 3 * hd, device=dev, generator=g)
-    dout32 = torch.randn(B, L, hd, device=dev, generator=g)
+    qkv32 = torch.randn(B, Lq, 3 * hd, device=dev, generator=g)
+    kv32 = torch.randn(B, Lk, 2 * hd, device=dev, generator=g)
+    dout32 = torch.randn(B, Lq, hd, device=dev, generator=g)
     timed = {}
     for dtype, tol in ((torch.float32, TOL_FP32), (torch.bfloat16, TOL_BF16)):
-        qkv, dout = qkv32.to(dtype), dout32.to(dtype)
-        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        qkv, kv, dout = qkv32.to(dtype), kv32.to(dtype), dout32.to(dtype)
+        q, k, v = qkv[..., :hd], kv[..., :hd], kv[..., hd:]
         out, lse = fa.flash_attention_fwd(q, k, v, H)
         grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, H)
         torch.cuda.synchronize()
@@ -808,8 +848,8 @@ def phase_longclip_kernels(fa, dev) -> dict:
                 errs[key] = max(errs[key], rel_err(got[b:b + 1], ref))
             del refs, one
         ok = all(math.isfinite(e) and e <= tol for e in errs.values())
-        row = {"phase": "longclip_kernels_vs_plain", "shape": name, "B": B, "Lq": L, "Lk": L,
-               "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
+        row = {"phase": "longclip_kernels_vs_plain", "shape": name, "B": B, "Lq": Lq,
+               "Lk": Lk, "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
                "checked_clips": [0, B - 1], "rel_err": errs, "tol": tol, "ok": ok}
         if dtype == torch.bfloat16:
             q1, k1, v1, out1, lse1, dout1 = (t[:1] for t in (q, k, v, out, lse, dout))
@@ -831,7 +871,7 @@ def phase_longclip_kernels(fa, dev) -> dict:
                         "library_ms": time_ms(lambda: torch.autograd.grad(
                             lib_out, leaves, dout_h, retain_graph=True))}}
             for key, backward in (("fwd", False), ("bwd", True)):
-                bound = attention_bound(B, L, L, H, d, dtype, backward=backward)
+                bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=backward)
                 times[key].update(bound_ms=bound[0], bound_by=bound[1])
             row["sdpa_backend"] = sdpa_backend(*views)
             row.update(times)
@@ -2510,6 +2550,231 @@ def phase_finetune_augment(dev, tmp: str, ssl_ckpt: str) -> dict:
     return rec.totals
 
 
+class GradRecorder:
+    """An optimizer wrapper that keeps a copy of the gradients each update
+    is given (after the mesh's reduction), then passes them on."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seen = []
+
+    def update(self, grads):
+        self.seen.append([g.detach().clone() for g in grads])
+        return self.inner.update(grads)
+
+
+def runtime_steps(dev, name: str, mesh) -> list[dict]:
+    """RUNTIME_STEPS pipeline-B steps of ``name`` ("ssl_mae" or
+    "longclip", RUNTIME_CLIPS clips) through ``make_pixel_mae_step`` with
+    the mesh's runtime (its BatchNorm all-reduces, the gradient reduction
+    and, under seq, the decoder's sp attention with its K/V gather) and
+    without it, from the same weights, clips, masks and drop-path
+    decisions, fp32 (TF32 off) and bf16; each step's loss and gradients
+    held by :func:`judge_step` (the runtime run in the kernel run's place),
+    K1/K2 per step 20/12 on both. Returns each judged step and the runtime
+    bf16 run's launches."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
+    from ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae import build_model
+    from ssl_vit_video_analytics_tpu_torch.ops import attention
+    from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
+    from ssl_vit_video_analytics_tpu_torch.train.mae_engine import (
+        make_pixel_mae_step, wrap_accum_and_skip)
+    from ssl_vit_video_analytics_tpu_torch.train.state import (
+        create_train_state, make_optimizer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ssl_mae_cfg("", "") if name == "ssl_mae" else opt_in_cfg("longclip", "", "", "")
+    seq = mesh.axis == "seq"
+    B, T, S = RUNTIME_CLIPS[name], cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    L = (S // 8) ** 2
+    g = torch.Generator(device=dev).manual_seed(9)
+    clips = [torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev,
+                           generator=g) for _ in range(RUNTIME_STEPS)]
+    masks = [get_tube_mask(g, B, T, L, cfg["ssl"]["mask_ratio"]) for _ in clips]
+    drops, outs, ref32, launched = None, [], [{} for _ in clips], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for path, m in (("runtime", mesh), ("direct", None)):
+            model = build_model(cfg, dtype, decoder_attn_impl="sp" if m is not None and seq
+                                else None)
+            init_model(model, torch.Generator().manual_seed(0))
+            model.to(dev)
+            if drops is None:
+                drops = [model.draw_drop_path(B, T, g) for _ in clips]
+            names = [n for n, _ in model.named_parameters()]
+            # learning rate 0: both runs start every step from the same
+            # weights, so the runtime's arithmetic is compared, not AdamW's
+            # sign of rounding noise on gradients that are zero in exact
+            # arithmetic (a BatchNorm bias ahead of another BatchNorm)
+            tx = GradRecorder(wrap_accum_and_skip(make_optimizer(model.parameters(), 0.0), 1))
+            state = create_train_state(model, tx)
+            step = make_pixel_mae_step(model, cfg["ssl"]["mask_ratio"], compute_dtype=dtype,
+                                       mesh=m)
+            attention.set_sp_group(m.group if m is not None and seq else None)
+            runs[path] = []
+            reset_counts()
+            try:
+                for clip, mask, drop in zip(clips, masks, drops):
+                    before = read_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, {"clip": clip}, g, mask=mask, drop=drop)
+                    torch.cuda.synchronize()
+                    after = read_counts()
+                    runs[path].append({
+                        "loss": float(metrics["loss"]), "grads": tx.seen[-1],
+                        "ms": 1e3 * (time.perf_counter() - t0),
+                        "k1_k2": tuple(after[k] - before[k] for k in
+                                       ("flash_attention_fwd", "flash_attention_bwd"))})
+            finally:
+                attention.set_sp_group(None)
+            if path == "runtime" and dtype == torch.bfloat16:
+                launched = read_counts()
+            del model, state, tx
+        for i, (rt, direct) in enumerate(zip(runs["runtime"], runs["direct"])):
+            out = {"phase": f"runtime_{mesh.axis}_step_vs_direct", "config": name, "B": B,
+                   "T": T, "step": i + 1, "mesh": repr(mesh),
+                   "runs": "kernel = through the one-rank runtime, plain = without it"}
+            if rt["k1_k2"] != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP) or \
+                    direct["k1_k2"] != rt["k1_k2"]:
+                raise AssertionError(f"{out}: K1/K2 {rt['k1_k2']} with the runtime, "
+                                     f"{direct['k1_k2']} without")
+            outs.append(judge_step(out, dtype, {"kernel": rt, "plain": direct}, names,
+                                   ref32[i]))
+    return outs, launched
+
+
+def runtime_fedavg(dev, mesh) -> tuple[dict, dict]:
+    """One FedAvg round of 2 clients (configs/federated.yaml's MobileViT-S,
+    one step of 2 clips x 32 frames each, fp32, cuDNN deterministic) with a
+    client mesh of one rank (the padding, the block, the all-reduced
+    aggregate, the gathered losses) and without one: the losses and every
+    aggregated tensor to 1e-5 of its largest magnitude, integers equal."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.federated import core
+    from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
+
+    cfg = federated_cfg("", "", "", "")
+    fed, d = cfg["federated"], cfg["dataset"]
+    B, T, S = 2, d["clip_len"], d["image_size"]
+    rng = np.random.default_rng(10)
+    batches = {"clip": rng.integers(0, 256, (2, 1, B, T, S, S, 3), dtype=np.uint8),
+               "label": rng.integers(0, d["num_classes"], (2, 1, B)).astype(np.int32),
+               "valid": np.ones((2, 1, B), bool)}
+    sizes = np.array([3.0, 1.0], np.float32)
+    model = eng.build_model(d["num_classes"], cfg["model"]["embed_dim"])
+    eng.init_model(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    update = core.make_parallel_client_update(model, fed["lr"], fed["weight_decay"],
+                                              normalize_clip)
+    torch.backends.cudnn.deterministic = True
+    results, launched = {}, {}
+    try:
+        for path, m in (("runtime", mesh), ("direct", None)):
+            reset_counts()
+            results[path] = core.run_fedavg_round(update, start, batches, sizes, m)
+            torch.cuda.synchronize()
+            if m is not None:
+                launched = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (agg, losses), (agg0, losses0) = results["runtime"], results["direct"]
+    errs = {k: rel_err(agg[k], agg0[k].float()) for k in agg0 if agg0[k].is_floating_point()}
+    ints_equal = all(torch.equal(agg[k], agg0[k]) for k in agg0
+                     if not agg0[k].is_floating_point())
+    loss_err = rel_err(losses, losses0)
+    worst = max(errs, key=errs.get)
+    out = {"phase": "runtime_client_fedavg_vs_direct", "mesh": repr(mesh), "clients": 2,
+           "losses": losses.tolist(), "loss_rel_err": loss_err, "worst_tensor": worst,
+           "worst_rel_err": errs[worst], "ints_equal": ints_equal, "tol": 1e-5,
+           "k1_k2": [launched["flash_attention_fwd"], launched["flash_attention_bwd"]]}
+    emit(out)
+    if not (loss_err <= 1e-5 and errs[worst] <= 1e-5 and ints_equal
+            and out["k1_k2"] == [2 * MVIT_ATTN, 2 * MVIT_ATTN]):
+        raise AssertionError(f"FedAvg round over the client mesh: {out}")
+    return out, launched
+
+
+def phase_runtime(dev, tmp: str) -> dict:
+    """Phase 25: the multi-process runtime over a one-rank NCCL group in
+    this process (a file:// store): the data, seq and client meshes built
+    directly, so that every collective of the port (the BatchNorm
+    all-reduces, the gradient reduction, the K/V gather and its
+    reduce-scatter, the FedAvg all-reduce) runs through NCCL on the card.
+    Pipeline-B steps of configs/ssl_mae.yaml over the data mesh and of
+    configs/ssl_mae_longclip.yaml over the seq mesh (through
+    parallel/sp.sp_attention_packed), and a FedAvg round over the client
+    mesh, each held to the same work without the runtime. A failed NCCL
+    init fails the phase; nothing falls back to gloo or to the CPU."""
+    import torch.distributed as dist
+
+    from ssl_vit_video_analytics_tpu_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "nccl_store"),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"runtime phase on backend {dist.get_backend()}")
+        paths = {}
+        _, paths["runtime_data_steps"] = runtime_steps(dev, "ssl_mae",
+                                                       pmesh.make_mesh({"data": 1}))
+        _, paths["runtime_seq_steps"] = runtime_steps(dev, "longclip",
+                                                      pmesh.make_mesh({"seq": 1}))
+        _, paths["runtime_fedavg"] = runtime_fedavg(dev, pmesh.make_mesh({"client": 1}))
+    finally:
+        dist.destroy_process_group()
+    return paths
+
+
+def phase_launch(tmp: str, split: str) -> dict:
+    """Phase 26: ``torchrun --standalone --nproc_per_node 1`` of the
+    pipeline-B entry (configs/ssl_mae.yaml with LAUNCH_OVERRIDES, on
+    phase 6's split) with --device cuda: it must exit 0 with NCCL up (the
+    entry's process-group line, logged after a barrier), rank 0's log with
+    its 2 steps and its checkpoint. The config goes as JSON, which the YAML
+    loader reads."""
+    out_dir = os.path.join(tmp, "launch")
+    cfg = merged(ssl_mae_cfg(split, os.path.join(out_dir, "ckpt")), LAUNCH_OVERRIDES,
+                 {"paths": {"split_root": "", "log_dir": os.path.join(out_dir, "logs")}})
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_path = os.path.join(out_dir, "config.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae", "--config", cfg_path,
+         "--base", "", "--device", "cuda"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    log_path = os.path.join(out_dir, "logs", "train_ssl_mae.log")
+    lines = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            lines = [ln.split("] ", 1)[-1].rstrip("\n") for ln in f]
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "ckpt"))) if os.path.isdir(
+        os.path.join(out_dir, "ckpt")) else []
+    group = [ln for ln in lines if ln.startswith("[INFO] process group:")]
+    steps = [ln for ln in lines if ln.startswith("[INFO] ep=1 step=")]
+    out = {"phase": "launch_torchrun", "returncode": proc.returncode, "seconds": seconds,
+           "process_group": group, "steps_logged": steps, "checkpoints": ckpts,
+           "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""}
+    emit(out)
+    if not (proc.returncode == 0 and group == ["[INFO] process group: nccl, rank 0 of 1 on "
+                                                "cuda:0"]
+            and len(steps) == 2 and "ckpt_epoch_1.pt" in ckpts):
+        raise AssertionError(f"torchrun launch: {out}")
+    return out
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -2550,7 +2815,7 @@ def main() -> None:
         return
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
-    longclip = phase_longclip_kernels(fa, dev)
+    longclip = {shape[0]: phase_longclip_kernels(fa, dev, shape) for shape in LONGCLIP_SHAPES}
     phase_train_step(fa, dev)
     with tempfile.TemporaryDirectory() as tmp:  # phase 6's checkpoint serves phase 11
         paths = {}
@@ -2576,6 +2841,8 @@ def main() -> None:
             phase_opt_in_step(dev, regime)
             paths[f"train_ssl_mae_{regime}"] = phase_opt_in_train(dev, tmp, regime, ssl_split)
         paths["train_finetune_augment"] = phase_finetune_augment(dev, tmp, ssl_ckpt)
+        paths.update(phase_runtime(dev, tmp))
+        phase_launch(tmp, ssl_split)
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}
@@ -2589,12 +2856,13 @@ def main() -> None:
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_TPU, "launches": paths["train_ssl_mae"]["flash_attention_fwd"],
          "launches_by_path": by_path("flash_attention_fwd"), **k1, "ms_is": ms_is,
-         "longclip_decoder": longclip["fwd"]},
+         **{name: t["fwd"] for name, t in longclip.items()}},
         {"name": "flash_attention_bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_TPU, "launches": paths["train_ssl_mae"]["flash_attention_bwd"],
          "launches_is": "calls, each launching the dK/dV and the dQ kernel",
          "launches_by_path": by_path("flash_attention_bwd"), **k2,
-         "ms_is": ms_is + " (backward, autograd.grad)", "longclip_decoder": longclip["bwd"]},
+         "ms_is": ms_is + " (backward, autograd.grad)",
+         **{name: t["bwd"] for name, t in longclip.items()}},
         {"name": "dw3x3", "route": "cuda", "source": P1_SOURCE, "replaces": P1_TPU,
          "launches": paths["probe_dw"]["dw3x3"], "launches_by_path": by_path("dw3x3"),
          **p1, "ms_is": "bf16 [256, 56*56, 384], one call; library: cuDNN grouped "

@@ -11,6 +11,11 @@ Batch composition (epoch order, tail padding, ``valid`` masks) reuses
 ``loader.iter_batch_indices`` and ``loader._epoch_order``, so batches are
 bit-identical to the host path: ``get_clip`` is deterministic per (seed,
 index), so materializing the split up front is exact.
+
+Under a ``data`` or ``seq`` mesh every rank holds the whole split, as the
+JAX package replicates it over the mesh, and walks the same epoch order;
+``epoch_batches(..., mesh=)`` gathers only this rank's rows, or its frames
+of every clip, on its own card.
 """
 from __future__ import annotations
 
@@ -33,6 +38,21 @@ def _labels(dataset: ClipDataset, device: torch.device) -> torch.Tensor | None:
         return None
     return torch.tensor([dataset.label(i) for i in range(len(dataset))],
                         dtype=torch.int32, device=device)
+
+
+def _part(mesh, batch_size: int, clip_len: int) -> tuple[slice, slice]:
+    """The rows and frames of a global batch that this rank gathers."""
+    if mesh is None:
+        return slice(None), slice(None)
+    return mesh.batch_part(batch_size, clip_len)
+
+
+def _frames(clips: torch.Tensor, frames: slice) -> torch.Tensor:
+    """``clips [B, T, ...]`` cut to ``frames`` (a copy, contiguous), or as
+    they are when whole."""
+    if frames == slice(None):
+        return clips
+    return clips[:, frames].contiguous()
 
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -62,13 +82,14 @@ class DeviceClipStore:
         return self.clips.shape[0]
 
     def epoch_batches(self, batch_size: int, *, shuffle: bool, seed: int,
-                      epoch: int, drop_last: bool = True):
+                      epoch: int, drop_last: bool = True, mesh=None):
+        rows, frames = _part(mesh, batch_size, self.clip_len)
         for idxs_full, valid in iter_batch_indices(
                 len(self), batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
                 drop_last=drop_last):
-            idx = _index(idxs_full, self.device)
-            batch = {"clip": self.clips.index_select(0, idx),
-                     "valid": torch.from_numpy(valid).to(self.device)}
+            idx = _index(idxs_full[rows], self.device)
+            batch = {"clip": _frames(self.clips.index_select(0, idx), frames),
+                     "valid": torch.from_numpy(valid[rows]).to(self.device)}
             if self.labels is not None:
                 batch["label"] = self.labels.index_select(0, idx)
             yield batch
@@ -129,7 +150,8 @@ class ChunkedDeviceClipStore:
         return shard, done
 
     def epoch_batches(self, batch_size: int, *, shuffle: bool, seed: int,
-                      epoch: int, drop_last: bool = True):
+                      epoch: int, drop_last: bool = True, mesh=None):
+        rows, frames = _part(mesh, batch_size, self.clip_len)
         if batch_size != self.batch_size:
             raise ValueError(f"ChunkedDeviceClipStore is sized for batch_size="
                              f"{self.batch_size}, not {batch_size}")
@@ -164,7 +186,9 @@ class ChunkedDeviceClipStore:
                         valid[:n_real] = True
                     else:
                         valid = np.ones(batch_size, bool)
-                    batch = {"clip": arr.index_select(0, _index(local, self.device)),
+                    local, sel, valid = local[rows], sel[rows], valid[rows]
+                    batch = {"clip": _frames(arr.index_select(0, _index(local, self.device)),
+                                             frames),
                              "valid": torch.from_numpy(valid).to(self.device)}
                     if self.labels is not None:
                         batch["label"] = self.labels.index_select(0, _index(sel, self.device))

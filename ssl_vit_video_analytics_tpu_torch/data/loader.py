@@ -122,11 +122,15 @@ def iterate_batches(
     seed: int = 42,
     epoch: int = 0,
     drop_last: bool = True,
+    mesh=None,
 ) -> Iterator[dict]:
     """Yield {"clip": uint8 [B,T,H,W,3], "label": int32 [B]} numpy batches.
 
     drop_last=True keeps every device batch the same shape; the ragged tail is instead padded when drop_last=False, with
-    a boolean "valid" mask so eval metrics stay exact.
+    a boolean "valid" mask so eval metrics stay exact. With a ``mesh``
+    (``parallel/mesh.Mesh``) each batch is this rank's part of the global
+    one: its rows (``data``; only those clips are read) or its frames of
+    every clip (``seq``).
     """
     n = len(dataset)
     if drop_last and n < batch_size:
@@ -138,7 +142,12 @@ def iterate_batches(
     for idxs_full, valid in iter_batch_indices(n, batch_size, shuffle=shuffle,
                                                seed=seed, epoch=epoch,
                                                drop_last=drop_last):
+        if mesh is not None:
+            rows, frames = mesh.batch_part(batch_size, dataset.clip_len)
+            idxs_full, valid = idxs_full[rows], valid[rows]
         clips = np.stack([dataset.get_clip(int(i)) for i in idxs_full])
+        if mesh is not None:
+            clips = np.ascontiguousarray(clips[:, frames])
         batch = {"clip": clips, "valid": valid}
         if dataset.mode != "ssl":
             batch["label"] = np.array([dataset.label(int(i)) for i in idxs_full], dtype=np.int32)

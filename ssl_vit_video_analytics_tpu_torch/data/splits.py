@@ -46,6 +46,7 @@ def make_class_shard_splits(
     min_samples_per_client: int = 200,
     out_prefix: str = "fed",
     out_dir: str = "data/splits",
+    write: bool = True,
 ) -> tuple[list[str], list[dict]]:
     """Non-IID class-shard client splits.
 
@@ -53,7 +54,9 @@ def make_class_shard_splits(
     shards of a seeded class shuffle (wrap-around), then a bounded greedy
     rebalance moves samples from the largest client to the smallest until every
     client has ``min_samples_per_client``. Writes
-    ``{out_dir}/{out_prefix}_client_{i}_train.txt`` and returns (paths, stats).
+    ``{out_dir}/{out_prefix}_client_{i}_train.txt`` (unless ``write`` is
+    False: the other ranks of a launch, which rank 0 writes for) and returns
+    (paths, stats).
     """
     rng = random.Random(seed)
 
@@ -89,7 +92,8 @@ def make_class_shard_splits(
     out_paths, out_stats = [], []
     for i in range(num_clients):
         out_path = os.path.join(out_dir, f"{out_prefix}_client_{i}_train.txt")
-        write_split(client_items[i], out_path)
+        if write:
+            write_split(client_items[i], out_path)
         out_paths.append(out_path)
         cls_set = sorted({y for _, y in client_items[i]})
         out_stats.append({

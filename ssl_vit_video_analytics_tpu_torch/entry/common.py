@@ -1,16 +1,21 @@
 """Shared runtime plumbing for the CLI entry points (the JAX package's
-``entry/common.py`` on one device): config and device resolution, the
-multi-device knobs resolved as JAX resolves them on one device, the
-device-resident split and epoch batches."""
+``entry/common.py``): config and device resolution, the launcher's process
+group and the multi-device knobs resolved as JAX resolves them over its
+devices (``data`` and ``seq`` meshes; model sharding is ROADMAP item 15c),
+the device-resident split and each rank's part of the epoch's batches."""
 from __future__ import annotations
 
 import argparse
 import os
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..data.device_store import ChunkedDeviceClipStore, DeviceClipStore
 from ..data.loader import ClipDataset, iterate_batches, prefetch_to_device, to_device
+from ..ops import attention
+from ..parallel import mesh as pmesh
 from ..utils.config import load_config
 from ..utils.io import Logger, ensure_dir
 
@@ -31,15 +36,48 @@ def load_merged_config(args, default_config: str) -> dict:
 
 def device_from(cfg: dict, device: str | torch.device | None = None) -> torch.device:
     """``device`` if given, else ``device.name`` of the config, else cuda;
-    raises for cuda when no card is there."""
+    under a launcher a bare ``cuda`` is this process's card,
+    ``cuda:LOCAL_RANK``. Raises for cuda when no card is there."""
     device = torch.device(device or cfg.get("device", {}).get("name", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda.is_available() is "
                            "false; pass --device cpu to run on the CPU")
+    if device.type == "cuda" and device.index is None and pmesh.launched():
+        device = torch.device("cuda", pmesh.local_rank())
     return device
 
 
-ONE_DEVICE = "the port runs on one device until ROADMAP item 15b"
+def init_distributed(cfg: dict, device: str | torch.device | None = None,
+                     log=print) -> torch.device:
+    """The device of :func:`device_from`, with the launcher's process group
+    joined on it (NCCL on a card, gloo on the CPU; one log line) when
+    ``torchrun`` started this process; without a launcher, the device
+    alone."""
+    device = device_from(cfg, device)
+    if pmesh.init_distributed(device):
+        log(f"[INFO] process group: {dist.get_backend()}, rank {pmesh.rank()} of "
+            f"{pmesh.world_size()} on {device}")
+    return device
+
+
+ONE_DEVICE = ("one process runs on one device; launch one process a card with "
+              "torchrun --nproc_per_node N for several")
+NOT_PORTED = "model sharding is ROADMAP item 15c of the PyTorch port"
+
+
+class ParallelRuntime(NamedTuple):
+    """What :func:`setup_parallelism` resolved: the ``data`` or ``seq``
+    mesh (None on one device) and whether the decoder's attention is
+    sequence parallel (``sp_on``, also set when it falls back on one
+    device, as JAX's)."""
+
+    mesh: pmesh.Mesh | None
+    sp_on: bool = False
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank takes part (every rank on one device)."""
+        return self.mesh is None or self.mesh.member
 
 
 def _data_parallel_request(cfg: dict) -> int:
@@ -49,23 +87,60 @@ def _data_parallel_request(cfg: dict) -> int:
     return 1 if isinstance(want, (bool, str)) or want is None else int(want)
 
 
-def setup_data_parallel(cfg: dict, log=print) -> None:
-    """The JAX entries' ``setup_data_parallel`` on one device: nothing to
-    set up. JAX is silent there; an explicit ``device.data_parallel: N`` > 1
-    logs one warning."""
-    n = _data_parallel_request(cfg)
-    if n > 1:
-        log(f"[WARN] device.data_parallel={n} requested; {ONE_DEVICE}; ignoring")
+def _warn_one_device(cfg: dict, tp: int, log) -> None:
+    """One device: the knobs on which JAX is silent there, in one line."""
+    silent = {"device.model_parallel": tp, "device.data_parallel": _data_parallel_request(cfg)}
+    asked = ", ".join(f"{knob}={n}" for knob, n in silent.items() if n > 1)
+    if asked:
+        log(f"[WARN] {asked} requested; {ONE_DEVICE}; ignoring")
 
 
-def setup_parallelism(cfg: dict, log=print, allow_pp: bool = False) -> None:
-    """The JAX entries' ``setup_parallelism`` (pipelines B and C) resolved
-    on one device, with JAX's warnings where it logs one:
-    ``device.expert_parallel`` and ``device.pipeline_parallel`` are ignored
-    (``allow_pp``: the pipeline-B entry, which alone takes them),
-    ``model.sequence_parallel`` falls back to the single-device attention
-    kernel. Where JAX is silent on one device (``device.model_parallel``,
-    ``device.data_parallel``), one warning names the knobs this ignores."""
+def resolve_data_parallel(cfg: dict, batch_size: int, world: int, log=print) -> int:
+    """The ``data`` axis size that the JAX entries' ``setup_data_parallel``
+    picks over ``world`` devices (1: off), with its log lines.
+
+    ``device.data_parallel``: auto (default; on with more than one rank) |
+    false | N (N ranks). As in JAX, ``want in (False, 0, 1)`` turns it off,
+    which catches ``true`` too (``True == 1``). n shrinks until it divides
+    ``batch_size``. One device logs one warning for an explicit N > 1 where
+    JAX is silent."""
+    want = cfg.get("device", {}).get("data_parallel", "auto")
+    if world == 1:
+        n = _data_parallel_request(cfg)
+        if n > 1:
+            log(f"[WARN] device.data_parallel={n} requested; {ONE_DEVICE}; ignoring")
+        return 1
+    if want in (False, 0, 1):
+        return 1
+    n = world if want == "auto" else min(int(want), world)
+    while n > 1 and batch_size % n != 0:
+        n -= 1
+    if n <= 1:
+        log(f"[WARN] batch_size={batch_size} not divisible across {world} devices; "
+            "running single-device")
+        return 1
+    log(f"[INFO] data-parallel over {n} devices: {pmesh.mesh_repr('data', n)}")
+    return n
+
+
+def resolve_parallelism(cfg: dict, batch_size: int, world: int, log=print,
+                        allow_pp: bool = False) -> tuple[str | None, int, bool]:
+    """``(axis, n, sp_on)``: the mesh that the JAX entries'
+    ``setup_parallelism`` (pipelines B and C) builds over ``world`` devices
+    (axis None: one device), with its log lines:
+
+    - ``device.expert_parallel`` and ``device.pipeline_parallel`` (the
+      pipeline-B entry alone, ``allow_pp``) and ``device.model_parallel``:
+      where JAX would build a tensor-, pipeline- or expert-parallel mesh
+      (more than one device) the port raises ``NotImplementedError`` (ROADMAP
+      item 15c); where JAX warns and ignores, it warns and ignores.
+    - ``model.sequence_parallel`` (or ``device.sequence_parallel``): a
+      ``seq`` axis over every rank; on one device the single-device kernel
+      with JAX's warning (``sp_on`` stays set, as JAX's).
+    - else :func:`resolve_data_parallel`.
+
+    On one device, where JAX is silent on ``device.model_parallel`` and an
+    explicit ``device.data_parallel: N``, one warning names them."""
     dev = cfg.get("device", {})
     sp_on = bool(cfg.get("model", {}).get("sequence_parallel", False)
                  or dev.get("sequence_parallel", False))
@@ -81,8 +156,12 @@ def setup_parallelism(cfg: dict, log=print, allow_pp: bool = False) -> None:
                 "model-sharding knobs; ignoring expert_parallel")
         elif int(cfg.get("model", {}).get("decoder_moe_experts", 0) or 0) <= 0:
             log("[WARN] expert_parallel needs model.decoder_moe_experts > 0; ignoring")
-        else:
+        elif world < 2:
             log("[WARN] expert_parallel requested on 1 device; ignoring")
+        else:
+            raise NotImplementedError(
+                f"device.expert_parallel={ep} over {world} ranks: {NOT_PORTED}; "
+                "--set device.expert_parallel=1 runs the MoE decoder data-parallel")
     if pp > 1:
         if not allow_pp:
             log("[WARN] device.pipeline_parallel is only supported by the "
@@ -90,15 +169,60 @@ def setup_parallelism(cfg: dict, log=print, allow_pp: bool = False) -> None:
         elif sp_on or tp > 1:
             log("[WARN] pipeline_parallel is exclusive with sequence_parallel"
                 "/model_parallel; ignoring pipeline_parallel")
-        else:
+        elif world < 2:
             log("[WARN] pipeline_parallel requested on 1 device; ignoring")
+        else:
+            raise NotImplementedError(
+                f"device.pipeline_parallel={pp} over {world} ranks: {NOT_PORTED}; "
+                "--set device.pipeline_parallel=1 runs it data-parallel")
     if sp_on:
-        log("[WARN] sequence_parallel requested on 1 device; attention "
-            "falls back to the single-device kernel")
-    silent = {"device.model_parallel": tp, "device.data_parallel": _data_parallel_request(cfg)}
-    asked = ", ".join(f"{knob}={n}" for knob, n in silent.items() if n > 1)
-    if asked:
-        log(f"[WARN] {asked} requested; {ONE_DEVICE}; ignoring")
+        if world == 1:
+            log("[WARN] sequence_parallel requested on 1 device; attention "
+                "falls back to the single-device kernel")
+            _warn_one_device(cfg, tp, log)
+            return None, 1, True
+        log(f"[INFO] sequence-parallel over {world} devices: {pmesh.mesh_repr('seq', world)}")
+        return "seq", world, True
+    if tp > 1 and world > 1:
+        raise NotImplementedError(
+            f"device.model_parallel={tp} over {world} ranks: {NOT_PORTED}; "
+            "--set device.model_parallel=1 runs it data-parallel")
+    if world == 1:
+        _warn_one_device(cfg, tp, log)
+        return None, 1, False
+    n = resolve_data_parallel(cfg, batch_size, world, log)
+    return ("data" if n > 1 else None), n, False
+
+
+def _mesh(axis: str, n: int) -> pmesh.Mesh:
+    """The mesh of the first ``n`` ranks; a rank outside it prints one
+    line (rank 0 is in every mesh, and the other ranks' loggers are
+    silent)."""
+    mesh = pmesh.make_mesh({axis: n})
+    if not mesh.member:
+        print(f"[INFO] rank {pmesh.rank()} is outside the {axis} mesh of {n} ranks; "
+              "it takes no part", flush=True)
+    return mesh
+
+
+def setup_data_parallel(cfg: dict, batch_size: int, log=print) -> pmesh.Mesh | None:
+    """The ``data`` mesh over the launcher's ranks that
+    :func:`resolve_data_parallel` picks (pipeline A, the finetune), or None
+    on one device."""
+    n = resolve_data_parallel(cfg, batch_size, pmesh.world_size(), log)
+    return _mesh("data", n) if n > 1 else None
+
+
+def setup_parallelism(cfg: dict, batch_size: int, log=print,
+                      allow_pp: bool = False) -> ParallelRuntime:
+    """The runtime of :func:`resolve_parallelism` over the launcher's
+    ranks: its mesh, and under ``seq`` the group registered for the
+    decoder's ``"sp"`` attention (``ops/attention.set_sp_group``)."""
+    axis, n, sp_on = resolve_parallelism(cfg, batch_size, pmesh.world_size(), log, allow_pp)
+    mesh = _mesh(axis, n) if axis is not None else None
+    if sp_on:
+        attention.set_sp_group(None if mesh is None or not mesh.member else mesh.group)
+    return ParallelRuntime(mesh, sp_on)
 
 
 def compute_dtype_from(cfg: dict, device: torch.device) -> torch.dtype:
@@ -131,14 +255,16 @@ def split_path(cfg: dict, name: str) -> str:
 
 
 def epoch_batches(dataset, batch_size: int, shuffle: bool, seed: int, epoch: int,
-                  device: torch.device, drop_last: bool = True):
+                  device: torch.device, drop_last: bool = True, mesh=None):
     """One epoch's batches on ``device``: gathers from a device-resident
-    store, or the host path with its background prefetch."""
+    store, or the host path with its background prefetch. With a ``data``
+    or ``seq`` ``mesh`` each is this rank's rows or frames of the global
+    batch of ``batch_size`` clips."""
     if isinstance(dataset, (DeviceClipStore, ChunkedDeviceClipStore)):
         return dataset.epoch_batches(batch_size, shuffle=shuffle, seed=seed,
-                                     epoch=epoch, drop_last=drop_last)
+                                     epoch=epoch, drop_last=drop_last, mesh=mesh)
     it = iterate_batches(dataset, batch_size, shuffle=shuffle, seed=seed,
-                         epoch=epoch, drop_last=drop_last)
+                         epoch=epoch, drop_last=drop_last, mesh=mesh)
     return prefetch_to_device(it, device)
 
 
@@ -198,6 +324,10 @@ def maybe_device_resident(cfg: dict, dataset, device: torch.device, log=print,
 
 
 def make_logger(cfg: dict, name: str) -> Logger:
+    """The entry's log file and stdout on rank 0 (or without a launcher);
+    a silent logger on the other ranks: rank 0 alone writes logs."""
+    if not pmesh.is_main():
+        return Logger(log_path=None, echo=False)
     log_dir = cfg.get("paths", {}).get("log_dir", "logs")
     ensure_dir(log_dir)
     return Logger(log_path=os.path.join(log_dir, f"{name}.log"))

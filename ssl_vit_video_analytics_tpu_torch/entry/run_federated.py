@@ -6,12 +6,18 @@ splits (+ stats CSV) -> FedAvg rounds -> fed_summary.csv +
 system_privacy_summary.csv (raw-upload counterfactual vs FL comm).
 
 On one card the selected clients train one after another from the global
-state (``federated/core.py``), as the JAX package does without a mesh; the
-multi-GPU client axis is ROADMAP queue 1, item 15b. CSV headers and float
-formats match the reference (ref: :325-363).
+state (``federated/core.py``), as the JAX package does without a mesh.
+Under ``torchrun`` the clients ride a ``client`` mesh over every rank, as
+the JAX entry's mesh over all its devices: each rank runs its block of the
+round's clients and the aggregate is an all-reduce. The centralized
+baseline and the validation run whole on every rank (JAX runs them on one
+device); rank 0 alone writes the split files and the CSVs. CSV headers and
+float formats match the reference (ref: :325-363).
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.run_federated \\
         --config configs/federated.yaml --device cuda
+    torchrun --standalone --nproc_per_node 8 \\
+        -m ssl_vit_video_analytics_tpu_torch.entry.run_federated --config configs/federated.yaml
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from ..federated import (
     make_parallel_client_update, run_fedavg, estimate_raw_upload_mb,
 )
 from ..ops.preprocess import normalize_clip
+from ..parallel import mesh as pmesh
 from ..train import finetune_engine as eng
 from ..train.state import create_train_state
 from ..utils.checkpoint import checkpoint_path, read_checkpoint
@@ -135,21 +142,27 @@ def _centralized_baseline(cfg: dict, train_split: str, val_ds, out_dir: str,
         rows.append({"epoch": ep, "train_loss": round(avg_loss, 6),
                      "val_top1": round(acc["top1"], 6), "val_top5": round(acc["top5"], 6)})
     out_csv = os.path.join(out_dir, "centralized_summary.csv")
-    write_csv(out_csv, rows, fieldnames=list(CENTRALIZED_FIELDS))
-    log(f"[INFO] Saved centralized summary: {out_csv}")
+    if pmesh.is_main():
+        write_csv(out_csv, rows, fieldnames=list(CENTRALIZED_FIELDS))
+        log(f"[INFO] Saved centralized summary: {out_csv}")
     return rows
 
 
 def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
     """Baseline, splits, FedAvg rounds and the CSVs. ``device``: argument,
-    else ``device.name``, else cuda. Returns ``{"records", "fed_csv"}``."""
-    device = common.device_from(cfg, device)
+    else ``device.name``, else cuda (under a launcher, this rank's card).
+    Returns ``{"records", "fed_csv"}``."""
+    device = common.init_distributed(cfg, device, log)
+    W = pmesh.world_size()
+    mesh = pmesh.make_mesh({"client": W}) if W > 1 else None
+    main = pmesh.is_main()
     seed = int(cfg.get("seed", 42))
     set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
     fed = cfg["federated"]
     out_dir = cfg.get("output", {}).get("save_dir", "results/privacy/federated")
-    ensure_dir(out_dir)
+    if main:
+        ensure_dir(out_dir)
     B = int(fed["batch_size"])
 
     d = cfg["dataset"]
@@ -172,8 +185,10 @@ def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
         seed=seed,
         min_samples_per_client=int(non_iid.get("min_samples_per_client", 200)),
         out_prefix=str(cfg.get("output", {}).get("split_prefix", "fed")),
-        out_dir=split_dir)
-    write_csv(os.path.join(out_dir, "fed_client_stats.csv"), stats)
+        out_dir=split_dir, write=main)
+    pmesh.barrier()  # rank 0's split files are on disk for every rank
+    if main:
+        write_csv(os.path.join(out_dir, "fed_client_stats.csv"), stats)
     log(f"[INFO] client splits: {[s['num_samples'] for s in stats]}")
 
     client_datasets = [
@@ -187,7 +202,8 @@ def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
     if init_ckpt and checkpoint_path(init_ckpt):
         model.load_state_dict(read_checkpoint(init_ckpt))
         log(f"[INFO] warm start from {init_ckpt}")
-    log(f"[INFO] mesh: None (clients={num_clients}, devices=1)")
+    pmesh.broadcast_module(model, mesh)
+    log(f"[INFO] mesh: {mesh} (clients={num_clients}, devices={W})")
 
     step_chunk = fed.get("step_chunk")  # None = auto-size to 512 MiB of clips
     parallel_update = make_parallel_client_update(
@@ -211,7 +227,7 @@ def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
     records, _ = run_fedavg(
         parallel_update, global_state, sampler, evaluate_fn, num_clients,
         rounds=int(fed["rounds"]),
-        client_fraction=float(fed.get("client_fraction", 1.0)), log=log)
+        client_fraction=float(fed.get("client_fraction", 1.0)), log=log, mesh=mesh)
 
     # fed_summary.csv with cumulative comm
     comm_total = 0.0
@@ -229,8 +245,9 @@ def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
             "comm_mb_total": round(float(comm_total), 6),
         })
     fed_csv = os.path.join(out_dir, "fed_summary.csv")
-    write_csv(fed_csv, rows, fieldnames=list(FED_SUMMARY_FIELDS))
-    log(f"[INFO] Saved federated summary: {fed_csv}")
+    if main:
+        write_csv(fed_csv, rows, fieldnames=list(FED_SUMMARY_FIELDS))
+        log(f"[INFO] Saved federated summary: {fed_csv}")
 
     # system-level privacy proxy
     sp = cfg.get("system_privacy", {})
@@ -247,19 +264,21 @@ def run(cfg: dict, log=print, device: str | torch.device | None = None) -> dict:
         "reduction_ratio": round(comm_total / raw_mb, 6) if raw_mb else "",
     }]
     sys_csv = os.path.join(out_dir, "system_privacy_summary.csv")
-    write_csv(sys_csv, sys_rows, fieldnames=list(SYSTEM_PRIVACY_FIELDS))
-    log(f"[INFO] Saved system privacy summary: {sys_csv}")
+    if main:
+        write_csv(sys_csv, sys_rows, fieldnames=list(SYSTEM_PRIVACY_FIELDS))
+        log(f"[INFO] Saved system privacy summary: {sys_csv}")
     return {"records": rows, "fed_csv": fed_csv}
 
 
 def main():
-    p = common.make_parser("Federated FedAvg, clients one after another on one device")
+    p = common.make_parser("Federated FedAvg over the ranks' client axis")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: device.name of the config, else cuda)")
     args = p.parse_args()
     cfg = common.load_merged_config(args, "configs/federated.yaml")
     logger = common.make_logger(cfg, "federated")
-    run(cfg, log=logger.log, device=args.device)
+    with pmesh.process_group_scope():
+        run(cfg, log=logger.log, device=args.device)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ best-top1 checkpoints with metric-encoded names
 (``finetune_epoch_{e}_top1_{acc:.4f}.pt``, plus the ``best.pt`` alias), a
 ``metrics.csv`` per epoch, the JAX entry's log lines, and the opt-in
 on-device augmentation of the train step (``training.augment``,
-``ops/augment.py``). One device (an explicit ``device.data_parallel: N``
-warns); the split goes device-resident as ``dataset.device_resident`` says.
+``ops/augment.py``). The split goes device-resident as
+``dataset.device_resident`` says. Under ``torchrun`` the batch, and each
+validation batch, go over a ``data`` mesh as the JAX entry resolves it
+(``common.setup_data_parallel``; validation counts summed over the ranks);
+rank 0 alone writes the CSV and checkpoints.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_finetune \\
         --config configs/finetune.yaml --mode two_stage --device cuda
@@ -23,6 +26,7 @@ import time
 import torch
 
 from ..ops.augment import augment_from_cfg
+from ..parallel import mesh as pmesh
 from ..train import finetune_engine as eng
 from ..train.state import create_train_state
 from ..utils.checkpoint import best_ckpt_name, checkpoint_path, read_checkpoint, save_checkpoint
@@ -36,8 +40,11 @@ def run(cfg: dict, mode: str | None = None, log=print,
     """Train and validate every epoch. ``device``: argument, else
     ``device.name``, else cuda. ``on_step(global_step, state, metrics)`` is
     called after every step. Returns ``{"best_top1", "best_ckpt"}``."""
-    device = common.device_from(cfg, device)
-    common.setup_data_parallel(cfg, log)
+    device = common.init_distributed(cfg, device, log)
+    mesh = common.setup_data_parallel(cfg, int(cfg["training"]["batch_size"]), log)
+    if mesh is not None and not mesh.member:
+        return {"best_top1": 0.0, "best_ckpt": None}
+    main = pmesh.is_main()
     mode = eng.resolve_mode(cfg, mode)
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
@@ -79,6 +86,7 @@ def run(cfg: dict, mode: str | None = None, log=print,
         else:
             log(f"[WARN] pretrained_ssl unset; mode={mode} continuing from random init")
     model.to(device)
+    pmesh.broadcast_module(model, mesh)
 
     stage1_epochs = int(tr.get("stage1_epochs", 0))
     two_stage = mode == "two_stage"
@@ -92,7 +100,8 @@ def run(cfg: dict, mode: str | None = None, log=print,
     augment = augment_from_cfg(tr)
     if augment is not None:
         log("[INFO] on-device augmentation enabled (training.augment)")
-    train_step = eng.make_train_step(model, compute_dtype=dtype, augment=augment, seed=seed)
+    train_step = eng.make_train_step(model, compute_dtype=dtype, augment=augment, seed=seed,
+                                     mesh=mesh)
     eval_step = eng.make_eval_step(model, compute_dtype=dtype)
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
@@ -100,7 +109,8 @@ def run(cfg: dict, mode: str | None = None, log=print,
     topk = tuple(cfg.get("evaluation", {}).get("topk", [1, 5]))
     log_interval = int(tr.get("log_interval", 20))
     save_dir = os.path.join(cfg.get("paths", {}).get("save_dir", "results/finetune"), mode)
-    ensure_dir(save_dir)
+    if main:
+        ensure_dir(save_dir)
 
     best_top1, best_ckpt, global_step = 0.0, None, 0
     for epoch in range(1, epochs + 1):
@@ -115,7 +125,7 @@ def run(cfg: dict, mode: str | None = None, log=print,
         losses = []  # device scalars, fetched once per epoch
         for step, batch in enumerate(
                 common.epoch_batches(train_ds, B, shuffle=True, seed=seed, epoch=epoch,
-                                     device=device), 1):
+                                     device=device, mesh=mesh), 1):
             state, metrics = train_step(state, batch, step_gen)
             losses.append(metrics["loss"])
             global_step += 1
@@ -131,22 +141,26 @@ def run(cfg: dict, mode: str | None = None, log=print,
 
         acc = eng.evaluate(eval_step,
                            common.epoch_batches(val_ds, B, shuffle=False, seed=seed, epoch=0,
-                                                device=device, drop_last=False),
-                           ks=topk)
+                                                device=device, drop_last=False, mesh=mesh),
+                           ks=topk, mesh=mesh)
         log("[INFO] val " + " ".join(f"top{k}={acc[f'top{k}']:.4f}" for k in topk))
-        append_csv_row(os.path.join(save_dir, "metrics.csv"), {
-            "epoch": epoch, "mode": mode,
-            "train_loss": round(loss_sum / max(len(losses), 1), 6),
-            **{f"val_top{k}": round(acc[f"top{k}"], 6) for k in topk},
-        }, fieldnames=["epoch", "mode", "train_loss"] + [f"val_top{k}" for k in topk])
+        if main:
+            append_csv_row(os.path.join(save_dir, "metrics.csv"), {
+                "epoch": epoch, "mode": mode,
+                "train_loss": round(loss_sum / max(len(losses), 1), 6),
+                **{f"val_top{k}": round(acc[f"top{k}"], 6) for k in topk},
+            }, fieldnames=["epoch", "mode", "train_loss"] + [f"val_top{k}" for k in topk])
 
         if acc["top1"] > best_top1:
             best_top1 = acc["top1"]
             name = best_ckpt_name("finetune", epoch, "top1", best_top1)
-            best_ckpt = save_checkpoint(save_dir, name, model.state_dict())
-            # stable alias consumed by configs/dynamic.yaml-style paths
-            save_checkpoint(save_dir, "best", model.state_dict())
-            log(f"[INFO] Saved checkpoint: {best_ckpt}")
+            best_ckpt = os.path.abspath(os.path.join(save_dir, f"{name}.pt"))
+            if main:
+                save_checkpoint(save_dir, name, model.state_dict())
+                # stable alias consumed by configs/dynamic.yaml-style paths
+                save_checkpoint(save_dir, "best", model.state_dict())
+                log(f"[INFO] Saved checkpoint: {best_ckpt}")
+            pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
 
     return {"best_top1": best_top1, "best_ckpt": best_ckpt}
 
@@ -160,7 +174,8 @@ def main():
     args = p.parse_args()
     cfg = common.load_merged_config(args, "configs/finetune.yaml")
     logger = common.make_logger(cfg, f"finetune_{args.mode or 'cfg'}")
-    run(cfg, mode=args.mode, log=logger.log, device=args.device)
+    with pmesh.process_group_scope():
+        run(cfg, mode=args.mode, log=logger.log, device=args.device)
 
 
 if __name__ == "__main__":

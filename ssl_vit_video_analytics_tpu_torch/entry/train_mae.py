@@ -8,10 +8,11 @@ and a masked feature loss; warmup-cosine AdamW with betas (0.9, 0.95),
 clipping, gradient accumulation and the non-finite skip; collapse
 detection; full resume (params, BatchNorm statistics, optimizer moments and
 counters, step, epoch, with a cfg-hash check); keep-last-N checkpoint GC;
-``training.max_epochs_per_run`` segments. One device, the split
-device-resident as ``dataset.device_resident`` says; the multi-device knobs
-are resolved as the JAX entry resolves them on one device
-(``common.setup_parallelism``). ``mae.vis_every`` waits for
+``training.max_epochs_per_run`` segments. The split is device-resident as
+``dataset.device_resident`` says. Under ``torchrun`` the multi-device knobs
+are resolved as the JAX entry resolves them over its devices
+(``common.setup_parallelism``: a ``data`` or ``seq`` mesh; model sharding
+raises, ROADMAP item 15c); rank 0 alone writes. ``mae.vis_every`` waits for
 ``reporting/visualize.py`` (ROADMAP queue 1, item 16): the run warns once
 and trains on.
 
@@ -37,7 +38,8 @@ from ..train.mae_engine import make_token_mae_step, wrap_accum_and_skip
 from ..train.state import TrainState, create_train_state, make_optimizer, warmup_cosine_schedule
 from ..utils.checkpoint import (find_latest_checkpoint, keep_last_n_checkpoints,
                                 restore_checkpoint, save_checkpoint)
-from ..utils.config import save_config
+from ..parallel import mesh as pmesh
+from ..utils.config import config_hash, save_config
 from ..utils.io import ensure_dir
 from ..utils.metrics import format_metrics, update_best
 from ..utils.prng import set_seed, step_generator
@@ -46,10 +48,11 @@ from . import common
 DEFAULT_EMBED_DIMS = (96, 192, 384, 576)
 
 
-def build_model(cfg: dict, dtype: torch.dtype) -> TinyViTMAE:
+def build_model(cfg: dict, dtype: torch.dtype,
+                decoder_attn_impl: str | None = None) -> TinyViTMAE:
     """The pipeline-C model of ``cfg`` (TinyViT-21M at DEFAULT_EMBED_DIMS)
     with torch's default init (see ``init_model`` for the flax-like seeded
-    init)."""
+    init); ``decoder_attn_impl`` ``"sp"`` under a ``seq`` mesh."""
     mae = cfg["mae"]
     dec = mae.get("decoder", {})
     encoder = tiny_vit_21m_variant(use_checkpoint=bool(cfg.get("model", {}).get(
@@ -57,7 +60,8 @@ def build_model(cfg: dict, dtype: torch.dtype) -> TinyViTMAE:
     return TinyViTMAE(encoder, stage4_pool=int(mae.get("stage4_pool", 3)),
                       decoder_dim=int(dec.get("dim", 512)), decoder_depth=int(dec.get("depth", 2)),
                       decoder_num_heads=int(dec.get("num_heads", 8)),
-                      mlp_ratio=float(dec.get("mlp_ratio", 4.0)), dtype=dtype)
+                      mlp_ratio=float(dec.get("mlp_ratio", 4.0)), dtype=dtype,
+                      attn_impl=decoder_attn_impl)
 
 
 def _restore(latest: str, state: TrainState, cfg_hash: str, log) -> tuple[int, dict | None]:
@@ -82,10 +86,17 @@ def _restore(latest: str, state: TrainState, cfg_hash: str, log) -> tuple[int, d
 
 def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         device: str | torch.device | None = None, on_step=None) -> dict:
-    """Train. ``device``: argument, else ``device.name``, else cuda.
-    ``on_step(global_step, state, metrics)`` is called after every step."""
-    device = common.device_from(cfg, device)
-    common.setup_parallelism(cfg, log)
+    """Train. ``device``: argument, else ``device.name``, else cuda (under
+    a launcher, this rank's card: the batch over a ``data`` mesh, or the
+    clips' frames over a ``seq`` mesh with ``model.sequence_parallel``;
+    rank 0 alone writes). ``on_step(global_step, state, metrics)`` is
+    called after every step."""
+    device = common.init_distributed(cfg, device, log)
+    par = common.setup_parallelism(cfg, int(cfg["training"]["batch_size"]), log)
+    if not par.member:
+        return {"best": None, "steps": 0, "completed": True}
+    mesh = par.mesh
+    main = pmesh.is_main()
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -100,14 +111,18 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
     epochs = int(tr["epochs"])
 
     out_dir = cfg.get("output", {}).get("dir", "results/mae")
-    ensure_dir(out_dir)
-    cfg_hash = save_config(cfg, os.path.join(out_dir, "config.json"))
+    if main:
+        ensure_dir(out_dir)
+        cfg_hash = save_config(cfg, os.path.join(out_dir, "config.json"))
+    else:
+        cfg_hash = config_hash(cfg)
     log(f"[INFO] train_mae: cfg_hash={cfg_hash} device={device} "
         f"dtype={str(dtype).replace('torch.', '')}")
     ds = common.maybe_device_resident(cfg, ds, device, log)
-    model = build_model(cfg, dtype)
+    model = build_model(cfg, dtype, decoder_attn_impl="sp" if par.sp_on else None)
     init_model(model, init_gen)
     model.to(device)
+    pmesh.broadcast_module(model, mesh)
 
     sched = warmup_cosine_schedule(
         float(tr.get("lr", 3e-4)), int(tr.get("warmup_epochs", 0)) * steps_per_epoch,
@@ -126,7 +141,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         loss_type=str(loss_cfg.get("type", "l2")),
         normalize_target=bool(loss_cfg.get("normalize_target", True)),
         augment_hflip=bool(cfg.get("dataset", {}).get("augment", False)),
-        compute_dtype=dtype)
+        compute_dtype=dtype, mesh=mesh)
 
     start_epoch, best = 1, None
     if resume:
@@ -158,7 +173,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         epoch_metrics: dict = {}
         for step, batch in enumerate(
                 common.epoch_batches(ds, B, shuffle=True, seed=seed, epoch=epoch,
-                                     device=device), 1):
+                                     device=device, mesh=mesh), 1):
             data_t += time.perf_counter() - t_last
             gen = step_generator(seed, global_step, device)
             state, metrics = step_fn(state, batch, gen, ratio)
@@ -185,7 +200,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         hit_segment_cap = (max_epochs_per_run is not None
                            and epoch - start_epoch + 1 >= int(max_epochs_per_run)
                            and epoch < epochs)
-        if epoch % save_every == 0 or epoch == epochs or hit_segment_cap:
+        if (epoch % save_every == 0 or epoch == epochs or hit_segment_cap) and main:
             save_checkpoint(out_dir, f"ckpt_epoch_{epoch}", {
                 **state.model.state_dict(),
                 **{f"opt.{k}": v for k, v in state.tx.state_dict().items()},
@@ -193,6 +208,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
                      "has_opt_state": True})
             deleted = keep_last_n_checkpoints(out_dir, keep_last)
             log(f"[INFO] saved ckpt_epoch_{epoch} (gc: {len(deleted)} old)")
+        if epoch % save_every == 0 or epoch == epochs or hit_segment_cap:
+            pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
         if hit_segment_cap:
             log(f"[INFO] segment cap ({max_epochs_per_run} epochs/run) hit at "
                 f"epoch {epoch}/{epochs}; exiting — relaunch to resume")
@@ -215,7 +232,8 @@ def main():
         args.config = args.cfg
     cfg = common.load_merged_config(args, "configs/mae_train.yaml")
     logger = common.make_logger(cfg, "train_mae")
-    run(cfg, log=logger.log, resume=not args.no_resume, device=args.device)
+    with pmesh.process_group_scope():
+        run(cfg, log=logger.log, resume=not args.no_resume, device=args.device)
 
 
 if __name__ == "__main__":

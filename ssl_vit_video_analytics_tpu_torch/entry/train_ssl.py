@@ -6,9 +6,10 @@ warmup-cosine AdamW with the config's clip, the EMA teacher initialized as a
 copy of the student, TOP on from ``ssl_objectives.top_start_epoch`` every
 ``top_every`` steps, ``ssl_metrics.csv`` and full checkpoints
 ``ssl_epoch_{e}`` (student, EMA, BatchNorm statistics, optimizer state;
-step and epoch in the sidecar). One device, the split device-resident as
-``dataset.device_resident`` says; the multi-device knobs are resolved as
-the JAX entry resolves them on one device (``common.setup_data_parallel``).
+step and epoch in the sidecar). The split is device-resident as
+``dataset.device_resident`` says. Under ``torchrun`` the batch goes over a
+``data`` mesh as the JAX entry resolves it (``common.setup_data_parallel``);
+rank 0 alone writes the CSV and checkpoints.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl \\
         --config configs/ssl_train.yaml --device cuda
@@ -21,6 +22,7 @@ import time
 import torch
 
 from ..models.temporal import TemporalSSL
+from ..parallel import mesh as pmesh
 from ..train.finetune_engine import init_model
 from ..train.ssl_engine import make_ssl_step
 from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
@@ -53,8 +55,11 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
         device: str | torch.device | None = None, on_step=None) -> dict:
     """Train. ``device``: argument, else ``device.name``, else cuda.
     ``on_step(global_step, state, metrics)`` is called after every step."""
-    device = common.device_from(cfg, device)
-    common.setup_data_parallel(cfg, log)
+    device = common.init_distributed(cfg, device, log)
+    mesh = common.setup_data_parallel(cfg, int(cfg["training"]["batch_size"]), log)
+    if mesh is not None and not mesh.member:
+        return {"steps": 0, "save_dir": cfg["training"].get("save_dir")}
+    main = pmesh.is_main()
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -71,6 +76,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     model = build_model(cfg, T, dtype)
     init_model(model, init_gen)
     model.to(device)
+    pmesh.broadcast_module(model, mesh)
     log(f"[INFO] train_ssl: params={sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
         f"device={device} dtype={str(dtype).replace('torch.', '')}")
 
@@ -92,14 +98,15 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
 
     # two variants, with and without the TOP objective (the reference gates
     # TOP by epoch and step, ref: src/train_ssl.py:185,224)
-    step_plain = make_ssl_step(model, ssl, with_top=False, compute_dtype=dtype)
-    step_top = make_ssl_step(model, ssl, with_top=True, compute_dtype=dtype)
+    step_plain = make_ssl_step(model, ssl, with_top=False, compute_dtype=dtype, mesh=mesh)
+    step_top = make_ssl_step(model, ssl, with_top=True, compute_dtype=dtype, mesh=mesh)
     top_start = int(ssl.get("top_start_epoch", 1))
     top_every = max(1, int(ssl.get("top_every", 1)))
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     save_dir = tr.get("save_dir", "results/ema_ssl_vicreg")
-    ensure_dir(save_dir)
+    if main:
+        ensure_dir(save_dir)
     save_every = int(tr.get("save_every", 10))
     log_interval = int(tr.get("log_interval", 20))
 
@@ -110,7 +117,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
         t_ep = time.perf_counter()
         for step, batch in enumerate(
                 common.epoch_batches(ds, B, shuffle=True, seed=seed, epoch=epoch,
-                                     device=device), 1):
+                                     device=device, mesh=mesh), 1):
             use_top = top_enabled and (step % top_every == 0)
             state, metrics = (step_top if use_top else step_plain)(state, batch, step_gen)
             global_step += 1
@@ -131,21 +138,24 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
         epoch_avg = {k: float(v) / n for k, v in running.items() if k != "n"}
         log(f"[INFO] Epoch done. ep={epoch} " + format_metrics(epoch_avg)
             + f" ({time.perf_counter() - t_ep:.1f}s)")
-        append_csv_row(os.path.join(save_dir, "ssl_metrics.csv"), {
-            "epoch": epoch,
-            "total": round(epoch_avg.get("loss", 0.0), 6),
-            "mfm": round(epoch_avg.get("mfm", 0.0), 6),
-            "var": round(epoch_avg.get("var", 0.0), 6),
-            "top": round(epoch_avg.get("top", 0.0), 6),
-        }, fieldnames=CSV_FIELDS)
+        if main:
+            append_csv_row(os.path.join(save_dir, "ssl_metrics.csv"), {
+                "epoch": epoch,
+                "total": round(epoch_avg.get("loss", 0.0), 6),
+                "mfm": round(epoch_avg.get("mfm", 0.0), 6),
+                "var": round(epoch_avg.get("var", 0.0), 6),
+                "top": round(epoch_avg.get("top", 0.0), 6),
+            }, fieldnames=CSV_FIELDS)
         running = {}
-        if epoch % save_every == 0 or epoch == epochs:
+        if (epoch % save_every == 0 or epoch == epochs) and main:
             # {student, ema, opt} like the reference's periodic saves
             # (ref: src/train_ssl.py:354-362)
             path = save_checkpoint(save_dir, f"ssl_epoch_{epoch}", checkpoint_tree(state),
                                    meta={"has_opt_state": True, "step": state.step,
                                          "epoch": epoch})
             log(f"[INFO] saved checkpoint: {path}")
+        if epoch % save_every == 0 or epoch == epochs:
+            pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
         if max_steps is not None and global_step >= max_steps:
             break
     return {"steps": global_step, "save_dir": save_dir}
@@ -158,7 +168,8 @@ def main():
     args = p.parse_args()
     cfg = common.load_merged_config(args, "configs/ssl_train.yaml")
     logger = common.make_logger(cfg, "train_ssl")
-    run(cfg, log=logger.log, device=args.device)
+    with pmesh.process_group_scope():
+        run(cfg, log=logger.log, device=args.device)
 
 
 if __name__ == "__main__":

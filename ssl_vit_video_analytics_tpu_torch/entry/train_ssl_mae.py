@@ -11,13 +11,18 @@ MoE decoder (``model.decoder_moe_*``, its load-balance auxiliary weighted by
 ``ssl.moe_aux_weight``, default 0.01) and the 64-frame long clip
 (``configs/ssl_mae_longclip.yaml``) run as configured;
 ``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``.
-One device, the split device-resident as ``dataset.device_resident`` says;
-the multi-device knobs are resolved as the JAX entry resolves them on one
-device (``common.setup_parallelism``: expert and sequence parallelism fall
-back with JAX's warnings).
+The split is device-resident as ``dataset.device_resident`` says. Under
+``torchrun`` one process a card: the multi-device knobs are resolved as
+the JAX entry resolves them over its devices (``common.setup_parallelism``):
+the batch over a ``data`` mesh, or with ``model.sequence_parallel`` each
+clip's frames over a ``seq`` mesh (the long clip's decoder attends through
+``parallel/sp.py``); tensor, pipeline and expert parallelism over several
+cards raise (ROADMAP item 15c). Rank 0 alone writes logs and checkpoints.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae \\
         --config configs/ssl_mae.yaml --device cuda
+    torchrun --standalone --nproc_per_node 8 \\
+        -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae --config configs/ssl_mae.yaml
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from ..models.mae import TinyVideoMAE
 from ..models.tiny_vit import tiny_vit_21m_variant
+from ..parallel import mesh as pmesh
 from ..train.finetune_engine import init_model
 from ..train.mae_engine import make_pixel_mae_step, wrap_accum_and_skip
 from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
@@ -38,9 +44,12 @@ from ..utils.prng import set_seed
 from . import common
 
 
-def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None) -> TinyVideoMAE:
+def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None,
+                decoder_attn_impl: str | None = None) -> TinyVideoMAE:
     """The pipeline-B model of ``cfg`` with torch's default init (see
-    ``init_model`` for the flax-like seeded init)."""
+    ``init_model`` for the flax-like seeded init); ``decoder_attn_impl``
+    (``"sp"`` under a ``seq`` mesh) overrides ``attn_impl`` in the
+    decoder."""
     m = cfg["model"]
     remat_stages = m.get("remat_stages")
     encoder = tiny_vit_21m_variant(
@@ -59,7 +68,7 @@ def build_model(cfg: dict, dtype: torch.dtype, attn_impl: str | None = None) -> 
         decoder_depth=int(m["decoder_depth"]),
         decoder_num_heads=int(m["decoder_num_heads"]),
         dtype=dtype,
-        attn_impl=attn_impl,
+        attn_impl=decoder_attn_impl or attn_impl,
         decoder_moe_experts=int(m.get("decoder_moe_experts", 0) or 0),
         decoder_moe_capacity_factor=float(m.get("decoder_moe_capacity_factor", 2.0)),
         decoder_moe_group_size=int(m.get("decoder_moe_group_size", 0) or 0),
@@ -91,10 +100,16 @@ def stop_profiler(profiler, profile_dir: str, log=print) -> str:
 
 def run(cfg: dict, log=print, max_steps: int | None = None,
         device: str | torch.device | None = None, on_step=None) -> dict:
-    """Train. ``device``: argument, else ``device.name``, else cuda.
-    ``on_step(global_step, state, metrics)`` is called after every step."""
-    device = common.device_from(cfg, device)
-    common.setup_parallelism(cfg, log, allow_pp=True)
+    """Train. ``device``: argument, else ``device.name``, else cuda (under
+    a launcher, this rank's card). ``on_step(global_step, state, metrics)``
+    is called after every step."""
+    device = common.init_distributed(cfg, device, log)
+    par = common.setup_parallelism(cfg, int(cfg["training"]["batch_size"]), log,
+                                   allow_pp=True)
+    if not par.member:
+        return {"steps": 0, "seconds": 0.0, "last_loss": float("nan")}
+    mesh = par.mesh
+    cards = 1 if mesh is None else mesh.size
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -114,9 +129,10 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     epochs = int(tr["epochs"])
     ds = common.maybe_device_resident(cfg, ds, device, log)
 
-    model = build_model(cfg, dtype)
+    model = build_model(cfg, dtype, decoder_attn_impl="sp" if par.sp_on else None)
     init_model(model, init_gen)
     model.to(device)
+    pmesh.broadcast_module(model, mesh)
     L = (S // 8) ** 2
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[INFO] model params: {n_params / 1e6:.2f}M, tokens/frame={L}")
@@ -142,11 +158,14 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                                   compute_dtype=dtype,
                                   # the Switch-Transformer default; no-op for
                                   # the dense decoder
-                                  moe_aux_weight=float(ssl.get("moe_aux_weight", 0.01)))
+                                  moe_aux_weight=float(ssl.get("moe_aux_weight", 0.01)),
+                                  mesh=mesh)
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     save_dir = tr.get("save_dir", "results/tinymae_v1")
-    ensure_dir(save_dir)
+    main = pmesh.is_main()
+    if main:
+        ensure_dir(save_dir)
     log_interval = int(tr.get("log_interval", 20))
     save_every = int(tr.get("save_every", 10))
     mfu_kwargs = pipeline_b_model_kwargs(cfg)
@@ -155,7 +174,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     t_start = time.perf_counter()
     last_loss = float("nan")
     profiler = None
-    if profile_dir:
+    if profile_dir and main:
         profiler = start_profiler(device)
         log(f"[INFO] profiling first steps to {profile_dir}")
     for epoch in range(1, epochs + 1):
@@ -167,7 +186,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
         epoch_losses = []
         for step, batch in enumerate(
                 common.epoch_batches(ds, B, shuffle=True, seed=seed, epoch=epoch,
-                                     device=device), 1):
+                                     device=device, mesh=mesh), 1):
             state, metrics = step_fn(state, batch, step_gen)
             epoch_losses.append(metrics["loss"])
             global_step += 1
@@ -182,8 +201,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                 dt = time.perf_counter() - t_ep
                 ips = seen / max(dt, 1e-9)
                 eta = (steps_per_epoch - step) * (dt / step)
-                mfu = (pipeline_b_mfu(ips, T, S, **mfu_kwargs) if device.type == "cuda"
-                       else 0.0)
+                mfu = (pipeline_b_mfu(ips, T, S, cards=cards, **mfu_kwargs)
+                       if device.type == "cuda" else 0.0)
                 moe = (f" moe_aux={float(metrics['moe_aux']):.3f}"
                        if "moe_aux" in metrics else "")
                 log(f"[INFO] ep={epoch} step={step}/{steps_per_epoch} "
@@ -200,7 +219,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                      if epoch_losses else float("nan"))
         log(f"[INFO] epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s "
             f"loss={last_loss:.4f} loss_mean={loss_mean:.4f}")
-        if epoch % save_every == 0 or epoch == epochs:
+        if (epoch % save_every == 0 or epoch == epochs) and main:
             sd = model.state_dict()
             # encoder-only checkpoint, like the reference
             path = save_checkpoint(save_dir, f"ckpt_epoch_{epoch}",
@@ -209,6 +228,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
             if bool(tr.get("save_full", False)):
                 path = save_checkpoint(save_dir, f"ckpt_full_epoch_{epoch}", sd)
                 log(f"[INFO] saved full checkpoint: {path}")
+        if epoch % save_every == 0 or epoch == epochs:
+            pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
         if max_steps is not None and global_step >= max_steps:
             break
 
@@ -225,7 +246,8 @@ def main():
     args = p.parse_args()
     cfg = common.load_merged_config(args, "configs/ssl_mae.yaml")
     logger = common.make_logger(cfg, "train_ssl_mae")
-    run(cfg, log=logger.log, device=args.device)
+    with pmesh.process_group_scope():
+        run(cfg, log=logger.log, device=args.device)
 
 
 if __name__ == "__main__":

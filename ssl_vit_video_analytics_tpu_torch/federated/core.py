@@ -1,12 +1,18 @@
-"""FedAvg on one card (counterpart of the JAX package's ``federated/core.py``).
+"""FedAvg (counterpart of the JAX package's ``federated/core.py``).
 
 The reference simulates federated learning: N client models on one device,
 trained one after another, state dicts averaged in-process
 (ref: src/run_federated.py:270-325, src/federated/fed_loop.py:65-147). The
-JAX package stacks the clients on a mesh axis; on one card the port runs
-them in a loop, as the JAX package's ``mesh=None`` path does: each client
-starts from the global ``state_dict`` with a fresh AdamW and runs its steps
-in order. The multi-GPU client axis is ROADMAP queue 1, item 15b.
+JAX package stacks the clients on a ``client`` mesh axis. The port runs a
+rank's clients in a loop, as the JAX package's ``mesh=None`` path does:
+each client starts from the global ``state_dict`` with a fresh AdamW and
+runs its steps in order. Over a ``client`` mesh of n ranks
+(``parallel/mesh.py``) the round's clients are padded to a multiple of n
+with zero-weight dummies (:func:`pad_clients_to_axis`), rank r runs the
+r-th contiguous block of them (the block ``shard_map``'s ``P("client")``
+gives device r), and the aggregate is an all-reduce of each rank's
+weighted partial sum (the max for integer tensors); the clients' losses
+are gathered.
 
 Aggregation dtype rules match the reference exactly
 (ref: src/federated/fed_loop.py:46-58): floating tensors get the
@@ -27,18 +33,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_gather_cat, all_reduce_flat
 from ..train.state import AdamW, make_optimizer
 from .comm_cost import estimate_comm_mb_per_round
 
 State = Mapping[str, torch.Tensor]
 
 
-def fedavg_aggregate(client_states: Sequence[State] | State, weights) -> dict:
+def fedavg_aggregate(client_states: Sequence[State] | State, weights, mesh=None) -> dict:
     """Aggregate client states: a list of ``state_dict``s, or one mapping of
     tensors stacked on axis 0.
 
     Float tensors -> weighted mean with weights normalized to sum 1;
-    integer/bool tensors -> elementwise max across clients.
+    integer/bool tensors -> elementwise max across clients. Over a
+    ``client`` ``mesh`` the states are this rank's block of the clients
+    and ``weights`` are every client's: each rank sums its block, weighted,
+    and an all-reduce (max for integers) adds the ranks' partial sums.
     """
     if isinstance(client_states, Mapping):
         stacked = client_states
@@ -46,6 +56,8 @@ def fedavg_aggregate(client_states: Sequence[State] | State, weights) -> dict:
         stacked = {k: torch.stack([s[k] for s in client_states]) for k in client_states[0]}
     w = torch.as_tensor(weights, dtype=torch.float32)
     w = w / w.sum().clamp_min(1e-12)
+    if mesh is not None:
+        w = w[mesh.block(w.shape[0])]
     out = {}
     for key, x in stacked.items():
         if x.is_floating_point():
@@ -53,6 +65,10 @@ def fedavg_aggregate(client_states: Sequence[State] | State, weights) -> dict:
                         ).sum(dim=0)
         else:
             out[key] = x.amax(dim=0)
+    if mesh is not None:
+        all_reduce_flat([v for v in out.values() if v.is_floating_point()], mesh.group)
+        all_reduce_flat([v for v in out.values() if not v.is_floating_point()], mesh.group,
+                        "max")
     return out
 
 
@@ -168,8 +184,8 @@ def make_parallel_client_update(
 
 def pad_clients_to_axis(client_batches: dict, client_sizes: np.ndarray,
                         axis_size: int) -> tuple[dict, np.ndarray, int]:
-    """Pad the stacked client dim to a multiple of a device axis (for the
-    multi-GPU client axis of ROADMAP item 15b; one card needs no padding).
+    """Pad the stacked client dim to a multiple of the ``client`` mesh's
+    size (one card needs no padding).
 
     Dummy clients get all-False ``valid`` masks (their local updates are
     no-ops) and zero aggregation weight. Returns (padded_batches,
@@ -188,15 +204,26 @@ def pad_clients_to_axis(client_batches: dict, client_sizes: np.ndarray,
 
 
 def run_fedavg_round(parallel_update, global_state: State, client_batches: dict,
-                     client_sizes: np.ndarray) -> tuple[dict, torch.Tensor]:
+                     client_sizes: np.ndarray, mesh=None) -> tuple[dict, torch.Tensor]:
     """One round: local updates from the global state -> weighted aggregate.
 
     client_batches: {"clip": [N,S,B,...] uint8, "label": [N,S,B], "valid": [N,S,B]}
+    (every client's, on every rank). Over a ``client`` ``mesh`` the clients
+    are padded to the mesh, this rank runs its block, and the aggregate and
+    the losses are the whole round's on every rank.
     Returns (new_global_state, local_losses [N]).
     """
-    states, losses = parallel_update(global_state, client_batches["clip"],
-                                     client_batches["label"], client_batches["valid"])
-    return fedavg_aggregate(states, client_sizes), losses
+    if mesh is None:
+        states, losses = parallel_update(global_state, client_batches["clip"],
+                                         client_batches["label"], client_batches["valid"])
+        return fedavg_aggregate(states, client_sizes), losses
+    client_batches, client_sizes, n_real = pad_clients_to_axis(client_batches, client_sizes,
+                                                               mesh.size)
+    mine = mesh.block(len(client_sizes))
+    states, losses = parallel_update(global_state, *(np.asarray(client_batches[k])[mine]
+                                                     for k in ("clip", "label", "valid")))
+    return (fedavg_aggregate(states, client_sizes, mesh),
+            all_gather_cat(losses, mesh.group)[:n_real])
 
 
 def run_fedavg(
@@ -208,6 +235,7 @@ def run_fedavg(
     rounds: int = 10,
     client_fraction: float = 1.0,
     log=print,
+    mesh=None,
 ) -> tuple[list[dict], dict]:
     """Full FedAvg loop (ref: src/federated/fed_loop.py:65-147).
 
@@ -215,7 +243,8 @@ def run_fedavg(
     evaluate_fn(state) -> (top1, top5).
     Returns (records, final_state). Besides the JAX package's lines, each
     round logs its client steps (fully padded ones left out) and the seconds
-    of its local updates, and the round's seconds.
+    of its local updates, and the round's seconds. ``mesh``: the ``client``
+    mesh the rounds run over (:func:`run_fedavg_round`).
     """
     rng = random.Random(42)
     records = []
@@ -226,7 +255,8 @@ def run_fedavg(
 
         batches, sizes = sample_round_batches(selected, r)
         steps = int(np.asarray(batches["valid"]).any(axis=2).sum())
-        global_state, losses = run_fedavg_round(parallel_update, global_state, batches, sizes)
+        global_state, losses = run_fedavg_round(parallel_update, global_state, batches, sizes,
+                                                mesh)
         local_losses = losses.tolist()  # waits for the last client step
         log(f"[INFO] Round {r} local updates: {steps} client steps in "
             f"{time.perf_counter() - t0:.3f}s")

@@ -19,6 +19,11 @@ Training mode follows flax, not torch:
   generator, so a recompute sees the same decisions and tests can inject
   them. A module in training with a drop rate but no decisions raises.
 
+Under a ``data`` or ``seq`` mesh (:func:`global_batch`), train-mode
+BatchNorm takes its statistics over the batch of every rank of the group,
+as flax's ``BatchNorm`` does over a batch GSPMD shards, and the MoE
+auxiliary its token means over the same batch.
+
 Traps kept from the reference: flax's ``nn.gelu`` is the tanh approximation,
 LayerNorm and BatchNorm use eps 1e-5.
 """
@@ -27,10 +32,12 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_packed
+from ..parallel.collectives import all_reduce
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``."""
@@ -43,6 +50,50 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class _GroupBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the batch of every rank of ``group``: one
+    fp32 all-reduce of the per-channel sum, sum of squares and count
+    forward (the biased variance from them, as flax's one-pass variance),
+    one of the two per-channel gradient sums backward. Returns the
+    normalized ``x`` (its dtype) and the global mean and biased variance.
+    The weight and bias gradients are this rank's sums: the gradient
+    reduction adds the ranks' up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), x.numel() // max(C, 1))])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1].clamp_min(1.0)
+        mean = stats[:C] / n
+        var = (stats[C:2 * C] / n - mean * mean).clamp_min(0.0)
+        # torch's own kernel normalizes with the global statistics (its
+        # inference form), so that the rounding is the one-device path's
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        C = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, C) + (1,) * (x.dim() - 2)
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        g = gy.float()
+        local = torch.cat([g.sum(dims), (g * xhat).sum(dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        gx = (g - (sums[:C] / ctx.n).view(shape) - xhat * (sums[C:] / ctx.n).view(shape)) \
+            * (invstd * weight).view(shape)
+        return gx.to(x.dtype), local[C:], local[:C], None, None
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
                update_stats: bool = True) -> torch.Tensor:
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=bn.eps)`` over NCHW (or the
@@ -53,11 +104,21 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
     way to them. A bf16 input is normalized by torch's
     mixed-dtype kernel (fp32 statistics, bf16 output, as flax's
     ``dtype=bfloat16``) so that autograd saves the bf16 activation, not an
-    fp32 copy of it.
+    fp32 copy of it. Inside :func:`global_batch` the statistics are the
+    group's (:class:`_GroupBatchNorm`; it too saves the activation in its
+    own dtype).
     """
     if not training:
         return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
                             False, 0.0, bn.eps)
+    group = getattr(bn, "stat_group", None)
+    if group is not None:
+        y, mean, var = _GroupBatchNorm.apply(x, bn.weight, bn.bias, bn.eps, group)
+        if update_stats:
+            with torch.no_grad():
+                bn.running_mean.mul_(0.9).add_(0.1 * mean)
+                bn.running_var.mul_(0.9).add_(0.1 * var)
+        return y
     # torch updates copies of the statistics: autograd saves the tensors it
     # is given, and the recompute of a checkpointed region must save as many
     mean, var = bn.running_mean.clone(), bn.running_var.clone()
@@ -71,6 +132,25 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
             bn.running_mean.copy_(mean)
             bn.running_var.copy_((var - old) * ((n - 1) / n) + old)
     return y
+
+
+@contextlib.contextmanager
+def global_batch(module: nn.Module, group):
+    """Inside this context (forward AND backward: a checkpointed region
+    recomputes its forward in the backward), ``module``'s train-mode
+    BatchNorms take their statistics, and its MoE MLPs their auxiliary's
+    token means, over the batch of every rank of ``group`` (a ``data`` or
+    ``seq`` mesh's); None is this rank's batch alone."""
+    mods = [m for m in module.modules()
+            if isinstance(m, (nn.modules.batchnorm._BatchNorm, MoeMlp))]
+    prev = [getattr(m, "stat_group", None) for m in mods]
+    for m in mods:
+        m.stat_group = group
+    try:
+        yield
+    finally:
+        for m, p in zip(mods, prev):
+            m.stat_group = p
 
 
 class ConvBNAct(nn.Module):
@@ -199,6 +279,10 @@ class MoeMlp(nn.Module):
     through the probabilities: 1 when the tokens spread evenly, E when every
     token picks one expert with certainty, never under 1/E (a token's
     argmax probability is at least 1/E), and it can dip just under 1.
+    Inside :func:`global_batch` the means are over the group's tokens and
+    ``aux`` is this rank's share of it (the ranks' shares sum to it); the
+    capacity groups must then lie within a rank's tokens (``group_size``
+    > 0 dividing them), as the MoE yaml's 392 tokens (two frames) do.
     """
 
     def __init__(self, dim: int, hidden: int, num_experts: int,
@@ -250,10 +334,26 @@ class MoeMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         B, L, D = x.shape
         E, dt = self.num_experts, self.dtype
+        group = getattr(self, "stat_group", None)
+        if group is not None and self.group_size <= 0:
+            # JAX routes the global batch's B*L tokens as one group; routing
+            # this rank's tokens alone would be another layer
+            raise ValueError(
+                "moe group_size=0 routes every token of the global batch as one "
+                "group, which data or sequence parallelism would split; set "
+                "model.decoder_moe_group_size to a divisor of a rank's tokens")
         G, S, C = self.capacity(B * L)
         probs, onehot, pos, keep = self._route(x)
         gate = probs.amax(-1)                                     # top-1 prob
-        aux = E * (onehot.reshape(B * L, E).mean(0) * probs.mean(0)).sum()
+        if group is None:
+            aux = E * (onehot.reshape(B * L, E).mean(0) * probs.mean(0)).sum()
+        else:
+            # this rank's share of the global auxiliary: the global one-hot
+            # mean times this rank's probability sum over the global count
+            counts = all_reduce(torch.cat([onehot.reshape(B * L, E).sum(0),
+                                           probs.new_full((1,), B * L)]), group)
+            n = counts[-1]
+            aux = E * (counts[:E] / n * probs.sum(0) / n).sum()
         xt = x.reshape(B * L, D)
         slots = torch.arange(C, device=x.device, dtype=pos.dtype)
         dispatch = (keep[..., None] * (pos[..., None] == slots)).to(dt)  # [G, S, E, C]
@@ -317,7 +417,10 @@ class MultiHeadAttention(nn.Module):
     The thirds of the fused qkv output go to the packed attention entry as
     strided ``[B, L, H*d]`` views: no head split, no copy. The head width is
     ``dim // num_heads``, so ``H*d`` may be narrower than ``dim`` (as flax's
-    ``key_dim``).
+    ``key_dim``). ``attn_impl="sp"`` is the sequence-parallel branch: ``x``
+    is this rank's block of a ``seq`` mesh's sequence, and the attention
+    runs over the whole sequence (``ops/attention.attention_packed``,
+    ``parallel/sp.py``).
     """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,

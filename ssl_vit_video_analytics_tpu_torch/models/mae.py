@@ -69,15 +69,18 @@ class TinyVideoMAE(nn.Module):
         return self.encoder.draw_drop_path(batch * frames, generator, device, stage_limit=3)
 
     def embed_tokens(self, clip: torch.Tensor, mask: torch.Tensor,
-                     drop: list | None = None) -> torch.Tensor:
+                     drop: list | None = None, frame_offset: int = 0) -> torch.Tensor:
         """Encode -> project to the decoder width -> position embeddings ->
-        mask-token substitution. Returns ``[B, T*L, D]``."""
+        mask-token substitution. Returns ``[B, T*L, D]``. ``clip`` holds
+        frames ``frame_offset ..`` of the clip (a ``seq`` mesh's block),
+        which take their slice of the temporal embedding."""
         B, T, H, W, C = clip.shape
         L, D = self.num_patches, self.decoder_embed_dim
         latent = self.encoder.forward_stage3(clip.reshape(B * T, H, W, C), drop)
         latent = latent.reshape(B * T, latent.shape[1] * latent.shape[2], latent.shape[3])
         x = linear(latent, self.enc_to_dec, self.dtype).reshape(B, T, L, D)
-        x = x + (self.temporal_pos_embed[:, :T] + self.spatial_pos_embed).to(x.dtype)
+        t_pos = self.temporal_pos_embed[:, frame_offset:frame_offset + T]
+        x = x + (t_pos + self.spatial_pos_embed).to(x.dtype)
         m = mask.reshape(B, T, L, 1).to(x.dtype)
         x = x * (1.0 - m) + self.mask_token.to(x.dtype)[:, None] * m
         return x.reshape(B, T * L, D)
@@ -89,13 +92,17 @@ class TinyVideoMAE(nn.Module):
         return linear(x.to(self.dtype), self.decoder_pred, self.dtype)
 
     def forward(self, clip: torch.Tensor, mask: torch.Tensor,
-                drop: list | None = None, with_aux: bool = False):
+                drop: list | None = None, with_aux: bool = False, frame_offset: int = 0):
         """clip ``[B, T, H, W, 3]`` float; mask ``[B, T, L]`` bool (True =
         masked); drop: the encoder's decisions (:meth:`draw_drop_path`).
         Returns pred ``[B, T*L, patch_size**2 * 3]``, or with ``with_aux``
         ``(pred, auxes)``: the MoE decoder blocks' load-balance auxiliaries
-        (empty for the dense decoder)."""
-        x, auxes = self.decoder(self.embed_tokens(clip, mask, drop), with_aux=True)
+        (empty for the dense decoder). Under a ``seq`` mesh ``clip`` is
+        this rank's block of frames from ``frame_offset`` on, and the
+        decoder (built with ``attn_impl="sp"``) attends over every rank's
+        tokens."""
+        x, auxes = self.decoder(self.embed_tokens(clip, mask, drop, frame_offset),
+                                with_aux=True)
         pred = self.predict_pixels(x)
         return (pred, auxes) if with_aux else pred
 
@@ -105,11 +112,12 @@ class MAEDecoder(nn.Module):
     (ref: src/models/tinyvit_mae.py:12-32)."""
 
     def __init__(self, embed_dim: int, decoder_dim: int, depth: int, num_heads: int,
-                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 attn_impl: str | None = None):
         super().__init__()
         self.proj = nn.Linear(embed_dim, decoder_dim)
         self.blocks = TransformerEncoder(decoder_dim, depth, num_heads, mlp_ratio=mlp_ratio,
-                                         dtype=dtype)
+                                         dtype=dtype, attn_impl=attn_impl)
         self.pred = nn.Linear(decoder_dim, embed_dim)
         self.dtype = dtype
 
@@ -123,15 +131,17 @@ class TinyViTMAE(nn.Module):
 
     def __init__(self, encoder: TinyViT, stage4_pool: int = 3, decoder_dim: int = 512,
                  decoder_depth: int = 2, decoder_num_heads: int = 8, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_impl: str | None = None):
         super().__init__()
         embed_dim = encoder.embed_dims[len(encoder.stages) - 1]
         self.encoder = encoder
         self.stage4_pool = stage4_pool
         self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         nn.init.trunc_normal_(self.mask_token, 0.0, 0.02, -0.04, 0.04)
+        # attn_impl reaches the decoder only ("sp": a seq mesh's block of
+        # frames attends over every rank's tokens; the encoder is per frame)
         self.decoder = MAEDecoder(embed_dim, decoder_dim, decoder_depth, decoder_num_heads,
-                                  mlp_ratio=mlp_ratio, dtype=dtype)
+                                  mlp_ratio=mlp_ratio, dtype=dtype, attn_impl=attn_impl)
 
     def draw_drop_path(self, batch: int, frames: int, generator: torch.Generator,
                        device=None) -> list:

@@ -9,6 +9,10 @@ both go through the autograd Function ``flash_attention.FlashAttention``:
 - ``plain``: the plain PyTorch forward and backward on any device. On a CUDA
   tensor it is taken only when a caller names it (tests, the kernel-vs-plain
   checks).
+- ``sp``: sequence parallel over the registered ``seq`` group
+  (:func:`set_sp_group`, ``parallel/sp.py``): this rank's queries over the
+  group's whole sequence, through the kernels. With no group registered
+  (one device) it is ``kernel``, as JAX's ``resolve_impl`` falls back.
 
 Layouts are the JAX package's: ``[B, L, H, Dh]`` for :func:`sdpa`, packed
 ``[B, L, H*Dh]`` for :func:`attention_packed`.
@@ -17,13 +21,33 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.sp import sp_attention_packed
 from .flash_attention import flash_attention_packed
+
+# The sequence-parallel group registered by the training entry
+# (entry/common.setup_parallelism); modules built with attn_impl="sp" shard
+# their attention over it (JAX's set_sp_mesh)
+_SP_GROUP = None
+
+
+def set_sp_group(group) -> None:
+    """Register (or clear, with None) the ``seq`` process group."""
+    global _SP_GROUP
+    _SP_GROUP = group
+
+
+def get_sp_group():
+    return _SP_GROUP
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int, impl: str | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh)) v over packed ``[B, L, H*Dh]`` inputs;
     ``impl`` None is ``"kernel"``."""
+    if impl == "sp":
+        if _SP_GROUP is not None:
+            return sp_attention_packed(q, k, v, num_heads, _SP_GROUP)
+        impl = None
     return flash_attention_packed(q, k, v, num_heads, impl or "kernel")
 
 

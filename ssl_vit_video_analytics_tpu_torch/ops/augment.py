@@ -48,14 +48,19 @@ def draw_augment(generator: torch.Generator, batch: int, *, max_shift: int = 8,
 
 def augment_clip(clip: torch.Tensor, generator: torch.Generator | None = None, *,
                  max_shift: int = 8, brightness: float = 0.2, contrast: float = 0.2,
-                 hflip: bool = False, draws: AugmentDraws | None = None) -> torch.Tensor:
+                 hflip: bool = False, draws: AugmentDraws | None = None,
+                 batch: int | None = None, rows: slice | None = None) -> torch.Tensor:
     """clip ``[B, T, H, W, C]`` float (after ``normalize_clip``) -> the same
     shape and dtype, augmented with ``draws`` or, without them, with draws
-    from ``generator``."""
+    from ``generator``. With ``batch`` and ``rows`` the clip is rows
+    ``rows`` of a batch of ``batch`` clips (a ``data`` mesh's block): the
+    draws are made for the whole batch and this call takes its rows'."""
     B, T, H, W, C = clip.shape
     if draws is None:
-        draws = draw_augment(generator, B, max_shift=max_shift, brightness=brightness,
-                             contrast=contrast, hflip=hflip)
+        draws = draw_augment(generator, batch or B, max_shift=max_shift,
+                             brightness=brightness, contrast=contrast, hflip=hflip)
+        if rows is not None:
+            draws = AugmentDraws(*(None if d is None else d[rows] for d in draws))
     out = clip
     if max_shift > 0:
         # edge padding then a window at the offset = source indices clamped

@@ -14,14 +14,17 @@ from __future__ import annotations
 from typing import Iterable, Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..models.classifier import VideoClassifier
-from ..models.layers import ConvBNAct, MoeMlp
+from ..models.layers import ConvBNAct, MoeMlp, global_batch
 from ..models.mobilevit import MobileViTBackbone
 from ..models.tiny_vit import TinyViTBackbone
 from ..ops.preprocess import normalize_clip
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import local_draws
 from ..utils.metrics import topk_accuracy
 from ..utils.prng import step_generator
 from .state import AdamW, TrainState, apply_updates, make_optimizer
@@ -174,22 +177,30 @@ def _backbone_frozen(model: VideoClassifier, params: Iterable[torch.Tensor]) -> 
 
 
 def loss_and_grads(model: VideoClassifier, params: list[torch.Tensor], clip: torch.Tensor,
-                   labels: torch.Tensor, drop: list | None):
+                   labels: torch.Tensor, drop: list | None, mesh=None):
     """Train-mode forward of a normalized ``clip``, cross-entropy on fp32
     logits, and its gradients for ``params``. A backbone with none of its
     params in ``params`` runs without recording its graph (its backward,
-    K2 included, is never needed). Returns ``(loss, logits, grads)``."""
+    K2 included, is never needed). Under a ``data`` mesh the BatchNorm
+    statistics are the global batch's (frozen too: its train-mode forward
+    normalizes with them) and the loss is this rank's share, its rows' sum
+    over the global batch. Returns ``(loss, logits, grads)``."""
     model.train()
-    with torch.set_grad_enabled(not _backbone_frozen(model, params)):
-        emb = model.video_embedding(clip, drop)
-    logits = model.classify_embedding(emb)
-    loss = F.cross_entropy(logits, labels.long())
-    grads = torch.autograd.grad(loss, params)
+    with global_batch(model, None if mesh is None else mesh.group):
+        with torch.set_grad_enabled(not _backbone_frozen(model, params)):
+            emb = model.video_embedding(clip, drop)
+        logits = model.classify_embedding(emb)
+        if mesh is None:
+            loss = F.cross_entropy(logits, labels.long())
+        else:
+            loss = (F.cross_entropy(logits, labels.long(), reduction="sum")
+                    / (labels.shape[0] * mesh.size))
+        grads = torch.autograd.grad(loss, params)
     return loss.detach(), logits.detach(), grads
 
 
 def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.float32,
-                    augment=None, seed: int = 0):
+                    augment=None, seed: int = 0, mesh=None):
     """One supervised step: normalize [-> augment] -> train-mode forward ->
     CE -> update.
 
@@ -202,20 +213,35 @@ def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.f
     folds ``state.step`` into ``key(seed + 1)``; the reference has none, so
     the default is None. Metrics are device scalars: ``loss``, ``top1``,
     ``top5``.
+
+    ``mesh``: a ``data`` mesh; ``batch`` holds this rank's rows, the draws
+    (augmentation, ``drop`` given or not) are the global batch's, and the
+    metrics are the global batch's on every rank.
     """
+    if mesh is not None and mesh.axis != "data":
+        raise ValueError(f"the finetune step runs data-parallel only, not over {mesh}")
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
              drop: list | None = None):
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         labels = batch["label"]
+        B, T = clip.shape[0], clip.shape[1]
+        Bg = B if mesh is None else B * mesh.size
         if augment is not None:
-            clip = augment(clip, generator=step_generator(seed + 1, state.step, clip.device))
+            gen = step_generator(seed + 1, state.step, clip.device)
+            clip = (augment(clip, generator=gen) if mesh is None
+                    else augment(clip, generator=gen, batch=Bg, rows=mesh.block(Bg)))
         if drop is None:
-            drop = model.draw_drop_path(clip.shape[0], clip.shape[1], generator,
-                                        device=clip.device)
-        loss, logits, grads = loss_and_grads(model, state.params, clip, labels, drop)
-        apply_updates(state, grads)
-        return state, {"loss": loss, **topk_accuracy(logits, labels)}
+            drop = model.draw_drop_path(Bg, T, generator, device=clip.device)
+        drop = local_draws(drop, mesh, Bg, T)
+        loss, logits, grads = loss_and_grads(model, state.params, clip, labels, drop, mesh)
+        apply_updates(state, grads, None if mesh is None else mesh.group)
+        metrics = {"loss": loss, **topk_accuracy(logits, labels)}
+        if mesh is not None:  # shares and equal-size row means -> global
+            metrics = {"loss": all_reduce(loss, mesh.group),
+                       **{k: all_reduce(v, mesh.group) / mesh.size
+                          for k, v in metrics.items() if k != "loss"}}
+        return state, metrics
 
     return step
 
@@ -231,9 +257,11 @@ def make_eval_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.fl
     return eval_step
 
 
-def evaluate(eval_step, batches, ks=(1, 5)) -> dict:
+def evaluate(eval_step, batches, ks=(1, 5), mesh=None) -> dict:
     """Masked (padding-aware) top-k over an eval split: rows whose ``valid``
-    is False (the padded tail) are not counted."""
+    is False (the padded tail) are not counted. Under a ``data`` mesh each
+    rank's ``batches`` are its rows; the counts are summed over the ranks,
+    so the result is one device's exactly."""
     total = 0
     correct = {k: 0 for k in ks}
     for batch in batches:
@@ -246,4 +274,17 @@ def evaluate(eval_step, batches, ks=(1, 5)) -> dict:
         total += int(keep.sum())
         for k in ks:
             correct[k] += int((match[:, :k].any(dim=1) & keep).sum())
+    if mesh is not None:
+        counts = all_reduce(torch.tensor([total] + [correct[k] for k in ks],
+                                         dtype=torch.int64, device=_device_of(mesh)),
+                            mesh.group)
+        total, correct = int(counts[0]), {k: int(c) for k, c in zip(ks, counts[1:])}
     return {f"top{k}": (correct[k] / max(total, 1)) for k in ks}
+
+
+def _device_of(mesh) -> torch.device:
+    """Where the mesh's collectives take their tensors: the current card
+    for NCCL, the CPU for gloo."""
+    if dist.get_backend(mesh.group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

@@ -11,6 +11,15 @@ reference's gradient accumulation, non-finite skip and collapse detector
 (pred_std < 0.05 -> [WARN:pred_std_low]) through :func:`wrap_accum_and_skip`
 and the step metrics. Masks, flips and stochastic-depth decisions come from
 an explicit generator, or are passed in (tests inject the JAX draws).
+
+Under a ``data`` or ``seq`` mesh (``parallel/mesh.py``) each rank holds its
+rows or frames of the global batch. Every draw is made for the global batch
+from the same generator on every rank, and each rank keeps its part, so a
+world of N ranks takes the draws of one device. Each rank's loss is its
+share of the global loss (its masked sum over the global masked count);
+BatchNorm statistics, the MoE auxiliary and the reported statistics are the
+global batch's, and the gradients are summed over the group before the
+optimizer (``train/state.apply_updates``).
 """
 from __future__ import annotations
 
@@ -18,18 +27,26 @@ import numpy as np
 import torch
 
 from ..data.masking import _topk_mask, get_tube_mask
+from ..models.layers import global_batch
 from ..ops.patchify import patchify
 from ..ops.preprocess import normalize_clip
-from .losses import build_mae_loss, mae_loss_l2, reconstruction_error_stats
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import global_clip_shape, local_draws, local_part
+from .losses import build_mae_loss, global_std, mae_loss_l2, reconstruction_error_stats
 from .state import ApplyIfFinite, MultiSteps, TrainState, apply_updates, global_norm
 
 COLLAPSE_STD_THRESHOLD = 0.05  # ref: src/mae/engine.py:143-145
 
 
+def _total(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A share summed over the mesh (the global value of a loss)."""
+    return x if mesh is None else all_reduce(x, mesh.group)
+
+
 def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
                         norm_pix_loss: bool = True,
                         compute_dtype: torch.dtype = torch.float32,
-                        moe_aux_weight: float = 0.0):
+                        moe_aux_weight: float = 0.0, mesh=None):
     """Pipeline-B step: tube mask -> TinyVideoMAE -> masked MSE on pixels
     (ref: src/train_ssl_mae.py:66-89).
 
@@ -47,38 +64,49 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
     ``generator``. Metrics are device scalars: ``loss``, ``pred_std``,
     ``grad_norm`` (of this call's gradient, before accumulation) and
     ``collapse``, and ``moe_aux`` with the auxiliary on.
+
+    ``mesh``: a ``data`` or ``seq`` mesh; ``batch`` then holds this rank's
+    rows or frames, ``mask`` and ``drop`` (when given) are the global
+    batch's, and the metrics are the global batch's on every rank.
     """
     moe_aux_on = moe_aux_weight > 0 and getattr(model, "decoder_moe_experts", 0)
+    group = None if mesh is None else mesh.group
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
              mask: torch.Tensor | None = None, drop: list | None = None):
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         B, T = clip.shape[0], clip.shape[1]
+        Bg, Tg, t0 = global_clip_shape(mesh, B, T)
         L = (clip.shape[2] // patch_size) * (clip.shape[3] // patch_size)
         if mask is None:
-            mask = get_tube_mask(generator, B, T, L, mask_ratio, device=clip.device)
+            mask = get_tube_mask(generator, Bg, Tg, L, mask_ratio, device=clip.device)
         if drop is None:
-            drop = model.draw_drop_path(B, T, generator, device=clip.device)
+            drop = model.draw_drop_path(Bg, Tg, generator, device=clip.device)
+        mask = local_part(mask.to(clip.device), mesh, Tg)
+        drop = local_draws(drop, mesh, Bg, Tg)
         target = patchify(clip.float(), patch_size)               # [B, T*L, p*p*3]
         flat_mask = mask.reshape(B, T * L)
 
         model.train()
-        if moe_aux_on:
-            pred, auxes = model(clip, mask, drop, with_aux=True)
-            aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
-            loss = (mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss)
-                    + moe_aux_weight * aux)
-        else:
-            pred = model(clip, mask, drop)
-            loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss)
-        grads = torch.autograd.grad(loss, state.params)
-        apply_updates(state, grads)
-        pred_std = pred.detach().float().std(unbiased=False)
-        metrics = {"loss": loss.detach(), "pred_std": pred_std,
+        with global_batch(model, group):
+            if moe_aux_on:
+                pred, auxes = model(clip, mask, drop, with_aux=True, frame_offset=t0)
+                aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
+                loss = (mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
+                                    group=group)
+                        + moe_aux_weight * aux)
+            else:
+                pred = model(clip, mask, drop, frame_offset=t0)
+                loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
+                                   group=group)
+            grads = torch.autograd.grad(loss, state.params)
+        apply_updates(state, grads, group)
+        pred_std = global_std(pred.detach(), group)
+        metrics = {"loss": _total(loss.detach(), mesh), "pred_std": pred_std,
                    "grad_norm": global_norm(grads),
                    "collapse": (pred_std < COLLAPSE_STD_THRESHOLD).float()}
         if moe_aux_on:
-            metrics["moe_aux"] = aux.detach()
+            metrics["moe_aux"] = _total(aux.detach(), mesh)
         return state, metrics
 
     return step
@@ -90,20 +118,23 @@ def traced_mask_count(n: int, mask_ratio: float) -> int:
     return max(1, int(np.round(np.float32(n) * np.float32(mask_ratio))))
 
 
-def token_mae_loss_and_grads(model, params, clip, token_mask, drop, loss_fn):
+def token_mae_loss_and_grads(model, params, clip, token_mask, drop, loss_fn, group=None):
     """Train-mode TinyViTMAE forward of a normalized ``clip``, the masked
-    feature loss and its gradients for ``params``. Returns ``(loss, rec,
-    target, grads)``."""
+    feature loss and its gradients for ``params`` (with a mesh's ``group``:
+    this rank's share of the loss, the group's BatchNorm statistics).
+    Returns ``(loss, rec, target, grads)``."""
     model.train()
-    rec, target = model(clip, token_mask, drop)
-    loss = loss_fn(rec, target, token_mask)
-    return loss.detach(), rec.detach(), target, torch.autograd.grad(loss, params)
+    with global_batch(model, group):
+        rec, target = model(clip, token_mask, drop)
+        loss = loss_fn(rec, target, token_mask)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), rec.detach(), target, grads
 
 
 def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
                         loss_type: str = "l2", normalize_target: bool = True,
                         augment_hflip: bool = False,
-                        compute_dtype: torch.dtype = torch.float32):
+                        compute_dtype: torch.dtype = torch.float32, mesh=None):
     """Pipeline-C step: token mask -> TinyViTMAE -> masked feature loss.
 
     Returns ``step(state, batch, generator, mask_ratio, token_mask=None,
@@ -117,8 +148,12 @@ def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
     scalars: ``loss``, ``mae_l1``, ``mae_l2``, ``pred_std``, ``target_std``,
     ``grad_norm`` (of this call's gradient, before accumulation) and
     ``collapse``.
+
+    ``mesh``: as :func:`make_pixel_mae_step` (under ``seq`` the model's
+    decoder is built with ``attn_impl="sp"``).
     """
-    loss_fn = build_mae_loss(loss_type, normalize_target=normalize_target)
+    group = None if mesh is None else mesh.group
+    loss_fn = build_mae_loss(loss_type, normalize_target=normalize_target, group=group)
     if mask_mode not in ("random", "tube"):
         raise ValueError(f"Unknown mask_mode: {mask_mode}")
     P = tokens_per_frame
@@ -128,24 +163,27 @@ def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
              drop: list | None = None):
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         B, T = clip.shape[0], clip.shape[1]
+        Bg, Tg, _ = global_clip_shape(mesh, B, T)
         if token_mask is None:
-            n = T * P if mask_mode == "random" else P
-            token_mask = _topk_mask(generator, B, n, traced_mask_count(n, mask_ratio),
+            n = Tg * P if mask_mode == "random" else P
+            token_mask = _topk_mask(generator, Bg, n, traced_mask_count(n, mask_ratio),
                                     clip.device)
             if mask_mode == "tube":
-                token_mask = token_mask.repeat(1, T)
+                token_mask = token_mask.repeat(1, Tg)
         if augment_hflip:
             if flip is None:
-                flip = torch.rand(B, generator=generator, device=generator.device) < 0.5
-            clip = torch.where(flip.to(clip.device)[:, None, None, None, None],
-                               clip.flip(3), clip)
+                flip = torch.rand(Bg, generator=generator, device=generator.device) < 0.5
+            flip = local_part(flip.to(clip.device), mesh)
+            clip = torch.where(flip[:, None, None, None, None], clip.flip(3), clip)
         if drop is None:
-            drop = model.draw_drop_path(B, T, generator, device=clip.device)
-        token_mask = token_mask.to(clip.device)
+            drop = model.draw_drop_path(Bg, Tg, generator, device=clip.device)
+        drop = local_draws(drop, mesh, Bg, Tg)
+        token_mask = local_part(token_mask.to(clip.device), mesh, Tg)
         loss, rec, target, grads = token_mae_loss_and_grads(model, state.params, clip,
-                                                            token_mask, drop, loss_fn)
-        apply_updates(state, grads)
-        stats = reconstruction_error_stats(rec, target, token_mask)
+                                                            token_mask, drop, loss_fn, group)
+        apply_updates(state, grads, group)
+        loss = _total(loss, mesh)
+        stats = reconstruction_error_stats(rec, target, token_mask, group)
         metrics = {"loss": loss, **stats, "grad_norm": global_norm(grads),
                    "collapse": (stats["pred_std"] < COLLAPSE_STD_THRESHOLD).float()}
         return state, metrics

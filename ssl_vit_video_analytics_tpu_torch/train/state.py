@@ -43,6 +43,8 @@ from typing import Callable, Mapping, Sequence
 import torch
 from torch import nn
 
+from ..parallel.collectives import all_reduce_grads
+
 
 def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
                            min_lr: float = 0.0) -> Callable[[int], float]:
@@ -251,9 +253,17 @@ def create_train_state(model: nn.Module, tx,
     return TrainState(step=0, model=model, tx=tx, ema=None if ema is None else dict(ema))
 
 
-def apply_updates(state: TrainState, grads: Sequence[torch.Tensor]) -> bool:
+def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], group=None) -> bool:
     """One optimizer call with ``grads`` (aligned with ``state.params``);
-    the step count always advances. Returns whether params changed."""
+    the step count always advances. Returns whether params changed.
+
+    With ``group`` (a ``data`` or ``seq`` mesh's) ``grads`` are each rank's
+    gradients of its share of the loss: they are summed over the group IN
+    PLACE first, so the global norm, clipping, the finite check and the
+    accumulation all see the global gradient and every rank takes the same
+    clip and skip decisions."""
+    if group is not None:
+        all_reduce_grads(grads, group)
     applied = state.tx.update(grads)
     state.step += 1
     return applied

@@ -110,13 +110,15 @@ H100_SXM_PEAK_BF16_FLOPS = 989e12
 
 
 def pipeline_b_mfu(clips_per_sec: float, clip_len: int, image_size: int = 112,
-                   **model_kwargs) -> float:
-    """Model FLOPs utilization of the pipeline-B train step on one H100 SXM.
-    ``model_kwargs`` go to :func:`pipeline_b_flops_per_clip`, so the count
-    follows non-default widths and depths. (The MoE decoder's dispatch and
-    combine are not model FLOPs: the count is the dense model's.)"""
+                   cards: int = 1, **model_kwargs) -> float:
+    """Model FLOPs utilization of the pipeline-B train step on ``cards``
+    H100 SXMs (``clips_per_sec`` over all of them; JAX divides by one
+    chip's peak whatever the mesh). ``model_kwargs`` go to
+    :func:`pipeline_b_flops_per_clip`, so the count follows non-default
+    widths and depths. (The MoE decoder's dispatch and combine are not
+    model FLOPs: the count is the dense model's.)"""
     return (clips_per_sec * pipeline_b_flops_per_clip(clip_len, image_size, **model_kwargs)
-            / H100_SXM_PEAK_BF16_FLOPS)
+            / (cards * H100_SXM_PEAK_BF16_FLOPS))
 
 
 def pipeline_b_model_kwargs(cfg: dict) -> dict:

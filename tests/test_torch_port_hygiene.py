@@ -80,7 +80,9 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "entry/common.py", "data/device_store.py", "train/finetune_engine.py",
             "models/classifier.py", "utils/convert.py", "entry/train_ssl.py",
             "entry/train_mae.py", "entry/sanity_check_mae.py", "models/temporal.py",
-            "models/heads.py", "train/ssl_engine.py", "ops/augment.py"} <= walked
+            "models/heads.py", "train/ssl_engine.py", "ops/augment.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+            "parallel/sp.py", "federated/core.py", "entry/run_federated.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):

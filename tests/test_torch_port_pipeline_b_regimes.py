@@ -30,7 +30,8 @@ def _yaml(name: str) -> dict:
     return load_config(os.path.join(REPO, "configs", f"{name}.yaml"), base=BASE)
 
 
-ONE_DEVICE_LINE = "the port runs on one device until ROADMAP item 15b"
+ONE_DEVICE_LINE = ("one process runs on one device; launch one process a card with "
+                   "torchrun --nproc_per_node N for several")
 # (config, allow_pp): both opt-in yamls as they stand, then each knob alone
 # and where two of them meet
 KNOB_CASES = {
@@ -69,7 +70,7 @@ def test_one_device_knob_resolution_matches_jax(case, monkeypatch):
     par = jcommon.setup_parallelism(cfg, 8, jax_lines.append, allow_pp=allow_pp)
     assert (par.mesh, par.batch_sharding, par.pp_mesh, par.pp_microbatches) == (
         None, None, None, None)
-    common.setup_parallelism(cfg, port_lines.append, allow_pp=allow_pp)
+    common.setup_parallelism(cfg, 8, port_lines.append, allow_pp=allow_pp)
     extra = [ln for ln in port_lines if ONE_DEVICE_LINE in ln]
     assert [ln for ln in port_lines if ONE_DEVICE_LINE not in ln] == jax_lines
     dev = cfg.get("device", {})
@@ -85,7 +86,7 @@ def test_one_device_knob_resolution_matches_jax(case, monkeypatch):
     # the data-parallel half alone (pipeline A, finetune): JAX is silent
     dp_lines = []
     jcommon.setup_data_parallel(cfg, 8, dp_lines.append)
-    common.setup_data_parallel(cfg, dp_lines.append)
+    common.setup_data_parallel(cfg, 8, dp_lines.append)
     assert dp_lines == ([f"[WARN] device.data_parallel=2 requested; {ONE_DEVICE_LINE}; "
                          "ignoring"] if case == "dp_n" else [])
 
