@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card and nvcc
     python3 chip_smoke.py --step-seeds 6 7 8   # the build, then phases 12
-                                                # and 14 on each seed
+                                                # and 14 on each seed (each
+                                                # bf16 gradient's distances
+                                                # per leaf into
+                                                # chiprun_out/step_seeds.jsonl)
 
 Phases, each printing JSON lines; any failure raises and exits non-zero:
 
@@ -37,7 +40,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and bf16 at the tolerances above; in bf16 the kernels' and SDPA's times
    and the bound at the whole batch, the plain versions' at one clip. The
    same at a rank's query shard of that attention under a seq mesh of 4
-   and of 8 ranks (Lq 3136 and 1568 over the gathered Lk 12544).
+   and of 8 ranks (Lq 3136 and 1568 over the gathered Lk 12544), and at the
+   head blocks a rank of a model mesh holds of pipeline B's decoder (4 x
+   3136^2 with 3, 2 and 1 heads of 64: tp 2, and the 6 heads split 2, 2, 1,
+   1 over tp 4).
 5. train step, kernel vs plain: the full-width TinyVideoMAE (configs/
    ssl_mae.yaml widths) at B=2 clips, the same weights, mask and drop-path
    decisions through the kernels and through the plain versions: in fp32,
@@ -223,7 +229,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    and bf16 held by phase 10's rule (judge_step, the runtime run in the
    kernel run's place), K1/K2 20/12 a step on both; one FedAvg round of 2
    clients over the client mesh against the round without it (fp32, cuDNN
-   deterministic; 1e-5). A failed NCCL init fails the phase.
+   deterministic; 1e-5). Then model sharding over one-rank meshes, the
+   model cut over the mesh's model axis (parallel/shard.py): 2 steps of
+   configs/ssl_mae_moe.yaml (2 clips, 8 experts in groups of 392 tokens)
+   over {data: 1, expert: 1}, 2 of configs/ssl_mae.yaml over {data: 1,
+   model: 1} and 2 over {pipe: 1} in 2 microbatches (the split and the
+   stage's schedule), each against the same steps without the mesh by
+   judge_step, K1/K2 20/12 a step (24/16 in the pipe's microbatches: the
+   decoder's 4 layers run once a microbatch). Each path's bf16 second step,
+   host-timed with and without its mesh, goes on a line of its own. A
+   failed NCCL init fails the phase.
 26. The launcher: torchrun --standalone --nproc_per_node 1 of
    entry.train_ssl_mae on configs/ssl_mae.yaml (phase 6's split; one epoch
    of 2 steps of 20 clips, every step logged, a checkpoint at its end):
@@ -234,8 +249,8 @@ Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
 sanity check, privacy, the federated baseline, client steps, evaluation and
 the in-process bridge, the MoE and long-clip pretraining, the augmented
-finetune, and the runtime's data steps, seq steps and FedAvg round) is
-driven and read just after. The line before the
+finetune, and the runtime's data steps, seq steps, FedAvg round and
+expert, model and pipe steps) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -266,7 +281,8 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "sanity_check_mae", "run_privacy", "fed_centralized", "fed_client_steps", "fed_eval",
          "system_federated", "train_ssl_mae_moe", "train_ssl_mae_longclip",
          "train_finetune_augment", "runtime_data_steps", "runtime_seq_steps",
-         "runtime_fedavg")
+         "runtime_fedavg", "runtime_expert_steps", "runtime_model_steps",
+         "runtime_pipe_steps")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -340,10 +356,19 @@ OPT_IN_STEP_CLIPS = {"moe": 2, "longclip": 1}
 LONGCLIP_SHAPES = [("longclip_decoder", 8, 12544, 12544, 6, 64),
                    ("longclip_seq_shard4", 8, 3136, 12544, 6, 64),
                    ("longclip_seq_shard8", 8, 1568, 12544, 6, 64)]
+# the head blocks that a rank of a model mesh holds of pipeline B's decoder
+# attention (parallel/tp.py: whole heads, 6 over tp 2 is 3 a rank, over tp 4
+# 2, 2, 1, 1), held and timed as the long-clip shapes
+TP_SHAPES = [("mae_decoder_tp_h3", 4, 3136, 3136, 3, 64),
+             ("mae_decoder_tp_h2", 4, 3136, 3136, 2, 64),
+             ("mae_decoder_tp_h1", 4, 3136, 3136, 1, 64)]
 # the runtime over a one-rank NCCL group (phase 25): pipeline-B steps of
 # configs/ssl_mae.yaml at 2 clips and of configs/ssl_mae_longclip.yaml at one
 RUNTIME_STEPS = 2
-RUNTIME_CLIPS = {"ssl_mae": 2, "longclip": 1}
+RUNTIME_CLIPS = {"ssl_mae": 2, "longclip": 1, "moe": 2}
+# the pipe mesh's microbatches (device.pp_microbatches); the decoder's 4
+# attention layers run once a microbatch
+RUNTIME_MICROBATCHES = 2
 # phase 26: the launcher's pipeline-B run (configs/ssl_mae.yaml on phase 6's
 # 40-clip split; departures: one epoch of 2 steps of 20 clips, every step
 # logged, a checkpoint at its end)
@@ -1461,6 +1486,10 @@ def compare_impls(model, run, want_k1_k2: tuple, record: dict) -> dict:
     return res
 
 
+# --step-seeds: each bf16 judgement's distances per leaf, collected here
+LEAF_DISTANCES: list | None = None
+
+
 def judge_step(out: dict, dtype, res: dict, names: list, ref32: dict) -> dict:
     """Phase 10's rule on one dtype's kernel and plain runs: the loss to
     TOL_STEP_LOSS(_BF16) relative, every gradient to TOL_STEP_GRAD(_BF16)
@@ -1508,6 +1537,12 @@ def judge_step(out: dict, dtype, res: dict, names: list, ref32: dict) -> dict:
     if not fp32:  # how far bf16 rounding alone moves each run's loss
         out["loss_rel_vs_fp32"] = loss32
         out["loss_beyond_tol"] = not loss_rel <= tol_loss
+        if LEAF_DISTANCES is not None:
+            LEAF_DISTANCES.append({
+                "phase": out["phase"], "seed": out.get("seed"),
+                "failed": [names[i] for i in failed], "leaves": {
+                    names[i]: {"kernel_vs_plain": rels[i], "kernel_vs_fp32": k32[i],
+                               "plain_vs_fp32": p32[i]} for i in checked}})
     emit(out)
     if not (loss_ok and not failed and math.isfinite(kern["loss"])):
         raise AssertionError(f"{out['phase']} {dtype}: loss rel {loss_rel}, grad "
@@ -2558,26 +2593,36 @@ class GradRecorder:
         self.inner = inner
         self.seen = []
 
-    def update(self, grads):
+    def update(self, grads, shards=None):
         self.seen.append([g.detach().clone() for g in grads])
-        return self.inner.update(grads)
+        return self.inner.update(grads, shards)
+
+
+# phase 25's initial weights by config, and its runs without a mesh by
+# config and dtype: the meshes of one config share them
+RUNTIME_CACHE: dict = {}
 
 
 def runtime_steps(dev, name: str, mesh) -> list[dict]:
-    """RUNTIME_STEPS pipeline-B steps of ``name`` ("ssl_mae" or
-    "longclip", RUNTIME_CLIPS clips) through ``make_pixel_mae_step`` with
-    the mesh's runtime (its BatchNorm all-reduces, the gradient reduction
-    and, under seq, the decoder's sp attention with its K/V gather) and
-    without it, from the same weights, clips, masks and drop-path
-    decisions, fp32 (TF32 off) and bf16; each step's loss and gradients
-    held by :func:`judge_step` (the runtime run in the kernel run's place),
-    K1/K2 per step 20/12 on both. Returns each judged step and the runtime
-    bf16 run's launches."""
+    """RUNTIME_STEPS pipeline-B steps of ``name`` ("ssl_mae", "longclip" or
+    "moe", RUNTIME_CLIPS clips) through ``make_pixel_mae_step`` with the
+    mesh's runtime (its BatchNorm all-reduces, the gradient reduction,
+    under seq the decoder's sp attention with its K/V gather, and over a
+    model axis the model cut by ``parallel/shard.shard_model`` with its
+    collectives; a pipe mesh runs the decoder in RUNTIME_MICROBATCHES
+    microbatches) and without it, from the same weights, clips, masks and
+    drop-path decisions, fp32 (TF32 off) and bf16; each step's loss and
+    gradients held by :func:`judge_step` (the runtime run in the kernel
+    run's place), K1/K2 per step 20/12 on both (the pipe's 24/16). Returns
+    each judged step and the runtime bf16 run's launches. The runs without
+    the mesh, and the initial weights, are made once a config
+    (RUNTIME_CACHE)."""
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
     from ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae import build_model
     from ssl_vit_video_analytics_tpu_torch.ops import attention
+    from ssl_vit_video_analytics_tpu_torch.parallel.shard import shard_model
     from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
     from ssl_vit_video_analytics_tpu_torch.train.mae_engine import (
         make_pixel_mae_step, wrap_accum_and_skip)
@@ -2586,8 +2631,13 @@ def runtime_steps(dev, name: str, mesh) -> list[dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ssl_mae_cfg("", "") if name == "ssl_mae" else opt_in_cfg("longclip", "", "", "")
-    seq = mesh.axis == "seq"
+    cfg = ssl_mae_cfg("", "") if name == "ssl_mae" else opt_in_cfg(name, "", "", "")
+    seq = mesh.split_axis == "seq"
+    pipe = mesh.model_axis == "pipe"
+    axis = mesh.model_axis or mesh.split_axis
+    k1_k2 = ((K1_CALLS_PER_STEP + 4 * (RUNTIME_MICROBATCHES - 1),
+              K2_CALLS_PER_STEP + 4 * (RUNTIME_MICROBATCHES - 1)) if pipe
+             else (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP))
     B, T, S = RUNTIME_CLIPS[name], cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
     L = (S // 8) ** 2
     g = torch.Generator(device=dev).manual_seed(9)
@@ -2598,10 +2648,18 @@ def runtime_steps(dev, name: str, mesh) -> list[dict]:
     for dtype in (torch.float32, torch.bfloat16):
         runs = {}
         for path, m in (("runtime", mesh), ("direct", None)):
+            if path == "direct" and (name, dtype) in RUNTIME_CACHE:
+                runs[path] = RUNTIME_CACHE[name, dtype]
+                continue
             model = build_model(cfg, dtype, decoder_attn_impl="sp" if m is not None and seq
                                 else None)
-            init_model(model, torch.Generator().manual_seed(0))
+            if name not in RUNTIME_CACHE:
+                init_model(model, torch.Generator().manual_seed(0))
+                RUNTIME_CACHE[name] = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(RUNTIME_CACHE[name])
             model.to(dev)
+            if m is not None:
+                shard_model(model, m)
             if drops is None:
                 drops = [model.draw_drop_path(B, T, g) for _ in clips]
             names = [n for n, _ in model.named_parameters()]
@@ -2611,9 +2669,12 @@ def runtime_steps(dev, name: str, mesh) -> list[dict]:
             # arithmetic (a BatchNorm bias ahead of another BatchNorm)
             tx = GradRecorder(wrap_accum_and_skip(make_optimizer(model.parameters(), 0.0), 1))
             state = create_train_state(model, tx)
-            step = make_pixel_mae_step(model, cfg["ssl"]["mask_ratio"], compute_dtype=dtype,
-                                       mesh=m)
-            attention.set_sp_group(m.group if m is not None and seq else None)
+            step = make_pixel_mae_step(
+                model, cfg["ssl"]["mask_ratio"], compute_dtype=dtype,
+                moe_aux_weight=cfg["ssl"].get("moe_aux_weight", 0.0),
+                mesh=None if pipe else m, pp_mesh=m if pipe else None,
+                pp_microbatches=RUNTIME_MICROBATCHES if pipe else None)
+            attention.set_sp_group(m.group() if m is not None and seq else None)
             runs[path] = []
             reset_counts()
             try:
@@ -2633,13 +2694,15 @@ def runtime_steps(dev, name: str, mesh) -> list[dict]:
                 attention.set_sp_group(None)
             if path == "runtime" and dtype == torch.bfloat16:
                 launched = read_counts()
+            if path == "direct":
+                RUNTIME_CACHE[name, dtype] = runs[path]
             del model, state, tx
         for i, (rt, direct) in enumerate(zip(runs["runtime"], runs["direct"])):
-            out = {"phase": f"runtime_{mesh.axis}_step_vs_direct", "config": name, "B": B,
+            out = {"phase": f"runtime_{axis}_step_vs_direct", "config": name, "B": B,
                    "T": T, "step": i + 1, "mesh": repr(mesh),
                    "runs": "kernel = through the one-rank runtime, plain = without it"}
-            if rt["k1_k2"] != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP) or \
-                    direct["k1_k2"] != rt["k1_k2"]:
+            if rt["k1_k2"] != k1_k2 or direct["k1_k2"] != (K1_CALLS_PER_STEP,
+                                                           K2_CALLS_PER_STEP):
                 raise AssertionError(f"{out}: K1/K2 {rt['k1_k2']} with the runtime, "
                                      f"{direct['k1_k2']} without")
             outs.append(judge_step(out, dtype, {"kernel": rt, "plain": direct}, names,
@@ -2710,9 +2773,11 @@ def phase_runtime(dev, tmp: str) -> dict:
     reduce-scatter, the FedAvg all-reduce) runs through NCCL on the card.
     Pipeline-B steps of configs/ssl_mae.yaml over the data mesh and of
     configs/ssl_mae_longclip.yaml over the seq mesh (through
-    parallel/sp.sp_attention_packed), and a FedAvg round over the client
-    mesh, each held to the same work without the runtime. A failed NCCL
-    init fails the phase; nothing falls back to gloo or to the CPU."""
+    parallel/sp.sp_attention_packed), a FedAvg round over the client mesh,
+    and the model-sharding meshes: configs/ssl_mae_moe.yaml over {data: 1,
+    expert: 1}, configs/ssl_mae.yaml over {data: 1, model: 1} and over
+    {pipe: 1}; each held to the same work without the runtime. A failed
+    NCCL init fails the phase; nothing falls back to gloo or to the CPU."""
     import torch.distributed as dist
 
     from ssl_vit_video_analytics_tpu_torch.parallel import mesh as pmesh
@@ -2728,6 +2793,17 @@ def phase_runtime(dev, tmp: str) -> dict:
         _, paths["runtime_seq_steps"] = runtime_steps(dev, "longclip",
                                                       pmesh.make_mesh({"seq": 1}))
         _, paths["runtime_fedavg"] = runtime_fedavg(dev, pmesh.make_mesh({"client": 1}))
+        timed = {}
+        for path, name, axes in (("runtime_expert_steps", "moe", {"data": 1, "expert": 1}),
+                                 ("runtime_model_steps", "ssl_mae", {"data": 1, "model": 1}),
+                                 ("runtime_pipe_steps", "ssl_mae", {"pipe": 1})):
+            judged, paths[path] = runtime_steps(dev, name, pmesh.make_mesh(axes))
+            second = judged[-1]  # bf16, step 2
+            timed[path] = {"mesh": second["mesh"], "config": name,
+                           "ms_with_mesh": second["ms_kernel"],
+                           "ms_without": second["ms_plain"]}
+        emit({"phase": "runtime_second_step_ms", "dtype": "bfloat16",
+              "clock": "host, after a sync", "paths": timed})
     finally:
         dist.destroy_process_group()
     return paths
@@ -2778,7 +2854,13 @@ def phase_launch(tmp: str, split: str) -> dict:
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
-    end if any seed failed."""
+    end if any seed failed. Each bf16 judgement's relative L2 distances per
+    leaf (kernel vs plain, each vs the fp32 plain run: the plain bf16 run's
+    own distance is the noise yardstick) go to
+    chiprun_out/step_seeds.jsonl, and per phase the leaves whose plain bf16
+    run lies furthest from fp32 across the seeds to a line of their own."""
+    global LEAF_DISTANCES
+    LEAF_DISTANCES = []
     failed = []
     for seed in seeds:
         for phase in (phase_ssl_step, phase_mae_step):
@@ -2787,6 +2869,19 @@ def step_seeds(dev, seeds: list[int]) -> None:
             except AssertionError as e:
                 failed.append(f"{phase.__name__} seed {seed}: {e}")
                 emit({"phase": "step_seed_failed", "seed": seed, "step": phase.__name__})
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "step_seeds.jsonl"), "w") as f:
+        for row in LEAF_DISTANCES:
+            f.write(json.dumps(row) + "\n")
+    for phase in sorted({row["phase"] for row in LEAF_DISTANCES}):
+        rows = [row for row in LEAF_DISTANCES if row["phase"] == phase]
+        noise = {leaf: max(row["leaves"][leaf]["plain_vs_fp32"] for row in rows)
+                 for leaf in rows[0]["leaves"]}
+        emit({"phase": "step_seeds_noise", "step": phase, "seeds": [r["seed"] for r in rows],
+              "failed": {r["seed"]: r["failed"] for r in rows if r["failed"]},
+              "plain_bf16_vs_fp32_max_over_seeds": dict(
+                  sorted(noise.items(), key=lambda kv: -kv[1])[:8])})
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -2809,17 +2904,25 @@ def main() -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
+    def lap(after: str) -> None:  # where the run's seconds go
+        emit({"phase": "elapsed", "after": after, "seconds": time.perf_counter() - t_start})
+
     phase_build()
+    lap("build")
     if len(sys.argv) > 2 and sys.argv[1] == "--step-seeds":
         step_seeds(dev, [int(a) for a in sys.argv[2:]])
         return
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
-    longclip = {shape[0]: phase_longclip_kernels(fa, dev, shape) for shape in LONGCLIP_SHAPES}
+    lap("kernels")
+    longclip = {shape[0]: phase_longclip_kernels(fa, dev, shape)
+                for shape in LONGCLIP_SHAPES + TP_SHAPES}
+    lap("long-clip and head-block kernels")
     phase_train_step(fa, dev)
     with tempfile.TemporaryDirectory() as tmp:  # phase 6's checkpoint serves phase 11
         paths = {}
         paths["train_ssl_mae"], ssl_ckpt, ssl_split = phase_train(fa, dev, tmp)
+        lap("pipeline B")
         serving = phase_slice(fa, dev)
         paths["run_dynamic_streaming"] = serving["streaming"]
         paths["run_dynamic_batched"] = serving["batched"]
@@ -2827,22 +2930,29 @@ def main() -> None:
         paths["probe_dw"] = p1.pop("launched")
         p2 = phase_chain(dev)
         paths["probe_exp"] = p2.pop("launched")
+        lap("serving and probes")
         phase_finetune_step(dev)
         paths.update(phase_transfer(fa, dev, tmp, ssl_ckpt))
+        lap("transfer")
         phase_ssl_step(dev)
         paths["train_ssl"] = phase_ssl_train(dev, tmp)
         phase_mae_step(dev)
         paths.update(phase_mae_train(dev, tmp))
+        lap("pipelines A and C")
         phase_fed_client_step(dev)
         splits = fed_data(tmp)
         paths["run_privacy"] = phase_privacy(dev, tmp, splits)
         paths.update(phase_federated(dev, tmp, splits))
+        lap("privacy and federated")
         for regime in OPT_IN_YAML:
             phase_opt_in_step(dev, regime)
             paths[f"train_ssl_mae_{regime}"] = phase_opt_in_train(dev, tmp, regime, ssl_split)
         paths["train_finetune_augment"] = phase_finetune_augment(dev, tmp, ssl_ckpt)
+        lap("opt-in regimes")
         paths.update(phase_runtime(dev, tmp))
+        lap("runtime")
         phase_launch(tmp, ssl_split)
+        lap("launch")
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

@@ -1,8 +1,9 @@
 """Shared runtime plumbing for the CLI entry points (the JAX package's
 ``entry/common.py``): config and device resolution, the launcher's process
 group and the multi-device knobs resolved as JAX resolves them over its
-devices (``data`` and ``seq`` meshes; model sharding is ROADMAP item 15c),
-the device-resident split and each rank's part of the epoch's batches."""
+devices (``data``, ``seq``, ``data`` x ``expert``, ``pipe`` and ``data`` x
+``model`` meshes), the device-resident split and each rank's part of the
+epoch's batches."""
 from __future__ import annotations
 
 import argparse
@@ -16,6 +17,9 @@ from ..data.device_store import ChunkedDeviceClipStore, DeviceClipStore
 from ..data.loader import ClipDataset, iterate_batches, prefetch_to_device, to_device
 from ..ops import attention
 from ..parallel import mesh as pmesh
+from ..parallel.ep import count_bank_sharded
+from ..parallel.shard import shard_model
+from ..parallel.tp import count_sharded
 from ..utils.config import load_config
 from ..utils.io import Logger, ensure_dir
 
@@ -62,22 +66,36 @@ def init_distributed(cfg: dict, device: str | torch.device | None = None,
 
 ONE_DEVICE = ("one process runs on one device; launch one process a card with "
               "torchrun --nproc_per_node N for several")
-NOT_PORTED = "model sharding is ROADMAP item 15c of the PyTorch port"
+# the port's words where JAX's TP line says "(attention impl -> xla)": the
+# port keeps its kernels under TP, on whole heads (parallel/tp.py)
+TP_ATTENTION = "(attention: K1/K2 on each rank's whole heads)"
 
 
 class ParallelRuntime(NamedTuple):
-    """What :func:`setup_parallelism` resolved: the ``data`` or ``seq``
-    mesh (None on one device) and whether the decoder's attention is
-    sequence parallel (``sp_on``, also set when it falls back on one
-    device, as JAX's)."""
+    """What :func:`setup_parallelism` resolved: the mesh (None on one
+    device), whether the decoder's attention is sequence parallel
+    (``sp_on``, also set when it falls back on one device, as JAX's), and
+    under pipeline parallelism the ``pipe`` mesh again as ``pp_mesh`` with
+    its microbatch count (JAX's fields)."""
 
     mesh: pmesh.Mesh | None
     sp_on: bool = False
+    pp_mesh: pmesh.Mesh | None = None
+    pp_microbatches: int | None = None
 
     @property
     def member(self) -> bool:
         """Whether this rank takes part (every rank on one device)."""
         return self.mesh is None or self.mesh.member
+
+
+class Resolution(NamedTuple):
+    """What :func:`resolve_parallelism` picks: the mesh's ``{axis: size}``
+    (None: one device), ``sp_on``, and the pipeline's microbatches."""
+
+    axes: dict | None
+    sp_on: bool = False
+    pp_microbatches: int | None = None
 
 
 def _data_parallel_request(cfg: dict) -> int:
@@ -119,28 +137,53 @@ def resolve_data_parallel(cfg: dict, batch_size: int, world: int, log=print) -> 
         log(f"[WARN] batch_size={batch_size} not divisible across {world} devices; "
             "running single-device")
         return 1
-    log(f"[INFO] data-parallel over {n} devices: {pmesh.mesh_repr('data', n)}")
+    log(f"[INFO] data-parallel over {n} devices: {pmesh.mesh_repr({'data': n})}")
     return n
 
 
-def resolve_parallelism(cfg: dict, batch_size: int, world: int, log=print,
-                        allow_pp: bool = False) -> tuple[str | None, int, bool]:
-    """``(axis, n, sp_on)``: the mesh that the JAX entries'
-    ``setup_parallelism`` (pipelines B and C) builds over ``world`` devices
-    (axis None: one device), with its log lines:
+def _expert_mesh(cfg: dict, ep: int, moe: int, batch_size: int, world: int, log) -> dict:
+    """JAX's ``data`` x ``expert`` mesh: ep shrinks until it divides the
+    experts; the ranks left form the data axis, capped by an explicit
+    ``device.data_parallel`` (``is True``, not ``== 1``: an explicit 1
+    turns it off) and shrunk until it divides the batch."""
+    ep = min(ep, world)
+    while ep > 1 and moe % ep:
+        ep -= 1
+    dp_req = cfg.get("device", {}).get("data_parallel", "auto")
+    dp = (world // ep if (dp_req == "auto" or dp_req is True or dp_req is None)
+          else int(dp_req or 1))
+    dp = max(1, min(dp, world // ep))
+    while dp > 1 and batch_size % dp:
+        dp -= 1
+    axes = {"data": dp, "expert": ep}
+    log(f"[INFO] expert-parallel MoE decoder: {moe} experts over {ep} devices"
+        + (f" x dp{dp}" if dp > 1 else "") + f": {pmesh.mesh_repr(axes)}")
+    return axes
 
-    - ``device.expert_parallel`` and ``device.pipeline_parallel`` (the
-      pipeline-B entry alone, ``allow_pp``) and ``device.model_parallel``:
-      where JAX would build a tensor-, pipeline- or expert-parallel mesh
-      (more than one device) the port raises ``NotImplementedError`` (ROADMAP
-      item 15c); where JAX warns and ignores, it warns and ignores.
+
+def resolve_parallelism(cfg: dict, batch_size: int, world: int, log=print,
+                        allow_pp: bool = False) -> Resolution:
+    """The mesh that the JAX entries' ``setup_parallelism`` (pipelines B
+    and C) builds over ``world`` devices, with its log lines, in its order
+    of precedence:
+
+    - ``device.expert_parallel`` (the pipeline-B entry alone, ``allow_pp``;
+      exclusive with the other model-sharding knobs; needs
+      ``model.decoder_moe_experts``): ``{"data": dp, "expert": ep}``.
+    - ``device.pipeline_parallel`` (pipeline B alone): ``{"pipe": pp}``
+      with ``device.pp_microbatches`` (default pp) microbatches, which must
+      divide the batch (JAX's ``ValueError``).
     - ``model.sequence_parallel`` (or ``device.sequence_parallel``): a
       ``seq`` axis over every rank; on one device the single-device kernel
       with JAX's warning (``sp_on`` stays set, as JAX's).
+    - ``device.model_parallel``: ``{"data": dp, "model": tp}``, tp shrunk
+      until it divides the ranks, dp the rest shrunk until it divides the
+      batch.
     - else :func:`resolve_data_parallel`.
 
-    On one device, where JAX is silent on ``device.model_parallel`` and an
-    explicit ``device.data_parallel: N``, one warning names them."""
+    Where JAX warns and ignores a knob, so does the port. On one device,
+    where JAX is silent on ``device.model_parallel`` and an explicit
+    ``device.data_parallel: N``, one warning names them."""
     dev = cfg.get("device", {})
     sp_on = bool(cfg.get("model", {}).get("sequence_parallel", False)
                  or dev.get("sequence_parallel", False))
@@ -148,20 +191,19 @@ def resolve_parallelism(cfg: dict, batch_size: int, world: int, log=print,
     pp = int(dev.get("pipeline_parallel", 1) or 1)
     ep = int(dev.get("expert_parallel", 1) or 1)
     if ep > 1:
+        moe = int(cfg.get("model", {}).get("decoder_moe_experts", 0) or 0)
         if not allow_pp:
             log("[WARN] device.expert_parallel is only supported by the "
                 "pipeline-B entry (train_ssl_mae); ignoring")
         elif sp_on or tp > 1 or pp > 1:
             log("[WARN] expert_parallel is exclusive with the other "
                 "model-sharding knobs; ignoring expert_parallel")
-        elif int(cfg.get("model", {}).get("decoder_moe_experts", 0) or 0) <= 0:
+        elif moe <= 0:
             log("[WARN] expert_parallel needs model.decoder_moe_experts > 0; ignoring")
         elif world < 2:
             log("[WARN] expert_parallel requested on 1 device; ignoring")
         else:
-            raise NotImplementedError(
-                f"device.expert_parallel={ep} over {world} ranks: {NOT_PORTED}; "
-                "--set device.expert_parallel=1 runs the MoE decoder data-parallel")
+            return Resolution(_expert_mesh(cfg, ep, moe, batch_size, world, log))
     if pp > 1:
         if not allow_pp:
             log("[WARN] device.pipeline_parallel is only supported by the "
@@ -172,36 +214,48 @@ def resolve_parallelism(cfg: dict, batch_size: int, world: int, log=print,
         elif world < 2:
             log("[WARN] pipeline_parallel requested on 1 device; ignoring")
         else:
-            raise NotImplementedError(
-                f"device.pipeline_parallel={pp} over {world} ranks: {NOT_PORTED}; "
-                "--set device.pipeline_parallel=1 runs it data-parallel")
+            pp = min(pp, world)
+            axes = {"pipe": pp}
+            n_micro = int(dev.get("pp_microbatches", pp) or pp)
+            if batch_size % n_micro:
+                raise ValueError(f"batch_size={batch_size} not divisible by "
+                                 f"pp_microbatches={n_micro}")
+            log(f"[INFO] pipeline-parallel decoder over {pp} stages, "
+                f"{n_micro} microbatches: {pmesh.mesh_repr(axes)}")
+            return Resolution(axes, False, n_micro)
     if sp_on:
         if world == 1:
             log("[WARN] sequence_parallel requested on 1 device; attention "
                 "falls back to the single-device kernel")
             _warn_one_device(cfg, tp, log)
-            return None, 1, True
-        log(f"[INFO] sequence-parallel over {world} devices: {pmesh.mesh_repr('seq', world)}")
-        return "seq", world, True
+            return Resolution(None, True)
+        axes = {"seq": world}
+        log(f"[INFO] sequence-parallel over {world} devices: {pmesh.mesh_repr(axes)}")
+        return Resolution(axes, True)
     if tp > 1 and world > 1:
-        raise NotImplementedError(
-            f"device.model_parallel={tp} over {world} ranks: {NOT_PORTED}; "
-            "--set device.model_parallel=1 runs it data-parallel")
+        tp = min(tp, world)
+        while tp > 1 and world % tp:
+            tp -= 1
+        dp = world // tp
+        while dp > 1 and batch_size % dp:
+            dp -= 1
+        axes = {"data": dp, "model": tp}
+        log(f"[INFO] dp{dp} x tp{tp} mesh: {pmesh.mesh_repr(axes)} {TP_ATTENTION}")
+        return Resolution(axes)
     if world == 1:
         _warn_one_device(cfg, tp, log)
-        return None, 1, False
+        return Resolution(None)
     n = resolve_data_parallel(cfg, batch_size, world, log)
-    return ("data" if n > 1 else None), n, False
+    return Resolution({"data": n} if n > 1 else None)
 
 
-def _mesh(axis: str, n: int) -> pmesh.Mesh:
-    """The mesh of the first ``n`` ranks; a rank outside it prints one
-    line (rank 0 is in every mesh, and the other ranks' loggers are
-    silent)."""
-    mesh = pmesh.make_mesh({axis: n})
+def _mesh(axes: dict) -> pmesh.Mesh:
+    """The mesh of the first ranks; a rank outside it prints one line
+    (rank 0 is in every mesh, and the other ranks' loggers are silent)."""
+    mesh = pmesh.make_mesh(axes)
     if not mesh.member:
-        print(f"[INFO] rank {pmesh.rank()} is outside the {axis} mesh of {n} ranks; "
-              "it takes no part", flush=True)
+        print(f"[INFO] rank {pmesh.rank()} is outside the mesh {mesh!r}; it takes no part",
+              flush=True)
     return mesh
 
 
@@ -210,19 +264,39 @@ def setup_data_parallel(cfg: dict, batch_size: int, log=print) -> pmesh.Mesh | N
     :func:`resolve_data_parallel` picks (pipeline A, the finetune), or None
     on one device."""
     n = resolve_data_parallel(cfg, batch_size, pmesh.world_size(), log)
-    return _mesh("data", n) if n > 1 else None
+    return _mesh({"data": n}) if n > 1 else None
 
 
 def setup_parallelism(cfg: dict, batch_size: int, log=print,
                       allow_pp: bool = False) -> ParallelRuntime:
     """The runtime of :func:`resolve_parallelism` over the launcher's
-    ranks: its mesh, and under ``seq`` the group registered for the
-    decoder's ``"sp"`` attention (``ops/attention.set_sp_group``)."""
-    axis, n, sp_on = resolve_parallelism(cfg, batch_size, pmesh.world_size(), log, allow_pp)
-    mesh = _mesh(axis, n) if axis is not None else None
-    if sp_on:
-        attention.set_sp_group(None if mesh is None or not mesh.member else mesh.group)
-    return ParallelRuntime(mesh, sp_on)
+    ranks: its mesh, under ``seq`` the group registered for the decoder's
+    ``"sp"`` attention (``ops/attention.set_sp_group``), and under ``pipe``
+    the pipeline's mesh and microbatches. The model is cut over the mesh
+    by the entry (:func:`place_model`)."""
+    res = resolve_parallelism(cfg, batch_size, pmesh.world_size(), log, allow_pp)
+    mesh = _mesh(res.axes) if res.axes is not None else None
+    if res.sp_on:
+        attention.set_sp_group(None if mesh is None or not mesh.member else mesh.group())
+    if res.pp_microbatches is not None:
+        return ParallelRuntime(mesh, False, mesh, res.pp_microbatches)
+    return ParallelRuntime(mesh, res.sp_on)
+
+
+def place_model(model: torch.nn.Module, mesh: pmesh.Mesh | None, log=print) -> None:
+    """JAX's ``place_state``: the replicas made identical (from the mesh's
+    first rank), then cut over the mesh's model axis, with JAX's log line
+    of the leaves cut (``EP: n/N param leaves (expert banks) sharded over
+    'expert'``, ``TP: n/N param leaves sharded over 'model'``)."""
+    pmesh.broadcast_module(model, mesh)
+    axis = None if mesh is None else mesh.model_axis
+    shard_model(model, mesh)
+    if axis == "expert":
+        n_sh, n_tot = count_bank_sharded(model)
+        log(f"[INFO] EP: {n_sh}/{n_tot} param leaves (expert banks) sharded over 'expert'")
+    elif axis == "model":
+        n_sh, n_tot = count_sharded(model)
+        log(f"[INFO] TP: {n_sh}/{n_tot} param leaves sharded over 'model'")
 
 
 def compute_dtype_from(cfg: dict, device: torch.device) -> torch.dtype:

@@ -11,8 +11,11 @@ counters, step, epoch, with a cfg-hash check); keep-last-N checkpoint GC;
 ``training.max_epochs_per_run`` segments. The split is device-resident as
 ``dataset.device_resident`` says. Under ``torchrun`` the multi-device knobs
 are resolved as the JAX entry resolves them over its devices
-(``common.setup_parallelism``: a ``data`` or ``seq`` mesh; model sharding
-raises, ROADMAP item 15c); rank 0 alone writes. ``mae.vis_every`` waits for
+(``common.setup_parallelism``: a ``data`` or ``seq`` mesh, or with
+``device.model_parallel`` a ``data`` x ``model`` mesh over which every
+attention and MLP is cut, ``parallel/tp.py``); rank 0 alone writes, and a
+checkpoint (model and optimizer) is gathered whole, the file one device
+writes, which a resume cuts onto the mesh again. ``mae.vis_every`` waits for
 ``reporting/visualize.py`` (ROADMAP queue 1, item 16): the run warns once
 and trains on.
 
@@ -39,6 +42,8 @@ from ..train.state import TrainState, create_train_state, make_optimizer, warmup
 from ..utils.checkpoint import (find_latest_checkpoint, keep_last_n_checkpoints,
                                 restore_checkpoint, save_checkpoint)
 from ..parallel import mesh as pmesh
+from ..parallel.shard import (full_state_dict, load_full, local_state_dict,
+                              optimizer_state_like)
 from ..utils.config import config_hash, save_config
 from ..utils.io import ensure_dir
 from ..utils.metrics import format_metrics, update_best
@@ -64,17 +69,32 @@ def build_model(cfg: dict, dtype: torch.dtype,
                       attn_impl=decoder_attn_impl)
 
 
+def _opt_like(state: TrainState, sd: dict) -> dict:
+    """Which param's layout each of the optimizer state's tensors has."""
+    return optimizer_state_like(state.model, state.params, sd)
+
+
+def checkpoint_tensors(state: TrainState, mesh) -> dict:
+    """The model's state and the optimizer's (under ``opt.``), whole: on a
+    ``model`` mesh every rank takes part in the gathers."""
+    opt = state.tx.state_dict()
+    return {**full_state_dict(state.model, mesh),
+            **{f"opt.{k}": v for k, v in
+               full_state_dict(state.model, mesh, opt, _opt_like(state, opt)).items()}}
+
+
 def _restore(latest: str, state: TrainState, cfg_hash: str, log) -> tuple[int, dict | None]:
-    """Load ``latest`` into ``state`` in place; returns (start epoch, best)."""
+    """Load ``latest`` (a whole checkpoint) into ``state`` in place, this
+    rank's part of each cut tensor; returns (start epoch, best)."""
     blob = restore_checkpoint(latest)
     tensors = {k: v for k, v in blob.items() if isinstance(v, torch.Tensor)}
-    state.model.load_state_dict({k: v for k, v in tensors.items() if not k.startswith("opt.")})
+    load_full(state.model, {k: v for k, v in tensors.items() if not k.startswith("opt.")})
     if blob.get("has_opt_state"):
         # FULL resume (ref: src/mae/utils.py:73-92 checkpoints
         # model+optimizer+scheduler): the Adam moments, the count that the
         # warmup-cosine schedule reads and the skip/accumulation counters
-        state.tx.load_state_dict({k[len("opt."):]: v for k, v in tensors.items()
-                                  if k.startswith("opt.")})
+        opt = {k[len("opt."):]: v for k, v in tensors.items() if k.startswith("opt.")}
+        state.tx.load_state_dict(local_state_dict(state.model, opt, _opt_like(state, opt)))
     else:
         log("[WARN] legacy checkpoint without opt_state; optimizer "
             "moments and LR schedule restart from zero")
@@ -122,7 +142,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
     model = build_model(cfg, dtype, decoder_attn_impl="sp" if par.sp_on else None)
     init_model(model, init_gen)
     model.to(device)
-    pmesh.broadcast_module(model, mesh)
+    common.place_model(model, mesh, log)
 
     sched = warmup_cosine_schedule(
         float(tr.get("lr", 3e-4)), int(tr.get("warmup_epochs", 0)) * steps_per_epoch,
@@ -200,15 +220,14 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         hit_segment_cap = (max_epochs_per_run is not None
                            and epoch - start_epoch + 1 >= int(max_epochs_per_run)
                            and epoch < epochs)
-        if (epoch % save_every == 0 or epoch == epochs or hit_segment_cap) and main:
-            save_checkpoint(out_dir, f"ckpt_epoch_{epoch}", {
-                **state.model.state_dict(),
-                **{f"opt.{k}": v for k, v in state.tx.state_dict().items()},
-            }, meta={"step": state.step, "epoch": epoch, "cfg_hash": cfg_hash, "best": best,
-                     "has_opt_state": True})
-            deleted = keep_last_n_checkpoints(out_dir, keep_last)
-            log(f"[INFO] saved ckpt_epoch_{epoch} (gc: {len(deleted)} old)")
         if epoch % save_every == 0 or epoch == epochs or hit_segment_cap:
+            tensors = checkpoint_tensors(state, mesh)
+            if main:
+                save_checkpoint(out_dir, f"ckpt_epoch_{epoch}", tensors,
+                                meta={"step": state.step, "epoch": epoch, "cfg_hash": cfg_hash,
+                                      "best": best, "has_opt_state": True})
+                deleted = keep_last_n_checkpoints(out_dir, keep_last)
+                log(f"[INFO] saved ckpt_epoch_{epoch} (gc: {len(deleted)} old)")
             pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
         if hit_segment_cap:
             log(f"[INFO] segment cap ({max_epochs_per_run} epochs/run) hit at "

@@ -14,15 +14,25 @@ MoE decoder (``model.decoder_moe_*``, its load-balance auxiliary weighted by
 The split is device-resident as ``dataset.device_resident`` says. Under
 ``torchrun`` one process a card: the multi-device knobs are resolved as
 the JAX entry resolves them over its devices (``common.setup_parallelism``):
-the batch over a ``data`` mesh, or with ``model.sequence_parallel`` each
-clip's frames over a ``seq`` mesh (the long clip's decoder attends through
-``parallel/sp.py``); tensor, pipeline and expert parallelism over several
-cards raise (ROADMAP item 15c). Rank 0 alone writes logs and checkpoints.
+the batch over a ``data`` mesh; with ``model.sequence_parallel`` each clip's
+frames over a ``seq`` mesh (the long clip's decoder attends through
+``parallel/sp.py``); with ``device.expert_parallel`` the MoE decoder's
+experts over a ``data`` x ``expert`` mesh (``configs/ssl_mae_moe.yaml`` as
+shipped); with ``device.model_parallel`` attention heads and MLP units over
+a ``data`` x ``model`` mesh; with ``device.pipeline_parallel`` the
+decoder's blocks over a ``pipe`` mesh in ``device.pp_microbatches``
+microbatches. Rank 0 alone writes logs, and the checkpoints are gathered
+whole: the files one device writes.
 
     python -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae \\
         --config configs/ssl_mae.yaml --device cuda
     torchrun --standalone --nproc_per_node 8 \\
         -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae --config configs/ssl_mae.yaml
+    torchrun --standalone --nproc_per_node 4 \\
+        -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae --config configs/ssl_mae_moe.yaml
+    torchrun --standalone --nproc_per_node 4 \\
+        -m ssl_vit_video_analytics_tpu_torch.entry.train_ssl_mae --config configs/ssl_mae.yaml \\
+        --set device.pipeline_parallel=4       # or --set device.model_parallel=4
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import torch
 from ..models.mae import TinyVideoMAE
 from ..models.tiny_vit import tiny_vit_21m_variant
 from ..parallel import mesh as pmesh
+from ..parallel.shard import full_state_dict
 from ..train.finetune_engine import init_model
 from ..train.mae_engine import make_pixel_mae_step, wrap_accum_and_skip
 from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
@@ -109,7 +120,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     if not par.member:
         return {"steps": 0, "seconds": 0.0, "last_loss": float("nan")}
     mesh = par.mesh
-    cards = 1 if mesh is None else mesh.size
+    cards = 1 if mesh is None else mesh.size()
     seed = int(cfg.get("seed", 42))
     init_gen = set_seed(seed)
     dtype = common.compute_dtype_from(cfg, device)
@@ -130,12 +141,16 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     ds = common.maybe_device_resident(cfg, ds, device, log)
 
     model = build_model(cfg, dtype, decoder_attn_impl="sp" if par.sp_on else None)
+    depth = len(model.decoder.blocks)
+    if par.pp_mesh is not None and depth % par.pp_mesh.size("pipe"):
+        raise ValueError(f"decoder_depth={depth} not divisible by "
+                         f"pipeline_parallel={par.pp_mesh.size('pipe')}")
     init_model(model, init_gen)
     model.to(device)
-    pmesh.broadcast_module(model, mesh)
     L = (S // 8) ** 2
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[INFO] model params: {n_params / 1e6:.2f}M, tokens/frame={L}")
+    common.place_model(model, mesh, log)
 
     sched = warmup_cosine_schedule(
         float(tr.get("lr", 5e-4)),
@@ -159,7 +174,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                                   # the Switch-Transformer default; no-op for
                                   # the dense decoder
                                   moe_aux_weight=float(ssl.get("moe_aux_weight", 0.01)),
-                                  mesh=mesh)
+                                  mesh=None if par.pp_mesh is not None else mesh,
+                                  pp_mesh=par.pp_mesh, pp_microbatches=par.pp_microbatches)
     step_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
     save_dir = tr.get("save_dir", "results/tinymae_v1")
@@ -219,16 +235,17 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                      if epoch_losses else float("nan"))
         log(f"[INFO] epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s "
             f"loss={last_loss:.4f} loss_mean={loss_mean:.4f}")
-        if (epoch % save_every == 0 or epoch == epochs) and main:
-            sd = model.state_dict()
-            # encoder-only checkpoint, like the reference
-            path = save_checkpoint(save_dir, f"ckpt_epoch_{epoch}",
-                                   {k: v for k, v in sd.items() if k.startswith("encoder.")})
-            log(f"[INFO] saved encoder checkpoint: {path}")
-            if bool(tr.get("save_full", False)):
-                path = save_checkpoint(save_dir, f"ckpt_full_epoch_{epoch}", sd)
-                log(f"[INFO] saved full checkpoint: {path}")
         if epoch % save_every == 0 or epoch == epochs:
+            # gathered whole over a model axis (every rank takes part)
+            sd = full_state_dict(model, mesh)
+            if main:
+                # encoder-only checkpoint, like the reference
+                path = save_checkpoint(save_dir, f"ckpt_epoch_{epoch}",
+                                       {k: v for k, v in sd.items() if k.startswith("encoder.")})
+                log(f"[INFO] saved encoder checkpoint: {path}")
+                if bool(tr.get("save_full", False)):
+                    path = save_checkpoint(save_dir, f"ckpt_full_epoch_{epoch}", sd)
+                    log(f"[INFO] saved full checkpoint: {path}")
             pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
         if max_steps is not None and global_step >= max_steps:
             break

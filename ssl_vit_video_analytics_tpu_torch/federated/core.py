@@ -66,8 +66,8 @@ def fedavg_aggregate(client_states: Sequence[State] | State, weights, mesh=None)
         else:
             out[key] = x.amax(dim=0)
     if mesh is not None:
-        all_reduce_flat([v for v in out.values() if v.is_floating_point()], mesh.group)
-        all_reduce_flat([v for v in out.values() if not v.is_floating_point()], mesh.group,
+        all_reduce_flat([v for v in out.values() if v.is_floating_point()], mesh.group())
+        all_reduce_flat([v for v in out.values() if not v.is_floating_point()], mesh.group(),
                         "max")
     return out
 
@@ -218,12 +218,12 @@ def run_fedavg_round(parallel_update, global_state: State, client_batches: dict,
                                          client_batches["label"], client_batches["valid"])
         return fedavg_aggregate(states, client_sizes), losses
     client_batches, client_sizes, n_real = pad_clients_to_axis(client_batches, client_sizes,
-                                                               mesh.size)
+                                                               mesh.size())
     mine = mesh.block(len(client_sizes))
     states, losses = parallel_update(global_state, *(np.asarray(client_batches[k])[mine]
                                                      for k in ("clip", "label", "valid")))
     return (fedavg_aggregate(states, client_sizes, mesh),
-            all_gather_cat(losses, mesh.group)[:n_real])
+            all_gather_cat(losses, mesh.group())[:n_real])
 
 
 def run_fedavg(

@@ -22,7 +22,11 @@ Training mode follows flax, not torch:
 Under a ``data`` or ``seq`` mesh (:func:`global_batch`), train-mode
 BatchNorm takes its statistics over the batch of every rank of the group,
 as flax's ``BatchNorm`` does over a batch GSPMD shards, and the MoE
-auxiliary its token means over the same batch.
+auxiliary its token means over the same batch. Under model sharding
+(``parallel/ep.py``, ``parallel/tp.py``) a cut ``MoeMlp`` applies its own
+experts, and a cut ``MultiHeadAttention`` or ``Mlp`` its own heads or
+hidden units, with the collectives those modules name; a module that was
+not cut runs as on one device.
 
 Traps kept from the reference: flax's ``nn.gelu`` is the tanh approximation,
 LayerNorm and BatchNorm use eps 1e-5.
@@ -37,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_packed
-from ..parallel.collectives import all_reduce
+from ..parallel.collectives import (all_gather_cat, all_gather_own, all_reduce,
+                                    copy_to_group, reduce_from_group)
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``."""
@@ -135,22 +140,25 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, training: bool,
 
 
 @contextlib.contextmanager
-def global_batch(module: nn.Module, group):
+def global_batch(module: nn.Module, group, split: str = "rows"):
     """Inside this context (forward AND backward: a checkpointed region
     recomputes its forward in the backward), ``module``'s train-mode
     BatchNorms take their statistics, and its MoE MLPs their auxiliary's
-    token means, over the batch of every rank of ``group`` (a ``data`` or
-    ``seq`` mesh's); None is this rank's batch alone."""
+    token means and their routing of one global group (``group_size`` 0),
+    over the batch of every rank of ``group`` (a ``data`` or ``seq``
+    mesh's); None is this rank's batch alone. ``split``: whether the group
+    splits the clips (``"rows"``, a ``data`` axis) or each clip's tokens
+    (``"tokens"``, a ``seq`` axis)."""
     mods = [m for m in module.modules()
             if isinstance(m, (nn.modules.batchnorm._BatchNorm, MoeMlp))]
-    prev = [getattr(m, "stat_group", None) for m in mods]
+    prev = [(getattr(m, "stat_group", None), getattr(m, "stat_split", "rows")) for m in mods]
     for m in mods:
-        m.stat_group = group
+        m.stat_group, m.stat_split = group, split
     try:
         yield
     finally:
-        for m, p in zip(mods, prev):
-            m.stat_group = p
+        for m, (g, s) in zip(mods, prev):
+            m.stat_group, m.stat_split = g, s
 
 
 class ConvBNAct(nn.Module):
@@ -245,16 +253,30 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Dense -> GELU (tanh approximation, as flax) -> Dense."""
+    """Dense -> GELU (tanh approximation, as flax) -> Dense. Cut over a
+    ``model`` line (``parallel/tp.py``: ``tp_group`` set), this rank holds a
+    block of the hidden units: ``f`` before the first linear, ``g`` after
+    the second, whose bias is added once after the sum."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.dtype = dtype
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(gelu(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+        if self.tp_group is None:
+            return linear(gelu(linear(x, self.fc1, self.dtype)), self.fc2, self.dtype)
+        h = gelu(linear(copy_to_group(x, self.tp_group), self.fc1, self.dtype))
+        return row_parallel(h, self.fc2, self.dtype, self.tp_group)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
+    """A row-parallel linear: this rank's columns of ``layer`` on its part
+    of the input, summed over ``group`` (``g``), then the bias."""
+    y = reduce_from_group(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return y + layer.bias.to(dtype)
 
 
 class MoeMlp(nn.Module):
@@ -271,8 +293,8 @@ class MoeMlp(nn.Module):
     the block's residual passes them through). Dispatch ``[G, S, E, C]`` in
     the compute dtype feeds the ``gsec,gsd->egcd`` einsum, the expert bank
     (``w1 [E, D, H]``, ``b1``, ``w2 [E, H, D]``, ``b2``) runs as batched
-    matmuls over experts (JAX's ``expert_parallel_apply`` without a mesh),
-    and the gated combine ``gsec,egcd->gsd`` brings the outputs back.
+    matmuls over experts (JAX's ``expert_parallel_apply``), and the gated
+    combine ``gsec,egcd->gsd`` brings the outputs back.
 
     ``forward`` returns ``(y, aux)``: ``aux`` is the Switch load-balance
     auxiliary ``E * sum_e mean(onehot_e) * mean(probs_e)``, differentiable
@@ -280,9 +302,17 @@ class MoeMlp(nn.Module):
     token picks one expert with certainty, never under 1/E (a token's
     argmax probability is at least 1/E), and it can dip just under 1.
     Inside :func:`global_batch` the means are over the group's tokens and
-    ``aux`` is this rank's share of it (the ranks' shares sum to it); the
-    capacity groups must then lie within a rank's tokens (``group_size``
-    > 0 dividing them), as the MoE yaml's 392 tokens (two frames) do.
+    ``aux`` is this rank's share of it (the ranks' shares sum to it). There
+    the capacity groups of ``group_size`` > 0 lie within a rank's tokens;
+    with 0 every token of the global batch routes as one group, as in JAX:
+    the capacity is the global count's, and a rank's slots in each expert's
+    buffer follow those of the tokens before its own in the global order
+    (one all-gather of the per-clip counts). Each rank's buffer holds its
+    own tokens' slots; the expert MLP is per slot, so no token moves.
+
+    Cut over an ``expert`` line (``parallel/ep.py``: ``expert_group`` set)
+    the rank holds experts ``expert_lo ..`` of the bank, feeds them their
+    slots and gathers every expert's output over the line for the combine.
     """
 
     def __init__(self, dim: int, hidden: int, num_experts: int,
@@ -299,6 +329,7 @@ class MoeMlp(nn.Module):
         for w in (self.w1, self.w2):
             nn.init.normal_(w, 0.0, w.shape[1] ** -0.5)
         self.dtype = dtype
+        self.expert_group, self.expert_lo = None, 0
 
     def capacity(self, tokens: int) -> tuple[int, int, int]:
         """``(G, S, C)``: groups, tokens a group and slots an expert a group
@@ -313,54 +344,89 @@ class MoeMlp(nn.Module):
 
     def _route(self, x: torch.Tensor):
         """Router probabilities ``[N, E]`` (fp32), each token's one-hot
-        expert ``[G, S, E]``, its slot in the group and the one-hot of the
-        tokens that fit their expert's buffer."""
+        expert ``[G, S, E]``, its slot in the group, the one-hot of the
+        tokens that fit their expert's buffer, and ``(G, S, C)``."""
         B, L, D = x.shape
-        G, S, C = self.capacity(B * L)
+        E = self.num_experts
         probs = torch.softmax(F.linear(x.reshape(B * L, D).float(), self.router.weight,
                                        self.router.bias), -1)
-        onehot = F.one_hot(probs.argmax(-1), self.num_experts).float().reshape(G, S, -1)
-        pos = onehot.cumsum(1) - 1.0                              # slot in group
-        return probs, onehot, pos, (pos < C).float() * onehot
+        onehot = F.one_hot(probs.argmax(-1), E).float()
+        group = getattr(self, "stat_group", None)
+        if group is None or self.group_size > 0:
+            G, S, C = self.capacity(B * L)
+            onehot = onehot.reshape(G, S, E)
+            pos = onehot.cumsum(1) - 1.0                          # slot in group
+        else:
+            # one global group: every rank holds as many tokens
+            G, S = 1, B * L
+            _, _, C = self.capacity(B * L * dist.get_world_size(group))
+            pos = self._global_slots(onehot.reshape(B, L, E), group).reshape(1, S, E)
+            onehot = onehot.reshape(1, S, E)
+        return probs, onehot, pos, (pos < C).float() * onehot, (G, S, C)
+
+    def _global_slots(self, onehot: torch.Tensor, group) -> torch.Tensor:
+        """Each of this rank's tokens' slot ``[B, L, E]`` in its expert's
+        buffer of one group over the global batch, whose tokens run clip by
+        clip and, within a clip, rank by rank (``stat_split`` "tokens"), or
+        rank by rank (``"rows"``)."""
+        counts = onehot.sum(1)                                    # [B, E]
+        every = all_gather_cat(counts, group)
+        every = every.reshape(-1, *counts.shape)                  # [R, B, E]
+        r = dist.get_rank(group)
+        if getattr(self, "stat_split", "rows") == "rows":
+            before = every[:r].sum((0, 1))[None, None]            # [1, 1, E]
+            return before + onehot.reshape(1, -1, onehot.shape[-1]).cumsum(1).reshape(
+                onehot.shape) - 1.0
+        per_clip = every.sum(0)
+        before = (per_clip.cumsum(0) - per_clip + every[:r].sum(0))[:, None]  # [B, 1, E]
+        return before + onehot.cumsum(1) - 1.0
 
     @torch.no_grad()
     def assignments(self, x: torch.Tensor) -> torch.Tensor:
         """Each token's expert ``[B*L]``, or -1 where its expert's buffer
         was full (the token was dropped)."""
-        _, onehot, _, keep = self._route(x)
+        _, onehot, _, keep, _ = self._route(x)
         expert = onehot.argmax(-1).flatten()
         return torch.where(keep.sum(-1).flatten() > 0, expert, -1)
+
+    def _experts(self, dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+        """Every expert's outputs ``[E, G, C, D]`` for the slots
+        ``dispatch [G, S, E, C]`` gives it from ``xt [G, S, D]``: this
+        rank's experts run here, the rest arrive over the expert line."""
+        dt = self.dtype
+        G, C, D = dispatch.shape[0], dispatch.shape[-1], xt.shape[-1]
+        n = self.w1.shape[0]
+        if self.expert_group is not None:
+            # each rank feeds its own experts: the tokens' gradient through
+            # them is a part that the line sums
+            dispatch = dispatch[:, :, self.expert_lo:self.expert_lo + n]
+            xt = copy_to_group(xt, self.expert_group)
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xt).reshape(n, G * C, D)
+        h = gelu(torch.bmm(expert_in, self.w1.to(dt)) + self.b1.to(dt)[:, None])
+        out = torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]
+        if self.expert_group is not None:
+            out = all_gather_own(out, 0, self.expert_group)
+        return out.reshape(self.num_experts, G, C, D)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         B, L, D = x.shape
         E, dt = self.num_experts, self.dtype
         group = getattr(self, "stat_group", None)
-        if group is not None and self.group_size <= 0:
-            # JAX routes the global batch's B*L tokens as one group; routing
-            # this rank's tokens alone would be another layer
-            raise ValueError(
-                "moe group_size=0 routes every token of the global batch as one "
-                "group, which data or sequence parallelism would split; set "
-                "model.decoder_moe_group_size to a divisor of a rank's tokens")
-        G, S, C = self.capacity(B * L)
-        probs, onehot, pos, keep = self._route(x)
+        probs, onehot, pos, keep, (G, S, C) = self._route(x)
         gate = probs.amax(-1)                                     # top-1 prob
+        onehot = onehot.reshape(B * L, E)
         if group is None:
-            aux = E * (onehot.reshape(B * L, E).mean(0) * probs.mean(0)).sum()
+            aux = E * (onehot.mean(0) * probs.mean(0)).sum()
         else:
             # this rank's share of the global auxiliary: the global one-hot
             # mean times this rank's probability sum over the global count
-            counts = all_reduce(torch.cat([onehot.reshape(B * L, E).sum(0),
-                                           probs.new_full((1,), B * L)]), group)
+            counts = all_reduce(torch.cat([onehot.sum(0), probs.new_full((1,), B * L)]),
+                                group)
             n = counts[-1]
             aux = E * (counts[:E] / n * probs.sum(0) / n).sum()
-        xt = x.reshape(B * L, D)
         slots = torch.arange(C, device=x.device, dtype=pos.dtype)
         dispatch = (keep[..., None] * (pos[..., None] == slots)).to(dt)  # [G, S, E, C]
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
-                                 xt.reshape(G, S, D).to(dt)).reshape(E, G * C, D)
-        h = gelu(torch.bmm(expert_in, self.w1.to(dt)) + self.b1.to(dt)[:, None])
-        out = (torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]).reshape(E, G, C, D)
+        out = self._experts(dispatch, x.reshape(G, S, D).to(dt))
         combine = dispatch * gate.reshape(G, S, 1, 1).to(dt)
         y = torch.einsum("gsec,egcd->gsd", combine, out)
         return y.reshape(B, L, D).to(dt), aux
@@ -420,7 +486,9 @@ class MultiHeadAttention(nn.Module):
     ``key_dim``). ``attn_impl="sp"`` is the sequence-parallel branch: ``x``
     is this rank's block of a ``seq`` mesh's sequence, and the attention
     runs over the whole sequence (``ops/attention.attention_packed``,
-    ``parallel/sp.py``).
+    ``parallel/sp.py``). Cut over a ``model`` line (``parallel/tp.py``) it
+    holds ``local_heads`` whole heads, rows ``[q_r | k_r | v_r]`` of ``qkv``
+    and their columns of ``proj``, and runs the attention on them.
     """
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
@@ -432,13 +500,22 @@ class MultiHeadAttention(nn.Module):
         self.proj = nn.Linear(num_heads * self.head_dim, dim)
         self.dtype = dtype
         self.attn_impl = attn_impl
+        # cut over a model line (parallel/tp.py): this rank's heads and group
+        self.local_heads, self.tp_group = num_heads, None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hd = self.num_heads * self.head_dim
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
+        H = self.local_heads
+        hd = H * self.head_dim
         qkv = linear(x, self.qkv, self.dtype)
-        o = attention_packed(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
-                             self.num_heads, self.attn_impl)
-        return linear(o, self.proj, self.dtype)
+        # a rank without heads feeds its empty block to the projection, so
+        # that its input still takes part in the backward's collectives
+        o = (attention_packed(qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], H,
+                              self.attn_impl) if H else qkv[..., :0])
+        if self.tp_group is None:
+            return linear(o, self.proj, self.dtype)
+        return row_parallel(o, self.proj, self.dtype, self.tp_group)
 
 
 class TransformerBlock(nn.Module):

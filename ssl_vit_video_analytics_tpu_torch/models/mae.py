@@ -13,6 +13,9 @@ pixel head (8*8*3 = 192). Returns the full ``[B, N, 192]`` prediction; the
 loss masks with weights. With ``decoder_moe_experts`` > 0 the decoder's MLPs
 are top-1-routed experts (``layers.MoeMlp``, ``configs/ssl_mae_moe.yaml``),
 whose load-balance auxiliaries ``forward(..., with_aux=True)`` returns.
+Under pipeline parallelism the step runs :meth:`TinyVideoMAE.embed_tokens`,
+a stage's decoder blocks and :meth:`TinyVideoMAE.predict_pixels` apart
+(``train/mae_engine.pipeline_loss_and_grads``, ``parallel/pp.py``).
 
 Pipeline C (ref: src/models/tinyvit_mae.py:35-115): per-frame full TinyViT
 (four stages) -> stage-4 feature map adaptively pooled to ``stage4_pool**2``

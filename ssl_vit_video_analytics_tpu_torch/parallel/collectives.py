@@ -11,6 +11,16 @@ all-reduce-sum is an all-reduce-sum, the backward of an all-gather a
 reduce-scatter. A term that every rank computes whole from gathered
 values enters each share divided by the mesh size.
 
+Model sharding adds the transposes where every rank of a group computes
+the same downstream from a value it holds only a part of (its experts'
+outputs, its heads' attention), so that the downstream's gradient is this
+rank's already and is not to be summed: :func:`all_gather_own`, whose
+backward takes this rank's block of the gradient; Megatron's ``f``
+(:func:`copy_to_group`: identity forward, all-reduce backward) and ``g``
+(:func:`reduce_from_group`: all-reduce forward, identity backward); and
+the pipeline's point-to-point pair (:func:`send_to`, :func:`recv_from`),
+whose backward is the reverse transfer.
+
 ``torch.distributed.nn.functional`` is not used: it is deprecated.
 """
 from __future__ import annotations
@@ -72,6 +82,108 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     view for ``dim`` > 0), differentiable: its backward reduce-scatters the
     gradient."""
     return _AllGather.apply(x, dim, group)
+
+
+class _AllGatherOwn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None
+
+
+def all_gather_own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated along ``dim`` in rank
+    order, differentiable for a downstream that every rank of the group
+    computes alike: its backward is this rank's block of the gradient, not
+    the group's sum of it (which :func:`all_gather` takes)."""
+    return _AllGatherOwn.apply(x, dim, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is, whose gradient is summed over the
+    group (each rank's part of a column-parallel layer sends back its
+    share of the input's gradient)."""
+    return _CopyToGroup.apply(x, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the sum of ``x`` over the group, whose gradient
+    goes back to each rank as it is (every rank computes the same
+    downstream of the sum)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _SendTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, peer, group):
+        ctx.peer, ctx.group, ctx.shape = peer, group, x.shape
+        dist.send(x.contiguous(), dist.get_global_rank(group, peer), group=group)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _g):
+        g = _g.new_empty(ctx.shape)
+        dist.recv(g, dist.get_global_rank(ctx.group, ctx.peer), group=ctx.group)
+        return g, None, None
+
+
+def send_to(x: torch.Tensor, peer: int, group) -> torch.Tensor:
+    """Send ``x`` to ``peer`` (its rank in ``group``). Returns a scalar
+    token: backward from it receives ``x``'s gradient from ``peer`` (what
+    its :func:`recv_from` sends back) and carries it into ``x``'s graph."""
+    return _SendTo.apply(x, peer, group)
+
+
+class _RecvFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, anchor, shape, peer, group):
+        ctx.peer, ctx.group = peer, group
+        x = anchor.new_empty(shape)
+        dist.recv(x, dist.get_global_rank(group, peer), group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        dist.send(g.contiguous(), dist.get_global_rank(ctx.group, ctx.peer), group=ctx.group)
+        return None, None, None, None
+
+
+def recv_from(shape, dtype: torch.dtype, device, peer: int, group) -> torch.Tensor:
+    """A tensor of ``shape`` received from ``peer`` (its rank in
+    ``group``), in the graph: its gradient is sent back to ``peer`` in the
+    backward."""
+    anchor = torch.zeros((), dtype=dtype, device=device, requires_grad=True)
+    return _RecvFrom.apply(anchor, tuple(shape), peer, group)
 
 
 @torch.no_grad()

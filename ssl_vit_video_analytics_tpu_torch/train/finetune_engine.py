@@ -186,7 +186,7 @@ def loss_and_grads(model: VideoClassifier, params: list[torch.Tensor], clip: tor
     normalizes with them) and the loss is this rank's share, its rows' sum
     over the global batch. Returns ``(loss, logits, grads)``."""
     model.train()
-    with global_batch(model, None if mesh is None else mesh.group):
+    with global_batch(model, None if mesh is None else mesh.group()):
         with torch.set_grad_enabled(not _backbone_frozen(model, params)):
             emb = model.video_embedding(clip, drop)
         logits = model.classify_embedding(emb)
@@ -194,7 +194,7 @@ def loss_and_grads(model: VideoClassifier, params: list[torch.Tensor], clip: tor
             loss = F.cross_entropy(logits, labels.long())
         else:
             loss = (F.cross_entropy(logits, labels.long(), reduction="sum")
-                    / (labels.shape[0] * mesh.size))
+                    / (labels.shape[0] * mesh.size()))
         grads = torch.autograd.grad(loss, params)
     return loss.detach(), logits.detach(), grads
 
@@ -218,7 +218,7 @@ def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.f
     (augmentation, ``drop`` given or not) are the global batch's, and the
     metrics are the global batch's on every rank.
     """
-    if mesh is not None and mesh.axis != "data":
+    if mesh is not None and mesh.axes != ("data",):
         raise ValueError(f"the finetune step runs data-parallel only, not over {mesh}")
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
@@ -226,7 +226,7 @@ def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.f
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         labels = batch["label"]
         B, T = clip.shape[0], clip.shape[1]
-        Bg = B if mesh is None else B * mesh.size
+        Bg = B if mesh is None else B * mesh.size()
         if augment is not None:
             gen = step_generator(seed + 1, state.step, clip.device)
             clip = (augment(clip, generator=gen) if mesh is None
@@ -235,11 +235,11 @@ def make_train_step(model: VideoClassifier, compute_dtype: torch.dtype = torch.f
             drop = model.draw_drop_path(Bg, T, generator, device=clip.device)
         drop = local_draws(drop, mesh, Bg, T)
         loss, logits, grads = loss_and_grads(model, state.params, clip, labels, drop, mesh)
-        apply_updates(state, grads, None if mesh is None else mesh.group)
+        apply_updates(state, grads, None if mesh is None else mesh.group())
         metrics = {"loss": loss, **topk_accuracy(logits, labels)}
         if mesh is not None:  # shares and equal-size row means -> global
-            metrics = {"loss": all_reduce(loss, mesh.group),
-                       **{k: all_reduce(v, mesh.group) / mesh.size
+            metrics = {"loss": all_reduce(loss, mesh.group()),
+                       **{k: all_reduce(v, mesh.group()) / mesh.size()
                           for k, v in metrics.items() if k != "loss"}}
         return state, metrics
 
@@ -277,7 +277,7 @@ def evaluate(eval_step, batches, ks=(1, 5), mesh=None) -> dict:
     if mesh is not None:
         counts = all_reduce(torch.tensor([total] + [correct[k] for k in ks],
                                          dtype=torch.int64, device=_device_of(mesh)),
-                            mesh.group)
+                            mesh.group())
         total, correct = int(counts[0]), {k: int(c) for k, c in zip(ks, counts[1:])}
     return {f"top{k}": (correct[k] / max(total, 1)) for k in ks}
 
@@ -285,6 +285,6 @@ def evaluate(eval_step, batches, ks=(1, 5), mesh=None) -> dict:
 def _device_of(mesh) -> torch.device:
     """Where the mesh's collectives take their tensors: the current card
     for NCCL, the CPU for gloo."""
-    if dist.get_backend(mesh.group) == "nccl":
+    if dist.get_backend(mesh.group()) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")

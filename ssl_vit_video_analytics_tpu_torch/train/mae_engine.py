@@ -1,6 +1,5 @@
 """MAE train steps for SSL pipelines B (pixel) and C (feature tokens)
-(counterpart of the JAX package's ``train/mae_engine.py``, without pipeline
-parallelism).
+(counterpart of the JAX package's ``train/mae_engine.py``).
 
 Pipeline B: on-device normalize -> tube mask -> norm-pix patch target ->
 TinyVideoMAE (train mode) -> masked MSE -> gradients -> optimizer.
@@ -20,6 +19,14 @@ share of the global loss (its masked sum over the global masked count);
 BatchNorm statistics, the MoE auxiliary and the reported statistics are the
 global batch's, and the gradients are summed over the group before the
 optimizer (``train/state.apply_updates``).
+
+Under model sharding the batch is split over the mesh's ``data`` axis
+alone and whole over ``expert`` and ``model`` (``parallel/ep.py``,
+``parallel/tp.py``: the model was cut before the step was made); the
+global norm and the finite check see every shard once
+(``train/state.Shards``). Pipeline B's decoder can instead run pipeline
+parallel over a ``pipe`` mesh (``pp_mesh``, ``parallel/pp.py``): the batch
+is whole on every stage, and the loss and metrics come from the last.
 """
 from __future__ import annotations
 
@@ -32,21 +39,68 @@ from ..ops.patchify import patchify
 from ..ops.preprocess import normalize_clip
 from ..parallel.collectives import all_reduce
 from ..parallel.mesh import global_clip_shape, local_draws, local_part
+from ..parallel.pp import Pipeline
 from .losses import build_mae_loss, global_std, mae_loss_l2, reconstruction_error_stats
-from .state import ApplyIfFinite, MultiSteps, TrainState, apply_updates, global_norm
+from .state import (ApplyIfFinite, MultiSteps, TrainState, apply_updates, global_norm,
+                    shards_of)
 
 COLLAPSE_STD_THRESHOLD = 0.05  # ref: src/mae/engine.py:143-145
 
 
-def _total(x: torch.Tensor, mesh) -> torch.Tensor:
-    """A share summed over the mesh (the global value of a loss)."""
-    return x if mesh is None else all_reduce(x, mesh.group)
+def _total(x: torch.Tensor, group) -> torch.Tensor:
+    """A share summed over the group that splits the batch (the global
+    value of a loss)."""
+    return x if group is None else all_reduce(x, group)
+
+
+def _split(mesh) -> str:
+    """What the mesh's batch axis splits: each clip's tokens (``seq``) or
+    the clips (``global_batch``'s ``split``)."""
+    return "tokens" if mesh is not None and mesh.split_axis == "seq" else "rows"
+
+
+def pipeline_loss_and_grads(model, params, clip, mask, drop, loss_of_pred, mesh,
+                            n_micro: int):
+    """Pipeline B's forward and backward with the decoder's blocks pipelined
+    over ``mesh``'s ``pipe`` line (``parallel/pp.py``). Returns ``(loss,
+    pred, grads)``: the loss and prediction on the last stage (None
+    elsewhere), and this stage's gradients of ``params`` (zeros where none
+    arises on it: the encoder's beyond stage 0, the head's before the
+    last)."""
+    pipe = Pipeline(mesh, n_micro)
+    for p in params:
+        p.grad = None
+    with torch.set_grad_enabled(pipe.first):
+        x = model.embed_tokens(clip, mask, drop)
+    blocks = [model.decoder.blocks[i] for i in model.pipe_blocks]
+
+    def run_stage(h):
+        for blk in blocks:
+            h = blk(h)
+        return h
+
+    y = pipe.forward(run_stage, x)
+    loss = pred = grad = None
+    if pipe.last:
+        y_in = y.detach().requires_grad_()
+        pred = model.predict_pixels(y_in)
+        loss = loss_of_pred(pred)
+        loss.backward()
+        grad = y_in.grad
+    x_grad = pipe.backward(grad)
+    if pipe.first:
+        torch.autograd.backward(x, x_grad)
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return loss, pred, grads
 
 
 def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
                         norm_pix_loss: bool = True,
                         compute_dtype: torch.dtype = torch.float32,
-                        moe_aux_weight: float = 0.0, mesh=None):
+                        moe_aux_weight: float = 0.0, mesh=None, pp_mesh=None,
+                        pp_microbatches: int | None = None):
     """Pipeline-B step: tube mask -> TinyVideoMAE -> masked MSE on pixels
     (ref: src/train_ssl_mae.py:66-89).
 
@@ -54,8 +108,7 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
     > 0) adds that weight times the mean of the decoder blocks' Switch
     load-balance auxiliaries to the loss, and reports the mean as the
     ``moe_aux`` metric (1 at perfect balance). A dense decoder, or weight 0,
-    runs the plain step. (The JAX step refuses its pipeline-parallel decoder
-    with MoE; the port has no pipeline-parallel decoder yet.)
+    runs the plain step.
 
     Returns ``step(state, batch, generator, mask=None, drop=None) ->
     (state, metrics)``; ``state`` is updated in place. ``batch["clip"]`` is
@@ -65,12 +118,25 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
     ``grad_norm`` (of this call's gradient, before accumulation) and
     ``collapse``, and ``moe_aux`` with the auxiliary on.
 
-    ``mesh``: a ``data`` or ``seq`` mesh; ``batch`` then holds this rank's
-    rows or frames, ``mask`` and ``drop`` (when given) are the global
-    batch's, and the metrics are the global batch's on every rank.
+    ``mesh``: a ``data`` or ``seq`` mesh, or a ``data`` x ``expert`` or
+    ``data`` x ``model`` mesh over which ``model`` was cut; ``batch`` then
+    holds this rank's rows or frames, ``mask`` and ``drop`` (when given)
+    are the global batch's, and the metrics are the global batch's on every
+    rank. ``pp_mesh`` (a ``pipe`` mesh over whose stages ``model`` was cut,
+    in place of ``mesh``): the decoder's blocks run pipeline parallel over
+    ``pp_microbatches`` microbatches (default: one a stage); the batch is
+    whole on every stage. As in JAX the MoE decoder is refused there.
     """
+    if pp_mesh is not None:
+        if getattr(model, "decoder_moe_experts", 0):
+            raise ValueError("pipeline-parallel decoder does not support the "
+                             "MoE decoder (use device.expert_parallel)")
+        if mesh is not None:
+            raise ValueError(f"pipeline parallelism runs on its own mesh, not with {mesh}")
+        mesh = pp_mesh
+        n_micro = pp_microbatches or pp_mesh.size("pipe")
     moe_aux_on = moe_aux_weight > 0 and getattr(model, "decoder_moe_experts", 0)
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.batch_group
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
              mask: torch.Tensor | None = None, drop: list | None = None):
@@ -88,25 +154,38 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
         flat_mask = mask.reshape(B, T * L)
 
         model.train()
-        with global_batch(model, group):
-            if moe_aux_on:
-                pred, auxes = model(clip, mask, drop, with_aux=True, frame_offset=t0)
-                aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
-                loss = (mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
-                                    group=group)
-                        + moe_aux_weight * aux)
-            else:
-                pred = model(clip, mask, drop, frame_offset=t0)
-                loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
-                                   group=group)
-            grads = torch.autograd.grad(loss, state.params)
-        apply_updates(state, grads, group)
-        pred_std = global_std(pred.detach(), group)
-        metrics = {"loss": _total(loss.detach(), mesh), "pred_std": pred_std,
-                   "grad_norm": global_norm(grads),
+        shards = shards_of(state.params, mesh)
+        if pp_mesh is not None:
+            loss, pred, grads = pipeline_loss_and_grads(
+                model, state.params, clip, mask, drop,
+                lambda p: mae_loss_l2(p, target, flat_mask, normalize_target=norm_pix_loss),
+                pp_mesh, n_micro)
+            apply_updates(state, grads, None, shards)
+            # the last stage's loss and prediction statistics, on every stage
+            shared = (clip.new_zeros(2, dtype=torch.float32) if loss is None
+                      else torch.stack([loss.detach(), global_std(pred.detach())]))
+            loss, pred_std = all_reduce(shared, pp_mesh.group("pipe"))
+        else:
+            with global_batch(model, group, _split(mesh)):
+                if moe_aux_on:
+                    pred, auxes = model(clip, mask, drop, with_aux=True, frame_offset=t0)
+                    aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
+                    loss = (mae_loss_l2(pred, target, flat_mask,
+                                        normalize_target=norm_pix_loss, group=group)
+                            + moe_aux_weight * aux)
+                else:
+                    pred = model(clip, mask, drop, frame_offset=t0)
+                    loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
+                                       group=group)
+                grads = torch.autograd.grad(loss, state.params)
+            apply_updates(state, grads, group, shards)
+            pred_std = global_std(pred.detach(), group)
+            loss = _total(loss.detach(), group)
+        metrics = {"loss": loss, "pred_std": pred_std,
+                   "grad_norm": global_norm(grads, shards),
                    "collapse": (pred_std < COLLAPSE_STD_THRESHOLD).float()}
         if moe_aux_on:
-            metrics["moe_aux"] = _total(aux.detach(), mesh)
+            metrics["moe_aux"] = _total(aux.detach(), group)
         return state, metrics
 
     return step
@@ -118,13 +197,14 @@ def traced_mask_count(n: int, mask_ratio: float) -> int:
     return max(1, int(np.round(np.float32(n) * np.float32(mask_ratio))))
 
 
-def token_mae_loss_and_grads(model, params, clip, token_mask, drop, loss_fn, group=None):
+def token_mae_loss_and_grads(model, params, clip, token_mask, drop, loss_fn, group=None,
+                             split: str = "rows"):
     """Train-mode TinyViTMAE forward of a normalized ``clip``, the masked
-    feature loss and its gradients for ``params`` (with a mesh's ``group``:
-    this rank's share of the loss, the group's BatchNorm statistics).
-    Returns ``(loss, rec, target, grads)``."""
+    feature loss and its gradients for ``params`` (with a mesh's batch
+    ``group``: this rank's share of the loss, the group's BatchNorm
+    statistics). Returns ``(loss, rec, target, grads)``."""
     model.train()
-    with global_batch(model, group):
+    with global_batch(model, group, split):
         rec, target = model(clip, token_mask, drop)
         loss = loss_fn(rec, target, token_mask)
         grads = torch.autograd.grad(loss, params)
@@ -150,9 +230,10 @@ def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
     ``collapse``.
 
     ``mesh``: as :func:`make_pixel_mae_step` (under ``seq`` the model's
-    decoder is built with ``attn_impl="sp"``).
+    decoder is built with ``attn_impl="sp"``; under ``model`` the model was
+    cut by ``parallel/tp.py``).
     """
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.batch_group
     loss_fn = build_mae_loss(loss_type, normalize_target=normalize_target, group=group)
     if mask_mode not in ("random", "tube"):
         raise ValueError(f"Unknown mask_mode: {mask_mode}")
@@ -180,11 +261,13 @@ def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
         drop = local_draws(drop, mesh, Bg, Tg)
         token_mask = local_part(token_mask.to(clip.device), mesh, Tg)
         loss, rec, target, grads = token_mae_loss_and_grads(model, state.params, clip,
-                                                            token_mask, drop, loss_fn, group)
-        apply_updates(state, grads, group)
-        loss = _total(loss, mesh)
+                                                            token_mask, drop, loss_fn, group,
+                                                            _split(mesh))
+        shards = shards_of(state.params, mesh)
+        apply_updates(state, grads, group, shards)
+        loss = _total(loss, group)
         stats = reconstruction_error_stats(rec, target, token_mask, group)
-        metrics = {"loss": loss, **stats, "grad_norm": global_norm(grads),
+        metrics = {"loss": loss, **stats, "grad_norm": global_norm(grads, shards),
                    "collapse": (stats["pred_std"] < COLLAPSE_STD_THRESHOLD).float()}
         return state, metrics
 

@@ -124,7 +124,7 @@ class SSLObjective:
         subsampled rows, local indices) and ``top_count`` is the global
         subsample's size; the loss is this rank's share. Returns ``(loss,
         metrics, grads)`` with the global loss and metrics."""
-        group = None if mesh is None else mesh.group
+        group = None if mesh is None else mesh.group()
         B, T = clip.shape[0], clip.shape[1]
         with torch.no_grad():
             model.eval()
@@ -147,7 +147,7 @@ class SSLObjective:
                 loss_var = masked_variance_loss(all_gather(z_s, 0, group),
                                                 all_gather_cat(mask, group),
                                                 self.var_target_std, self.var_eps)
-                var_share = loss_var / mesh.size
+                var_share = loss_var / mesh.size()
             loss = self.mfm_weight * loss_mfm + self.var_weight * var_share
             metrics = {"mfm": loss_mfm.detach(), "var": loss_var.detach()}
             if self.top_on:
@@ -182,7 +182,7 @@ def _local_top_draws(mesh, B: int, top_sel, top_labels):
     """This rank's part of the global TOP draws: the subsampled clips among
     its rows (as local indices, in the subsample's order) and their labels;
     without a subsample, its rows' labels."""
-    rows = mesh.block(B * mesh.size)
+    rows = mesh.block(B * mesh.size())
     if top_sel is None:
         return None, top_labels[rows]
     sel = top_sel.to(top_labels.device)
@@ -206,7 +206,7 @@ def make_ssl_step(model, ssl_cfg: dict, with_top: bool,
     (given or not) are the global batch's, the metrics the global ones.
     """
     obj = SSLObjective(ssl_cfg, with_top)
-    if mesh is not None and mesh.axis != "data":
+    if mesh is not None and mesh.axes != ("data",):
         raise ValueError(f"pipeline A runs data-parallel only, not over {mesh}")
 
     def step(state: TrainState, batch: dict, generator: torch.Generator,
@@ -214,7 +214,7 @@ def make_ssl_step(model, ssl_cfg: dict, with_top: bool,
              top_labels: torch.Tensor | None = None):
         clip = normalize_clip(batch["clip"], dtype=compute_dtype)
         B, T = clip.shape[0], clip.shape[1]
-        Bg = B if mesh is None else B * mesh.size
+        Bg = B if mesh is None else B * mesh.size()
         if mask is None:
             mask = frame_mask(generator, Bg, T, obj.mask_ratio, device=clip.device)
         mask = mask.to(clip.device)
@@ -233,7 +233,7 @@ def make_ssl_step(model, ssl_cfg: dict, with_top: bool,
         loss, metrics, grads = obj.loss_and_grads(
             model, state.params, state.ema, clip, mask, top_sel, top_labels, mesh,
             Bg if k is None else k)
-        apply_updates(state, grads, None if mesh is None else mesh.group)
+        apply_updates(state, grads, None if mesh is None else mesh.group())
         update_ema(state.ema, dict(model.named_parameters()), obj.ema_momentum)
         return state, metrics
 

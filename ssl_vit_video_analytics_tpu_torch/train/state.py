@@ -28,6 +28,13 @@ to the step count. The optimizer stack is optax's, transform by transform:
   every k-th call, so one non-finite microbatch skips one update, not all
   later ones.
 
+Under a mesh that splits the params (``parallel/ep.py``, ``tp.py``,
+``pp.py``) each rank holds its shard of some params and whole copies of the
+rest; :class:`Shards` says which, and every ``update`` takes it: the global
+norm sums the shards' squares over the model axis and counts a replicated
+param once, and the finite check is agreed over the model axis, so every
+rank clips and skips alike. ``MultiSteps`` accumulates shards as they are.
+
 Each of the three has ``state_dict()``/``load_state_dict()`` over flat
 ``{name: tensor}`` entries (the moments, the count of updates, the skip and
 accumulation counters), so an optimizer round-trips through the port's
@@ -43,7 +50,7 @@ from typing import Callable, Mapping, Sequence
 import torch
 from torch import nn
 
-from ..parallel.collectives import all_reduce_grads
+from ..parallel.collectives import all_reduce, all_reduce_grads
 
 
 def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
@@ -65,13 +72,55 @@ def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: the L2 norm of all entries, fp32, on the device."""
-    return torch.linalg.vector_norm(torch.stack([t.float().norm() for t in tensors]))
+@dataclass(frozen=True)
+class Shards:
+    """Where a rank's params lie on a mesh's model axis (``expert``,
+    ``model`` or ``pipe``), in the order of the gradients they go with:
+    ``own[i]`` is true where param i is this rank's shard (its experts, its
+    heads' rows and columns, or a decoder block of its stage, empty on the
+    other stages), whose gradient is this rank's alone; the others are
+    replicated over ``group``. ``partial``: a replicated param's gradient
+    is a part that ``group`` sums (a pipeline: the encoder's lies on the
+    first stage, the pixel head's on the last); else every rank of the
+    group computes it whole."""
+    group: object
+    own: tuple[bool, ...]
+    partial: bool = False
+
+    def part(self, lo: int, n: int) -> "Shards":
+        """The flags of gradients ``lo .. lo+n-1`` (a parameter group)."""
+        return Shards(self.group, self.own[lo:lo + n], self.partial)
 
 
-def all_finite(tensors: Sequence[torch.Tensor]) -> bool:
-    return bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all())
+def shards_of(params: Sequence[torch.Tensor], mesh) -> Shards | None:
+    """The :class:`Shards` of ``params`` on ``mesh`` (None without a model
+    axis): a param that ``parallel/shard.py`` cut carries its ``shard``."""
+    axis = None if mesh is None else mesh.model_axis
+    if axis is None:
+        return None
+    return Shards(mesh.group(axis), tuple(hasattr(p, "shard") for p in params),
+                  axis == "pipe")
+
+
+def global_norm(tensors: Sequence[torch.Tensor], shards: Shards | None = None) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all entries, fp32, on the
+    device; with ``shards`` that of the whole gradient, every shard's
+    squares summed over the model axis, a replicated tensor counted once."""
+    if shards is None or not any(shards.own):
+        return torch.linalg.vector_norm(torch.stack([t.float().norm() for t in tensors]))
+    sq = [torch.stack([t.float().square().sum() for t, own in zip(tensors, shards.own)
+                       if own == flag] or [tensors[0].new_zeros((), dtype=torch.float32)]
+                      ).sum() for flag in (False, True)]
+    return torch.sqrt(sq[0] + all_reduce(sq[1], shards.group))
+
+
+def all_finite(tensors: Sequence[torch.Tensor], shards: Shards | None = None) -> bool:
+    """Whether every entry is finite; with ``shards`` over the model axis's
+    ranks, so that all take the same decision."""
+    bad = (~torch.stack([torch.isfinite(t).all() for t in tensors]).all()).float()
+    if shards is not None:
+        bad = all_reduce(bad, shards.group, op="max")
+    return not bool(bad)
 
 
 class AdamW:
@@ -101,11 +150,12 @@ class AdamW:
                                      lr=0.0, betas=tuple(betas), eps=1e-8,
                                      weight_decay=weight_decay)
 
-    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+    def update(self, grads: Sequence[torch.Tensor], shards: Shards | None = None) -> bool:
         grads, lo = list(grads), 0
         for pg, n, schedule in zip(self.opt.param_groups, self.sizes, self.schedules):
             if self.grad_clip is not None and self.grad_clip > 0:
-                norm = global_norm(grads[lo:lo + n])
+                norm = global_norm(grads[lo:lo + n], None if shards is None
+                                   else shards.part(lo, n))
                 factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                      self.grad_clip / norm)
                 grads[lo:lo + n] = [g * factor for g in grads[lo:lo + n]]
@@ -147,12 +197,12 @@ class ApplyIfFinite:
         self.notfinite_count = 0
         self.total_notfinite = 0
 
-    def update(self, grads: Sequence[torch.Tensor]) -> bool:
-        finite = all_finite(grads)
+    def update(self, grads: Sequence[torch.Tensor], shards: Shards | None = None) -> bool:
+        finite = all_finite(grads, shards)
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
         if finite or self.notfinite_count > self.max_consecutive_errors:
-            return self.inner.update(grads)
+            return self.inner.update(grads, shards)
         return False
 
     def state_dict(self) -> dict[str, torch.Tensor]:
@@ -176,7 +226,7 @@ class MultiSteps:
         self.mini_step = 0
         self.acc: list[torch.Tensor] | None = None
 
-    def update(self, grads: Sequence[torch.Tensor]) -> bool:
+    def update(self, grads: Sequence[torch.Tensor], shards: Shards | None = None) -> bool:
         if self.acc is None:
             self.acc = [torch.zeros_like(g) for g in grads]
         n = self.mini_step
@@ -185,7 +235,7 @@ class MultiSteps:
         if self.mini_step < self.every_k - 1:
             self.mini_step += 1
             return False
-        applied = self.inner.update(self.acc)
+        applied = self.inner.update(self.acc, shards)
         self.mini_step = 0
         for a in self.acc:
             a.zero_()
@@ -253,18 +303,25 @@ def create_train_state(model: nn.Module, tx,
     return TrainState(step=0, model=model, tx=tx, ema=None if ema is None else dict(ema))
 
 
-def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], group=None) -> bool:
+def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], group=None,
+                  shards: Shards | None = None) -> bool:
     """One optimizer call with ``grads`` (aligned with ``state.params``);
     the step count always advances. Returns whether params changed.
 
-    With ``group`` (a ``data`` or ``seq`` mesh's) ``grads`` are each rank's
-    gradients of its share of the loss: they are summed over the group IN
-    PLACE first, so the global norm, clipping, the finite check and the
-    accumulation all see the global gradient and every rank takes the same
-    clip and skip decisions."""
+    With ``group`` (the axis that splits the batch: ``data`` or ``seq``)
+    ``grads`` are each rank's gradients of its share of the loss: they are
+    summed over the group IN PLACE first, so the global norm, clipping, the
+    finite check and the accumulation all see the global gradient and every
+    rank takes the same clip and skip decisions. The ranks of a ``data``
+    line hold the same shard of a sharded param, so its gradient is summed
+    there too. With ``shards`` the replicated params' partial gradients
+    (``Shards.partial``) are summed over the model axis as well; a shard's
+    gradient is its rank's own and is not summed there."""
     if group is not None:
         all_reduce_grads(grads, group)
-    applied = state.tx.update(grads)
+    if shards is not None and shards.partial:
+        all_reduce_grads([g for g, own in zip(grads, shards.own) if not own], shards.group)
+    applied = state.tx.update(grads, shards)
     state.step += 1
     return applied
 

@@ -1,11 +1,12 @@
 """The port's resolution of the multi-device knobs over W ranks against the
 JAX package's ``setup_parallelism`` / ``setup_data_parallel`` over W
 devices (``jax.device_count`` patched to W on the 8-device CPU mesh), with
-no process spawned: the same mesh axis and size, the same ``[INFO]`` and
-``[WARN]`` lines (the mesh's repr aside; one extra port line on one device
-where JAX is silent), and a ``NotImplementedError`` naming ROADMAP item 15c
-wherever JAX would build a tensor-, pipeline- or expert-parallel mesh.
-Also the mesh helpers that cut a global batch and its draws.
+no process spawned: the same mesh, every axis and size (data, seq, data x
+expert, pipe, data x model), the same microbatches, and the same ``[INFO]``
+and ``[WARN]`` lines, the mesh's repr included (JAX's ``axis_types`` aside;
+the TP line names the port's attention where JAX's names XLA's; one extra
+port line on one device where JAX is silent). Also the mesh helpers that
+cut a global batch and its draws.
 """
 import os
 import re
@@ -56,12 +57,13 @@ CASES = {
     "none": (lambda: {}, 12, True),
 }
 WORLDS = (1, 2, 3, 4, 8)
-MODEL_AXES = {"model", "pipe", "expert"}
 
 
 def _lines(lines):
-    """Log lines with the mesh's repr cut off."""
-    return [re.sub(r"(devices): .*$", r"\1: <mesh>", ln) for ln in lines]
+    """Log lines in the port's words: JAX's mesh repr without its
+    ``axis_types``, and the TP line's attention named as the port runs it."""
+    lines = [re.sub(r", axis_types=\([^)]*\)\)", ")", ln) for ln in lines]
+    return [ln.replace("(attention impl -> xla)", common.TP_ATTENTION) for ln in lines]
 
 
 @pytest.fixture
@@ -87,21 +89,13 @@ def test_knob_resolution_matches_jax(case, world, jax_world):
     jax_world(world)
     jax_lines, port_lines = [], []
     par = jcommon.setup_parallelism(cfg, batch, jax_lines.append, allow_pp=allow_pp)
-    axes = set() if par.mesh is None else set(par.mesh.axis_names)
-    if axes & MODEL_AXES or par.pp_mesh is not None:
-        assert world > 1
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15c"):
-            common.resolve_parallelism(cfg, batch, world, port_lines.append, allow_pp)
-        # the warnings JAX logged before it built the mesh
-        assert _lines(port_lines) == _lines(jax_lines)[:len(port_lines)]
-        return
-    axis, n, sp_on = common.resolve_parallelism(cfg, batch, world, port_lines.append,
-                                                allow_pp)
-    assert sp_on == par.sp_on
-    assert (None if axis is None else {axis: n}) == (
-        None if par.mesh is None else dict(par.mesh.shape))
+    res = common.resolve_parallelism(cfg, batch, world, port_lines.append, allow_pp)
+    assert res.sp_on == par.sp_on
+    assert res.axes == (None if par.mesh is None else dict(par.mesh.shape))
+    assert res.pp_microbatches == par.pp_microbatches
+    assert (res.pp_microbatches is None) == (par.pp_mesh is None)
     extra = [ln for ln in port_lines if common.ONE_DEVICE in ln]
-    assert _lines([ln for ln in port_lines if common.ONE_DEVICE not in ln]) == _lines(jax_lines)
+    assert [ln for ln in port_lines if common.ONE_DEVICE not in ln] == _lines(jax_lines)
     assert not extra or world == 1
 
     # the data-parallel half alone (pipeline A, the finetune)
@@ -109,24 +103,49 @@ def test_knob_resolution_matches_jax(case, world, jax_world):
     mesh, _, _ = jcommon.setup_data_parallel(cfg, batch, jax_lines.append)
     n = common.resolve_data_parallel(cfg, batch, world, port_lines.append)
     assert n == (1 if mesh is None else mesh.shape["data"])
-    assert _lines([ln for ln in port_lines if common.ONE_DEVICE not in ln]) == _lines(jax_lines)
+    assert [ln for ln in port_lines if common.ONE_DEVICE not in ln] == _lines(jax_lines)
+
+
+# the shipped MoE yaml, model_parallel: 4 on pipelines B and C, and
+# pipeline_parallel: 2 with 2 and 4 microbatches
+SHARDING = {
+    "ssl_mae_moe": (lambda: _yaml("ssl_mae_moe"), 40, True),
+    "tp4_b": (lambda: dict(_yaml("ssl_mae"), device={"model_parallel": 4}), 40, True),
+    "tp4_c": (lambda: dict(_yaml("mae_train"), device={"model_parallel": 4}), 256, False),
+    "pp2": (lambda: dict(_yaml("ssl_mae"), device={"pipeline_parallel": 2}), 40, True),
+    "pp2_micro4": (lambda: dict(_yaml("ssl_mae"),
+                                device={"pipeline_parallel": 2, "pp_microbatches": 4}), 40,
+                   True),
+}
 
 
 @pytest.mark.parametrize("world", [2, 8])
-def test_model_sharding_refusals_name_the_knob_and_the_way_out(world):
-    with pytest.raises(NotImplementedError, match=r"--set device.expert_parallel=1 runs "
-                                                  r"the MoE decoder data-parallel"):
-        common.resolve_parallelism(_yaml("ssl_mae_moe"), 40, world, lambda _: None, True)
-    with pytest.raises(NotImplementedError, match="device.model_parallel=4"):
-        common.resolve_parallelism({"device": {"model_parallel": 4}}, 8, world,
-                                   lambda _: None)
-    with pytest.raises(NotImplementedError, match="device.pipeline_parallel=2"):
-        common.resolve_parallelism({"device": {"pipeline_parallel": 2}}, 8, world,
-                                   lambda _: None, True)
+def test_model_sharding_meshes_match_jax(world, jax_world):
+    """The meshes of the shipped MoE yaml, of ``model_parallel: 4`` and of
+    ``pipeline_parallel: 2`` over 2 and 8 ranks: JAX's, axis for axis,
+    with JAX's log line (at 8: dp2 x ep4, dp2 x tp4, pipe 2)."""
+    jax_world(world)
+    want_8 = {"ssl_mae_moe": {"data": 2, "expert": 4}, "tp4_b": {"data": 2, "model": 4},
+              "tp4_c": {"data": 2, "model": 4}, "pp2": {"pipe": 2}, "pp2_micro4": {"pipe": 2}}
+    for name, (make, batch, allow_pp) in SHARDING.items():
+        cfg, jax_lines, port_lines = make(), [], []
+        par = jcommon.setup_parallelism(cfg, batch, jax_lines.append, allow_pp=allow_pp)
+        res = common.resolve_parallelism(cfg, batch, world, port_lines.append, allow_pp)
+        assert res.axes == dict(par.mesh.shape), name
+        assert port_lines == _lines(jax_lines) and len(port_lines) == 1, name
+        assert res.pp_microbatches == par.pp_microbatches
+        if world == 8:
+            assert res.axes == want_8[name], name
+    # a microbatch count that does not divide the batch: JAX's error
+    cfg = {"device": {"pipeline_parallel": 2, "pp_microbatches": 3}}
+    with pytest.raises(ValueError, match="not divisible by pp_microbatches=3"):
+        jcommon.setup_parallelism(cfg, 8, lambda _: None, allow_pp=True)
+    with pytest.raises(ValueError, match="not divisible by pp_microbatches=3"):
+        common.resolve_parallelism(cfg, 8, world, lambda _: None, True)
     # a model-sharding knob JAX ignores stays ignored: pipeline C's
-    axis, n, _ = common.resolve_parallelism({"device": {"pipeline_parallel": 2}}, 8, world,
-                                            lambda _: None, False)
-    assert (axis, n) == ("data", world)
+    res = common.resolve_parallelism({"device": {"pipeline_parallel": 2}}, 8, world,
+                                     lambda _: None, False)
+    assert res.axes == {"data": world}
 
 
 def test_one_device_runtime_needs_no_process_group():
@@ -140,7 +159,7 @@ def test_one_device_runtime_needs_no_process_group():
 
 
 def _mesh(axis, size, index):
-    return pmesh.Mesh(axis, size, index, None)
+    return pmesh.Mesh(((axis, size),), None if index < 0 else (index,))
 
 
 def test_mesh_blocks_and_batch_parts():
@@ -150,10 +169,20 @@ def test_mesh_blocks_and_batch_parts():
     assert repr(m) == "Mesh('data': 4)" and m.member and not _mesh("data", 2, -1).member
     with pytest.raises(ValueError, match="do not divide"):
         m.block(6)
-    with pytest.raises(ValueError, match="one mesh axis"):
-        pmesh.make_mesh({"data": 2, "model": 2})
+    # two axes, laid out row-major: rank 6 of {data: 2, expert: 4} sits at
+    # (1, 2); the batch splits over data alone, and not at all over pipe
+    two = pmesh.Mesh((("data", 2), ("expert", 4)), (1, 2))
+    assert repr(two) == "Mesh('data': 2, 'expert': 4)" and two.index() == 6
+    assert (two.size(), two.size("expert"), two.index("data")) == (8, 4, 1)
+    assert two.split_axis == "data" and two.model_axis == "expert"
+    assert two.block(8) == slice(4, 8)
+    pipe = _mesh("pipe", 4, 3)
+    assert pipe.split_axis is None and pipe.block(8) == slice(0, 8)
+    assert pmesh.shard_batch({"clip": torch.zeros(4, 2)}, pipe)["clip"].shape == (4, 2)
     with pytest.raises(ValueError, match="unknown mesh axis"):
-        pmesh.make_mesh({"pipe": 2})
+        pmesh.make_mesh({"time": 2})
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        pmesh.make_mesh({"data": 2, "model": 2})
 
 
 def test_shard_batch_and_global_draws_keep_this_ranks_part():

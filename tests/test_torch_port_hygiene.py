@@ -82,7 +82,8 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "entry/train_mae.py", "entry/sanity_check_mae.py", "models/temporal.py",
             "models/heads.py", "train/ssl_engine.py", "ops/augment.py",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
-            "parallel/sp.py", "federated/core.py", "entry/run_federated.py"} <= walked
+            "parallel/sp.py", "federated/core.py", "entry/run_federated.py",
+            "parallel/ep.py", "parallel/tp.py", "parallel/pp.py", "parallel/shard.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
