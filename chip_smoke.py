@@ -62,7 +62,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    a seeded generator, for 4 steps (2 optimizer updates). Per step: loss,
    gnorm, whether an update was applied or skipped, step ms (the checkpoint
    writes left out), clips/s, K1 and K2 calls (20 and 12 required) and peak
-   device memory. The last epoch's encoder checkpoint feeds phase 11.
+   device memory. The last epoch's encoder checkpoint feeds phase 11. The
+   run has logging.tensorboard on (a phase departure only): its event files
+   under the save dir, or the entry's tensorboardX warning, are reported.
 7. serving slice: the port's run_dynamic early-exit sweep at full MobileViT-S
    width (configs/dynamic.yaml: 101 classes, embed 256, batch 8, 16 frames,
    112x112, bf16) on a synthetic split, with random weights from a seeded
@@ -150,7 +152,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    fit one card) and a checkpoint every epoch, bf16, resident split of 32
    clips of 128-frame videos: 4 steps (2 epochs), then a second run that
    resumes from its own checkpoint at epoch 3 for 2 more; per step as phase
-   13 (K1 22, K2 12).
+   13 (K1 22, K2 12). The first run has mae.vis_every 2 (a phase departure
+   only): at its epoch 2 it draws mae_vis_epoch_2.png through
+   reporting/visualize.save_mae_vis, whose forward runs K1 12 times (10
+   TinyViT and 2 decoder layers, no recompute) and K2 none; without
+   matplotlib no picture and no forward, which the phase reports.
 16. sanity check: the port's entry.sanity_check_mae on the card
    (configs/mae_train.yaml, one clip of 32 frames): PASSED, K1 24 and K2 12.
 
@@ -245,12 +251,43 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    exit 0, NCCL up (the entry's process-group line), rank 0's log and
    checkpoint.
 
+27. visualize_mae: the port's entry.visualize_mae main at configs/
+   ssl_mae.yaml's full width (TinyViT cut at stage 3, TinyVideoMAE decoder,
+   16 x 112x112, bf16) on phase 6's split and its encoder checkpoint, 2
+   samples: the encoder-only warning, 2 PNGs and K1 12 a sample (2 stage-1,
+   6 stage-2, 4 decoder layers). Then sample 0's triptych arrays
+   (reporting/visualize.triptych_arrays) through K1 and through the plain
+   attention, the same mask and weights, in fp32 (TF32 off) and in bf16:
+   in fp32 no recon pixel may differ by more than 1 grey level; in bf16 at
+   most 1% of them by more than TRIPTYCH_BF16_LEVELS; both shares printed.
+28. plotting: the port's entry.plotting main on configs/plotting.yaml, in a
+   temporary directory where docs/examples/csv/ is laid out as the yaml and
+   generate_all's defaults expect: whether matplotlib imports; with it, the
+   7 figures and results/summary.csv, equal as text to the committed
+   docs/examples/csv/summary.csv; without it generate_all returns [] (the
+   JAX module's behaviour), and the phase says so.
+29. ablations: entry.ablations --dry_run over the four groups, each command
+   checked against its expected port entry module; then one real cell,
+   --groups dynamic --max_per_group 1 on phase 7's config and split, run as
+   a subprocess started just before phase 26, whose launcher run it
+   overlaps (neither is timed): it (and its run_dynamic, K1 on the card;
+   their launches are those processes' and are not counted here) exits 0,
+   its CSV and ablation_index.json (exit 0) exist.
+30. export: tools.export_serving at configs/dynamic.yaml's MobileViT-S
+   classifier (101 classes, embed 256, 16 x 112x112, fp32, TF32 off):
+   exported with a symbolic batch through the plain attention, saved,
+   torch.export.load'ed and served at batches 2 and 8; each batch's served
+   logits held to the live model's (K1, 6 a forward) within
+   EXPORT_TOL of the largest live logit; served and live ms per batch of 8
+   (a host sync after each call), with the card's name and power limit.
+
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
 sanity check, privacy, the federated baseline, client steps, evaluation and
 the in-process bridge, the MoE and long-clip pretraining, the augmented
-finetune, and the runtime's data steps, seq steps, FedAvg round and
-expert, model and pipe steps) is driven and read just after. The line before the
+finetune, the runtime's data steps, seq steps, FedAvg round and
+expert, model and pipe steps, pipeline C's picture, visualize_mae and the
+export's live model) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -262,6 +299,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -282,7 +320,7 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "system_federated", "train_ssl_mae_moe", "train_ssl_mae_longclip",
          "train_finetune_augment", "runtime_data_steps", "runtime_seq_steps",
          "runtime_fedavg", "runtime_expert_steps", "runtime_model_steps",
-         "runtime_pipe_steps")
+         "runtime_pipe_steps", "train_mae_vis", "visualize_mae", "export_live")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -369,6 +407,36 @@ RUNTIME_CLIPS = {"ssl_mae": 2, "longclip": 1, "moe": 2}
 # the pipe mesh's microbatches (device.pp_microbatches); the decoder's 4
 # attention layers run once a microbatch
 RUNTIME_MICROBATCHES = 2
+# phase 6's departure: TensorBoard scalars (the yaml has none)
+SSL_MAE_TENSORBOARD = {"logging": {"tensorboard": True}}
+# phase 15's departure: a picture at epoch 2 of its first run
+MAE_VIS_EVERY = 2
+# pipeline C's picture forward: 10 TinyViT and 2 decoder attention layers
+MAE_VIS_K1_CALLS = 12
+# phase 27: visualize_mae's samples, K1 a sample (2 + 6 encoder and 4
+# decoder layers), and the bf16 triptych bound: at most 1% of the recon
+# pixels of the kernel and plain runs more than this many grey levels apart
+VIS_SAMPLES, VIS_K1_PER_SAMPLE = 2, 12
+TRIPTYCH_BF16_LEVELS = 4
+# phase 28: docs/examples/csv/ laid out as configs/plotting.yaml and
+# generate_all's defaults expect
+PLOTTING_LAYOUT = {
+    "results/dynamic/early_exit_results.csv": "early_exit_results.csv",
+    "results/dynamic/frame_gating_results.csv": "frame_gating_results.csv",
+    "results/privacy/feature_privacy.csv": "feature_privacy.csv",
+    "results/privacy/federated/fed_summary.csv": "fed_summary.csv",
+    "results/ema_ssl_vicreg/ssl_metrics.csv": "ssl_metrics.csv",
+    **{f"results/finetune/{mode}/metrics.csv": f"finetune_{mode}_metrics.csv"
+       for mode in ("ft_random", "linear_probe", "ft_ssl", "two_stage")}}
+PLOTTING_FIGURES = 7
+# phase 29: the entry each ablation group runs, and its cells
+ABLATION_GROUPS = {"sampling": ("train_finetune", 4), "ssl_objective": ("train_ssl", 4),
+                   "privacy": ("run_privacy", 3), "dynamic": ("run_dynamic", 3)}
+# phase 30: the served batches, and the served logits' bound against the
+# live model's, of the largest live logit: phase 3's for K1 fp32 against
+# plain (TOL_FP32), held end to end over the forward's 6 calls
+EXPORT_BATCHES = (2, 8)
+EXPORT_TOL = 1e-4
 # phase 26: the launcher's pipeline-B run (configs/ssl_mae.yaml on phase 6's
 # 40-clip split; departures: one epoch of 2 steps of 20 clips, every step
 # logged, a checkpoint at its end)
@@ -1147,7 +1215,8 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
     # stride 4), 112x112
     splits = make_synthetic_dataset(os.path.join(tmp, "ssl_data"), num_classes=8,
                                     videos_per_class=6, num_frames=64, image_size=112, seed=0)
-    cfg = ssl_mae_cfg(splits["train"], os.path.join(tmp, "ssl_out"))
+    cfg = merged(ssl_mae_cfg(splits["train"], os.path.join(tmp, "ssl_out")),
+                 SSL_MAE_TENSORBOARD)
     steps, last = [], {"t": 0.0, "count": 0}
     final = {}
 
@@ -1194,12 +1263,19 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
         totals[name] += n
     ckpt = find_latest_checkpoint(cfg["training"]["save_dir"])
     finite = all(bool(torch.isfinite(p).all()) for p in final["model"].parameters())
+    events = [f for f in os.listdir(cfg["training"]["save_dir"])
+              if f.startswith("events.out.tfevents")]
+    tb_warning = [m for m in lines if "tensorboardX unavailable" in m]
     summary = {"phase": "train", "steps": out["steps"], "seconds": seconds,
                "last_loss": out["last_loss"], "updates_applied": final["count"],
                "params_finite": finite, "encoder_checkpoint": os.path.basename(ckpt or ""),
                "device_resident": any("device-resident store" in m for m in lines),
+               "tensorboard_event_files": events, "tensorboard_warning": tb_warning,
                "log": lines[-3:]}
     emit(summary)
+    if bool(events) == bool(tb_warning):
+        raise AssertionError(f"train: logging.tensorboard gave event files {events} and "
+                             f"warnings {tb_warning}; want exactly one of them")
     bad = [s for s in steps if (s["k1_calls"], s["k2_calls"])
            != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP)]
     if out["steps"] != TRAIN_STEPS or bad:
@@ -1243,19 +1319,25 @@ def check_rows(rows: list[dict], impl: str) -> None:
             raise AssertionError(f"{impl}: row out of range {row}")
 
 
+def slice_data(root: str) -> dict:
+    """Phase 7's synthetic split (32 classes, 112x112), made anew under
+    ``root`` (phase 29 runs an ablation cell on it)."""
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
+
+    return make_synthetic_dataset(os.path.join(root, "data"), num_classes=32,
+                                  videos_per_class=2, num_frames=32, image_size=112, seed=0)
+
+
 def phase_slice(fa, dev) -> dict:
     import torch
 
-    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
     from ssl_vit_video_analytics_tpu_torch.data.loader import iterate_batches
     from ssl_vit_video_analytics_tpu_torch.entry import common, run_dynamic
     from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        splits = make_synthetic_dataset(os.path.join(tmp, "data"), num_classes=32,
-                                        videos_per_class=2, num_frames=32,
-                                        image_size=112, seed=0)
+        splits = slice_data(tmp)
         rows_by_impl = {}
         for impl in ("streaming", "batched"):
             cfg = slice_cfg(splits["val"], os.path.join(tmp, f"out_{impl}"), impl)
@@ -1287,9 +1369,9 @@ def phase_slice(fa, dev) -> dict:
         # taken over all 512 frames; the 32 clips' agreement is reported
         cfg = slice_cfg(splits["val"], tmp, "streaming")
         ds = common.dataset_from_cfg(cfg, splits["val"], "supervised")
-        gpu = run_dynamic._load_classifier(cfg, torch.bfloat16, dev, lambda m: None)
-        cpu = run_dynamic._load_classifier(cfg, torch.float32, torch.device("cpu"),
-                                           lambda m: None)
+        gpu = run_dynamic.load_classifier(cfg, torch.bfloat16, dev, lambda m: None)
+        cpu = run_dynamic.load_classifier(cfg, torch.float32, torch.device("cpu"),
+                                          lambda m: None)
         T = DYNAMIC_YAML["dynamic"]["max_frames"]
         B = DYNAMIC_YAML["runtime"]["batch_size"]
         lg, lc, clip_lg, clip_lc = [], [], [], []
@@ -1957,6 +2039,7 @@ def phase_mae_train(dev, tmp: str) -> dict:
 
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
     from ssl_vit_video_analytics_tpu_torch.entry import sanity_check_mae, train_mae
+    from ssl_vit_video_analytics_tpu_torch.reporting import visualize
 
     B = MAE_TRAIN_SMOKE_OVERRIDES["training"]["batch_size"]
     d = MAE_TRAIN_YAML["dataset"]
@@ -1965,15 +2048,31 @@ def phase_mae_train(dev, tmp: str) -> dict:
     splits = make_synthetic_dataset(os.path.join(tmp, "mae_c_data"), num_classes=8,
                                     videos_per_class=5, num_frames=d["clip_len"] * d["stride"],
                                     image_size=d["image_size"], seed=3)
-    cfg = mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out"))
+    cfg = merged(mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out")),
+                 {"mae": {"vis_every": MAE_VIS_EVERY}})
     rec = StepRecorder(B, "mae_train_step", extra=lambda m, *_: {
         "pred_std": float(m["pred_std"]), "grad_norm": float(m["grad_norm"])})
+    vis = []
+    save_mae_vis = visualize.save_mae_vis
+
+    def counted_vis(*args):  # the picture's launches, apart from the steps'
+        rec.take_counts()
+        path = save_mae_vis(*args)
+        torch.cuda.synchronize()
+        vis.append({"path": path, "counts": rec.take_counts()})
+        return path
+
     t0 = time.perf_counter()
     rec.start()
-    first = train_mae.run(cfg, log=rec.on_log, max_steps=MAE_TRAIN_STEPS, on_step=rec.on_step)
-    rec.start()
-    resumed = train_mae.run(cfg, log=rec.on_log, max_steps=MAE_TRAIN_STEPS + MAE_RESUME_STEPS,
-                            on_step=rec.on_step)
+    visualize.save_mae_vis = counted_vis
+    try:
+        first = train_mae.run(cfg, log=rec.on_log, max_steps=MAE_TRAIN_STEPS,
+                              on_step=rec.on_step)
+        rec.start()
+        resumed = train_mae.run(cfg, log=rec.on_log,
+                                max_steps=MAE_TRAIN_STEPS + MAE_RESUME_STEPS, on_step=rec.on_step)
+    finally:
+        visualize.save_mae_vis = save_mae_vis
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     rec.take_counts()
@@ -1982,7 +2081,11 @@ def phase_mae_train(dev, tmp: str) -> dict:
     summary = {"phase": "mae_train", "steps": [first["steps"], resumed["steps"]],
                "seconds": seconds, "best": resumed["best"],
                "resumed": [m for m in lines if m.startswith("[INFO] resumed from")],
-               "vis_warning": [m for m in lines if "item 16" in m][:1],
+               "vis": [{"path": v["path"], "k1_calls": v["counts"]["flash_attention_fwd"],
+                        "k2_calls": v["counts"]["flash_attention_bwd"]} for v in vis],
+               "vis_warnings": [m for m in lines if m.startswith("[WARN] vis failed")
+                                or "mae.vis_every" in m],
+               "matplotlib": visualize.plt is not None,
                "device_resident": sum("device-resident store" in m for m in lines),
                "checkpoints": sorted(f for f in os.listdir(cfg["output"]["dir"])
                                      if f.endswith(".pt"))}
@@ -1992,9 +2095,18 @@ def phase_mae_train(dev, tmp: str) -> dict:
                                               MAE_TRAIN_STEPS + MAE_RESUME_STEPS) or bad:
         raise AssertionError(f"train_mae: steps {summary['steps']}; kernel calls off in {bad}")
     if not (len(summary["resumed"]) == 1 and summary["resumed"][0].endswith(f"epoch {epoch}")
-            and summary["vis_warning"] and summary["device_resident"] == 2
+            and summary["device_resident"] == 2
             and all(math.isfinite(s["loss"]) for s in steps)):
         raise AssertionError(f"train_mae: {summary}")
+    # one picture, at epoch MAE_VIS_EVERY of the first run: with matplotlib
+    # a PNG from a K1 forward, without it no forward at all
+    want_png = os.path.join(cfg["output"]["dir"], "vis", f"mae_vis_epoch_{MAE_VIS_EVERY}.png")
+    want = ((want_png, MAE_VIS_K1_CALLS) if visualize.plt is not None else (None, 0))
+    got = [(v["path"], v["counts"]["flash_attention_fwd"]) for v in vis]
+    if (got != [want] or summary["vis_warnings"]
+            or (want[0] is not None and not os.path.exists(want_png))
+            or any(v["counts"]["flash_attention_bwd"] for v in vis)):
+        raise AssertionError(f"train_mae picture: {got}, want {[want]}: {summary}")
 
     reset_counts()
     sanity = []
@@ -2008,7 +2120,8 @@ def phase_mae_train(dev, tmp: str) -> dict:
                                            sanity_counts["flash_attention_bwd"]) != (
             SANITY_K1_CALLS, SANITY_K2_CALLS):
         raise AssertionError(f"sanity_check_mae: {sanity[-2:]}, {sanity_counts}")
-    return {"train_mae": rec.totals, "sanity_check_mae": sanity_counts}
+    return {"train_mae": rec.totals, "sanity_check_mae": sanity_counts,
+            "train_mae_vis": vis[0]["counts"]}
 
 
 def phase_fed_client_step(dev) -> list[dict]:
@@ -2851,6 +2964,249 @@ def phase_launch(tmp: str, split: str) -> dict:
     return out
 
 
+def run_main(module, argv: list[str]) -> list[str]:
+    """``module.main()`` under ``argv``; its printed lines."""
+    import contextlib
+    import io
+
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = argv
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main()
+    finally:
+        sys.argv = saved
+        sys.stdout.write(buf.getvalue())
+    return buf.getvalue().splitlines()
+
+
+def phase_visualize(dev, tmp: str, split: str, ssl_ckpt: str) -> dict:
+    """Phase 27: entry.visualize_mae's main on phase 6's config, split and
+    encoder checkpoint, then sample 0's triptych through K1 and through the
+    plain attention in fp32 and bf16. Returns the main's launches."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.masking import get_tube_mask
+    from ssl_vit_video_analytics_tpu_torch.entry import common, visualize_mae
+    from ssl_vit_video_analytics_tpu_torch.reporting import visualize
+
+    cfg = ssl_mae_cfg(split, os.path.join(tmp, "ssl_out"))
+    out_dir = os.path.join(tmp, "mae_vis")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_path = os.path.join(out_dir, "config.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    reset_counts()
+    t0 = time.perf_counter()
+    lines = run_main(visualize_mae, [
+        "visualize_mae", "--config", cfg_path, "--base", "", "--ckpt", ssl_ckpt,
+        "--num_samples", str(VIS_SAMPLES), "--out_dir", out_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = read_counts()
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    have_mpl = visualize.plt is not None
+    emit({"phase": "visualize_mae", "seconds": seconds, "matplotlib": have_mpl, "pngs": pngs,
+          "k1_calls": launched["flash_attention_fwd"],
+          "k2_calls": launched["flash_attention_bwd"], "log": lines})
+    want_k1 = VIS_SAMPLES * VIS_K1_PER_SAMPLE if have_mpl else 0
+    want_pngs = [f"recon_{i:03d}.png" for i in range(VIS_SAMPLES)] if have_mpl else []
+    if (visualize_mae.NO_DECODER not in lines or pngs != want_pngs
+            or (launched["flash_attention_fwd"], launched["flash_attention_bwd"]) != (want_k1, 0)):
+        raise AssertionError(f"visualize_mae: pngs {pngs}, launches {launched}, log {lines}")
+
+    # sample 0's triptych, the kernel against the plain attention
+    ds = common.dataset_from_cfg(cfg, split, "ssl")
+    T, S = ds.clip_len, ds.image_size
+    mask = get_tube_mask(torch.Generator(device=dev).manual_seed(0), 1, T, (S // 8) ** 2,
+                         cfg["ssl"]["mask_ratio"], dev)
+    clip = ds.get_clip(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = visualize_mae.load_model(cfg, ssl_ckpt, dev, dtype, log=lambda m: None)
+        recon, k1 = {}, {}
+        for impl in ("kernel", "plain"):
+            set_attn_impl(model, impl)
+            reset_counts()
+            recon[impl] = visualize.triptych_arrays(model, clip, mask, 8, dtype,
+                                                    norm_pix=cfg["ssl"]["norm_pix_loss"])[2]
+            torch.cuda.synchronize()
+            k1[impl] = read_counts()["flash_attention_fwd"]
+        diff = np.abs(recon["kernel"].astype(np.int16) - recon["plain"].astype(np.int16))
+        row = {"phase": "visualize_triptych", "dtype": str(dtype).replace("torch.", ""),
+               "k1_calls": k1, "pixels": int(diff.size), "max_level_diff": int(diff.max()),
+               "share_differing": float((diff > 0).mean()),
+               "share_beyond_bf16_levels": float((diff > TRIPTYCH_BF16_LEVELS).mean())}
+        emit(row)
+        bad = (diff.max() > 1 if dtype == torch.float32
+               else row["share_beyond_bf16_levels"] > 0.01)
+        if bad or k1 != {"kernel": VIS_K1_PER_SAMPLE, "plain": 0}:
+            raise AssertionError(f"visualize triptych, kernel vs plain: {row}")
+    return launched
+
+
+def phase_plotting(tmp: str) -> None:
+    """Phase 28: entry.plotting's main on configs/plotting.yaml over
+    docs/examples/csv/ laid out in a directory of its own."""
+    import importlib.util
+    import shutil
+
+    from ssl_vit_video_analytics_tpu_torch.entry import plotting
+
+    root = os.path.join(tmp, "plotting")
+    for dst, src in PLOTTING_LAYOUT.items():
+        os.makedirs(os.path.dirname(os.path.join(root, dst)), exist_ok=True)
+        shutil.copy(os.path.join(ROOT, "docs", "examples", "csv", src), os.path.join(root, dst))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    here = os.getcwd()
+    os.chdir(root)
+    t0 = time.perf_counter()
+    try:
+        lines = run_main(plotting, ["plotting", "--config",
+                                    os.path.join(ROOT, "configs", "plotting.yaml")])
+    finally:
+        os.chdir(here)
+    seconds = time.perf_counter() - t0
+    fig_dir = os.path.join(root, "results", "figures")
+    figures = sorted(os.listdir(fig_dir)) if os.path.isdir(fig_dir) else []
+    summary = os.path.join(root, "results", "summary.csv")
+    same = None
+    if os.path.exists(summary):
+        with open(summary) as f, open(os.path.join(ROOT, "docs", "examples", "csv",
+                                                   "summary.csv")) as g:
+            same = f.read() == g.read()
+    emit({"phase": "plotting", "seconds": seconds, "matplotlib": have_mpl,
+          "figures": figures, "summary_csv_equals_committed": same,
+          "note": None if have_mpl else "no matplotlib: generate_all returns [] as JAX's does",
+          "log": lines})
+    if have_mpl and not (len(figures) == PLOTTING_FIGURES and same):
+        raise AssertionError(f"plotting: {figures}, summary equal: {same}")
+    if not have_mpl and (figures or same is not None):
+        raise AssertionError(f"plotting without matplotlib wrote {figures}")
+
+
+def start_ablation_cell(tmp: str) -> dict:
+    """Phase 29's real cell, started in the background so that it overlaps
+    phase 26's launcher run (its own process, its own launch counts):
+    ``entry.ablations --groups dynamic --max_per_group 1`` as a subprocess,
+    on phase 7's config and split."""
+    out_dir = os.path.join(tmp, "ablations")
+    split = slice_data(out_dir)["val"]
+    cfg_path = os.path.join(out_dir, "dynamic.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(slice_cfg(split, os.path.join(out_dir, "unused"), "streaming"), f)
+    pythonpath = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ssl_vit_video_analytics_tpu_torch.entry.ablations",
+         "--groups", "dynamic", "--max_per_group", "1", "--dynamic_config", cfg_path,
+         "--base", "", "--out_dir", os.path.join(out_dir, "cell")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=pythonpath), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return {"proc": proc, "t0": time.perf_counter(), "out_dir": out_dir}
+
+
+def stop_ablation_cell(cell: dict) -> None:
+    """Kill the cell's process group (entry.ablations and its run_dynamic)
+    if a failed phase left it running."""
+    if cell["proc"].poll() is None:
+        os.killpg(cell["proc"].pid, signal.SIGKILL)
+        cell["proc"].wait()
+
+
+def phase_ablations(tmp: str, cell: dict) -> None:
+    """Phase 29: entry.ablations --dry_run over the four groups, then the
+    real cell of :func:`start_ablation_cell`, waited for: exit 0, its CSV
+    and ``ablation_index.json`` with exit 0."""
+    from ssl_vit_video_analytics_tpu_torch.entry import ablations
+
+    lines = run_main(ablations, ["ablations", "--dry_run", "--out_dir",
+                                 os.path.join(tmp, "ablations", "dry")])
+    modules = [ln.split(" -m ", 1)[1].split()[0] for ln in lines
+               if ln.startswith("[ABLATION]")]
+    want = [f"ssl_vit_video_analytics_tpu_torch.entry.{entry}"
+            for entry, n in ABLATION_GROUPS.values() for _ in range(n)]
+    emit({"phase": "ablations_dry_run", "commands": len(modules),
+          "modules": sorted(set(modules))})
+    if modules != want:
+        raise AssertionError(f"ablations --dry_run: {modules}, want {want}")
+
+    out, err = cell["proc"].communicate(timeout=600)
+    seconds = time.perf_counter() - cell["t0"]
+    cell_dir = os.path.join(cell["out_dir"], "cell")
+    index_path = os.path.join(cell_dir, "ablation_index.json")
+    index = json.load(open(index_path)) if os.path.exists(index_path) else None
+    csv = os.path.join(cell_dir, "DYN_min_frames2", "dynamic", "early_exit_results.csv")
+    emit({"phase": "ablations_cell", "seconds_from_start": seconds,
+          "returncode": cell["proc"].returncode, "index": index, "csv": os.path.exists(csv),
+          "log": [ln for ln in out.splitlines() if ln.startswith(("[ABLATION]", "[INFO] wrote"))],
+          "stderr_tail": err[-1500:] if cell["proc"].returncode else ""})
+    if not (cell["proc"].returncode == 0 and index and len(index) == 1
+            and index[0]["exit"] == 0 and os.path.exists(csv)):
+        raise AssertionError(f"ablation cell: index {index}, csv {os.path.exists(csv)}")
+
+
+def phase_export(dev, tmp: str, smi: str) -> dict:
+    """Phase 30: tools.export_serving on configs/dynamic.yaml's classifier,
+    fp32: the served artifact against the live model (K1). Returns the live
+    forwards' launches."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.entry import run_dynamic
+    from ssl_vit_video_analytics_tpu_torch.models.layers import MultiHeadAttention
+    from ssl_vit_video_analytics_tpu_torch.tools import export_serving
+
+    cfg = slice_cfg("", tmp, "streaming")
+    T, S = cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    t0 = time.perf_counter()
+    model = run_dynamic.load_classifier(cfg, torch.float32, dev, lambda m: None)
+    program = export_serving.export_model(model, T, S, log=lambda m: None)
+    path = os.path.join(tmp, "classifier.pt2")
+    torch.export.save(program, path)
+    export_s = time.perf_counter() - t0
+    served_fn = torch.export.load(path).module()
+    impls = sorted({m.attn_impl or "kernel" for m in model.modules()
+                    if isinstance(m, MultiHeadAttention)})
+    g = torch.Generator(device=dev).manual_seed(30)
+    launched = dict.fromkeys(counters(), 0)
+    rows = []
+    with torch.no_grad():
+        for batch in EXPORT_BATCHES:
+            clip = torch.randn(batch, T, S, S, 3, generator=g, device=dev)
+            served = served_fn(clip)
+            reset_counts()
+            live = model(clip)
+            torch.cuda.synchronize()
+            for name, n in read_counts().items():
+                launched[name] += n
+            rows.append({"batch": batch, "served_shape": list(served.shape),
+                         "max_abs_diff": float((served - live).abs().max()),
+                         "live_max_abs": float(live.abs().max()),
+                         "finite": bool(torch.isfinite(served).all())})
+
+        def per_batch_ms(fn) -> float:  # a host copy after each call
+            for _ in range(3):
+                float(fn(clip)[0, 0])
+            t = time.perf_counter()
+            for _ in range(20):
+                float(fn(clip)[0, 0])
+            return (time.perf_counter() - t) / 20 * 1e3
+
+        served_ms = per_batch_ms(served_fn)
+        live_ms = per_batch_ms(model)
+    out = {"phase": "export", "export_seconds": export_s,
+           "artifact_mb": os.path.getsize(path) / 1e6, "attn_impl_after_export": impls,
+           "batches": rows,
+           "served_ms_batch8": served_ms, "live_ms_batch8": live_ms, "nvidia_smi": smi,
+           "k1_calls_live": launched["flash_attention_fwd"]}
+    emit(out)
+    bad = [r for r in rows if not (r["finite"] and r["served_shape"] == [
+        r["batch"], DYNAMIC_YAML["dataset"]["num_classes"]]
+        and r["max_abs_diff"] <= EXPORT_TOL * r["live_max_abs"])]
+    if bad or impls != ["kernel"] or launched["flash_attention_fwd"] != MVIT_ATTN * len(rows):
+        raise AssertionError(f"export: {out}")
+    return launched
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -2951,8 +3307,20 @@ def main() -> None:
         lap("opt-in regimes")
         paths.update(phase_runtime(dev, tmp))
         lap("runtime")
-        phase_launch(tmp, ssl_split)
-        lap("launch")
+        cell = start_ablation_cell(tmp)
+        try:
+            phase_launch(tmp, ssl_split)
+            lap("launch")
+            paths["visualize_mae"] = phase_visualize(dev, tmp, ssl_split, ssl_ckpt)
+            lap("visualize_mae")
+            phase_plotting(tmp)
+            lap("plotting")
+            phase_ablations(tmp, cell)
+            lap("ablations")
+        finally:
+            stop_ablation_cell(cell)
+        paths["export_live"] = phase_export(dev, tmp, smi)
+        lap("export")
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

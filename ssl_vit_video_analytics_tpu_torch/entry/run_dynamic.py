@@ -39,7 +39,10 @@ HYBRID_FIELDS = ("k", "threshold", "top1", "top5", "avg_used_frames", "avg_conf"
                  "avg_latency_ms")
 
 
-def _load_classifier(cfg: dict, dtype: torch.dtype, device: torch.device, log):
+def load_classifier(cfg: dict, dtype: torch.dtype, device: torch.device,
+                    log) -> torch.nn.Module:
+    """The classifier of ``cfg`` in eval mode on ``device``: seeded init,
+    then ``model.finetune_ckpt`` if it exists (else a warning)."""
     model = eng.build_model(int(cfg["dataset"]["num_classes"]),
                             int(cfg["model"]["embed_dim"]), dtype=dtype,
                             backbone=str(cfg["model"].get("backbone", "mobilevit_s")),
@@ -272,7 +275,7 @@ def run(cfg: dict, mode: str | None = None, log=print,
         raise ValueError(f"[ERROR] Unknown dynamic mode: {mode}")
     ds = common.dataset_from_cfg(cfg, common.split_path(cfg, cfg["dataset"]["split"]),
                                  "supervised")
-    model = _load_classifier(cfg, dtype, device, log)
+    model = load_classifier(cfg, dtype, device, log)
     # serving sweeps re-iterate the split once per knob setting; a resident
     # split makes each pass on-device gathers (dataset.device_resident)
     ds = common.maybe_device_resident(cfg, ds, device, log)

@@ -15,9 +15,12 @@ are resolved as the JAX entry resolves them over its devices
 ``device.model_parallel`` a ``data`` x ``model`` mesh over which every
 attention and MLP is cut, ``parallel/tp.py``); rank 0 alone writes, and a
 checkpoint (model and optimizer) is gathered whole, the file one device
-writes, which a resume cuts onto the mesh again. ``mae.vis_every`` waits for
-``reporting/visualize.py`` (ROADMAP queue 1, item 16): the run warns once
-and trains on.
+writes, which a resume cuts onto the mesh again. Every ``mae.vis_every``
+epochs rank 0 draws the first clip's token mask and masked-token error
+(``reporting/visualize.save_mae_vis``, under ``output.dir/vis/``); a failed
+picture is logged and training goes on, as in JAX. Under a ``model`` or
+``seq`` mesh the forward needs every rank, so no picture is drawn there (one
+warning).
 
 Every step draws from a generator seeded by ``(seed, global step)``, not
 from one stream, so a resumed run replays the masks, flips and drop-path
@@ -138,6 +141,7 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
         cfg_hash = config_hash(cfg)
     log(f"[INFO] train_mae: cfg_hash={cfg_hash} device={device} "
         f"dtype={str(dtype).replace('torch.', '')}")
+    vis_ds = ds  # the pictures read the host's first clip
     ds = common.maybe_device_resident(cfg, ds, device, log)
     model = build_model(cfg, dtype, decoder_attn_impl="sp" if par.sp_on else None)
     init_model(model, init_gen)
@@ -174,10 +178,10 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
     save_every = int(tr.get("save_every", 5))
     keep_last = int(tr.get("keep_last", 5))
     vis_every = int(mae.get("vis_every", 0))
-    if vis_every:
-        log(f"[WARN] vis skipped: mae.vis_every={vis_every} needs reporting/visualize.py, "
-            "not ported yet (ROADMAP queue 1, item 16); training goes on without "
-            "reconstruction images")
+    if vis_every and mesh is not None and (mesh.model_axis == "model" or par.sp_on):
+        log(f"[WARN] mae.vis_every={vis_every}: the picture's forward would need every "
+            "rank of this model or seq mesh; no pictures in this run")
+        vis_every = 0
     # segment cap: exit cleanly (with a checkpoint) after N epochs, so a
     # wrapper can run the job as a chain of fresh processes
     max_epochs_per_run = tr.get("max_epochs_per_run")
@@ -229,6 +233,12 @@ def run(cfg: dict, log=print, max_steps: int | None = None, resume: bool = True,
                 deleted = keep_last_n_checkpoints(out_dir, keep_last)
                 log(f"[INFO] saved ckpt_epoch_{epoch} (gc: {len(deleted)} old)")
             pmesh.barrier(mesh)  # the checkpoint is on disk for every rank
+        if vis_every and epoch % vis_every == 0 and main:
+            try:
+                from ..reporting.visualize import save_mae_vis
+                save_mae_vis(state.model, vis_ds, out_dir, epoch, P, ratio, mask_mode, dtype)
+            except Exception as e:  # vis must never kill training
+                log(f"[WARN] vis failed: {type(e).__name__}: {e}")
         if hit_segment_cap:
             log(f"[INFO] segment cap ({max_epochs_per_run} epochs/run) hit at "
                 f"epoch {epoch}/{epochs}; exiting — relaunch to resume")

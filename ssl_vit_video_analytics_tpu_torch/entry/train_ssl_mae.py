@@ -10,7 +10,10 @@ H100's bf16 peak on a card) + ETA logging, encoder-only checkpoints every
 MoE decoder (``model.decoder_moe_*``, its load-balance auxiliary weighted by
 ``ssl.moe_aux_weight``, default 0.01) and the 64-frame long clip
 (``configs/ssl_mae_longclip.yaml``) run as configured;
-``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``.
+``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``;
+``logging.tensorboard`` writes ``Train/Loss``, ``Train/Throughput`` and
+``Train/MFU`` at every logged step through ``tensorboardX`` on rank 0
+(under ``training.save_dir``; a warning where it is missing).
 The split is device-resident as ``dataset.device_resident`` says. Under
 ``torchrun`` one process a card: the multi-device knobs are resolved as
 the JAX entry resolves them over its devices (``common.setup_parallelism``):
@@ -126,8 +129,13 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
     dtype = common.compute_dtype_from(cfg, device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     log(f"[INFO] ssl_mae: device={device} ({name}) dtype={str(dtype).replace('torch.', '')}")
-    if cfg.get("logging", {}).get("tensorboard", False):
-        log("[WARN] TensorBoard logging is not ported; skipping")
+    tb = None
+    if cfg.get("logging", {}).get("tensorboard", False) and pmesh.is_main():
+        try:
+            from tensorboardX import SummaryWriter
+            tb = SummaryWriter(cfg["training"].get("save_dir", "results/tinymae_v1"))
+        except ImportError:
+            log("[WARN] tensorboardX unavailable; skipping TB logging")
     profile_dir = cfg.get("logging", {}).get("profile_dir")
 
     ds = common.dataset_from_cfg(cfg, common.split_path(cfg, cfg["dataset"]["train_split"]),
@@ -225,6 +233,10 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
                     f"loss={last_loss:.4f} pred_std={float(metrics['pred_std']):.4f} "
                     f"gnorm={float(metrics['grad_norm']):.2e} "
                     f"clips/s={ips:.1f} mfu={mfu:.3f} eta={eta:.0f}s{moe}")
+                if tb is not None:
+                    tb.add_scalar("Train/Loss", last_loss, global_step)
+                    tb.add_scalar("Train/Throughput", ips, global_step)
+                    tb.add_scalar("Train/MFU", mfu, global_step)
                 if float(metrics["collapse"]) > 0:
                     log("[WARN:pred_std_low] possible representation collapse")
             if max_steps is not None and global_step >= max_steps:
@@ -252,6 +264,8 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
 
     if profiler is not None:
         stop_profiler(profiler, profile_dir, log)
+    if tb is not None:
+        tb.close()
     total = time.perf_counter() - t_start
     return {"steps": global_step, "seconds": total, "last_loss": last_loss}
 

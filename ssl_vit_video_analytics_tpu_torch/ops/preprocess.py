@@ -1,6 +1,8 @@
 """On-device pixel preprocessing (counterpart of the JAX package's
 ``ops/preprocess.py``): the host ships uint8 NHWC clips and the device
-standardizes them; the visual-privacy layer blurs face regions there."""
+standardizes them (and :func:`denormalize_clip` undoes that for the
+reconstruction pictures); the visual-privacy layer blurs face regions
+there."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +19,13 @@ def normalize_clip(clip_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=clip_u8.device) * 255.0
     x = clip_u8.to(torch.float32)
     return ((x - mean) / std).to(dtype)
+
+
+def denormalize_clip(clip: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`normalize_clip`: fp32 pixels in [0, 255]."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=clip.device) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=clip.device) * 255.0
+    return clip.to(torch.float32) * std + mean
 
 
 def gaussian_blur_nhwc(img: torch.Tensor, kernel_size: int,

@@ -1,0 +1,7 @@
+"""Tools of the port: the serving export (``export_serving``) and the
+importer of reference PyTorch checkpoints (``import_torch_checkpoint``).
+
+    python -m ssl_vit_video_analytics_tpu_torch.tools.export_serving --config configs/dynamic.yaml
+    python -m ssl_vit_video_analytics_tpu_torch.tools.import_torch_checkpoint \\
+        --torch_ckpt ref.pth --out results/imported/best
+"""

@@ -1,9 +1,9 @@
 """Metrics: top-k accuracy, prediction entropy, the privacy exposure rate,
-best tracking, the epoch-summary line, and throughput accounting for
-pipeline B (the JAX package's ``utils/metrics.py``): analytic train-step
-FLOPs per clip from the model config, and the model FLOPs utilization
-against one H100 SXM's dense bf16 peak, where the JAX package divides by a
-TPU v5e's.
+best tracking, the epoch-summary line, min-max normalization, and
+throughput accounting for pipeline B (the JAX package's
+``utils/metrics.py``): analytic train-step FLOPs per clip from the model
+config, and the model FLOPs utilization against one H100 SXM's dense bf16
+peak, where the JAX package divides by a TPU v5e's.
 """
 from __future__ import annotations
 
@@ -58,6 +58,15 @@ def format_metrics(metrics: Mapping, precision: int = 4) -> str:
         except (TypeError, ValueError):
             parts.append(f"{k}={v}")
     return " ".join(parts)
+
+
+def minmax_norm(values: Sequence[float]) -> list[float]:
+    """Min-max normalize to [0,1]; constant input -> zeros (ref: src/utils.py:60-71)."""
+    vals = [float(v) for v in values]
+    lo, hi = min(vals), max(vals)
+    if hi - lo < 1e-12:
+        return [0.0 for _ in vals]
+    return [(v - lo) / (hi - lo) for v in vals]
 
 
 def _mbconv_flops(c_in: int, c_out: int, r_in: int, r_out: int,

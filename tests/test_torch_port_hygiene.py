@@ -83,7 +83,10 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "models/heads.py", "train/ssl_engine.py", "ops/augment.py",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
             "parallel/sp.py", "federated/core.py", "entry/run_federated.py",
-            "parallel/ep.py", "parallel/tp.py", "parallel/pp.py", "parallel/shard.py"} <= walked
+            "parallel/ep.py", "parallel/tp.py", "parallel/pp.py", "parallel/shard.py",
+            "reporting/plotting.py", "reporting/visualize.py", "entry/plotting.py",
+            "entry/visualize_mae.py", "entry/ablations.py", "tools/export_serving.py",
+            "tools/import_torch_checkpoint.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):

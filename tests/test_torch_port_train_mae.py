@@ -428,7 +428,9 @@ def test_resumed_run_is_bit_equal_to_an_uninterrupted_one(tmp_path, toy_widths):
     steps an epoch under accumulation 3, so the stop falls inside an
     accumulation cycle; flips and stochastic depth on): every param, BN
     statistic and optimizer entry bit-equal, the step count and the
-    schedule's count equal, one checkpoint kept. A changed config resumes
+    schedule's count equal, one checkpoint kept, and each epoch's picture
+    drawn (``mae.vis_every`` 1: the pictures' forwards leave the training
+    state as it was). A changed config resumes
     with a cfg_hash warning, a checkpoint without optimizer state with the
     legacy warning."""
     splits = make_synthetic_dataset(str(tmp_path / "data"), num_classes=2, videos_per_class=3,
@@ -443,7 +445,10 @@ def test_resumed_run_is_bit_equal_to_an_uninterrupted_one(tmp_path, toy_widths):
     assert any(m.startswith("[INFO] resumed from ") and m.endswith("at epoch 2")
                for m in logs["b"])
     for log in logs.values():
-        assert not log or any("item 16" in m and m.startswith("[WARN]") for m in log)
+        assert not any(m.startswith("[WARN] vis failed") for m in log)
+    for d in ("a", "b"):  # mae.vis_every: 1, a picture each epoch, resumed or not
+        assert sorted(os.listdir(tmp_path / d / "vis")) == ["mae_vis_epoch_1.png",
+                                                           "mae_vis_epoch_2.png"]
     assert any(" ratio=0.70 " in m for m in logs["a"]) and any(" ratio=0.90 " in m
                                                                for m in logs["a"])
 

@@ -386,3 +386,80 @@ def test_entry_trains_at_toy_size_on_the_cpu(tmp_path):
                             log=lines.append, max_steps=1)
     assert out["steps"] == 1 and np.isfinite(out["last_loss"])
     assert "[WARN] pipeline_parallel requested on 1 device; ignoring" in lines
+
+
+
+TRAJECTORY_STEPS, TRAJECTORY_LR = 4, 1e-3
+
+
+def _adam_state(opt_state):
+    return [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)][0]
+
+
+def test_trajectory_matches_make_pixel_mae_step(mae_variables):
+    """TRAJECTORY_STEPS fp32 steps from the same weights, each with its own
+    clip and the JAX step's mask (stochastic depth off).
+
+    AdamW moves an entry by about lr * sign(g) on its first steps, so where
+    g is rounding noise (a gradient that is zero in exact arithmetic) the
+    two runs move it by up to 2 * lr apart a step: sign noise. At lr
+    TRAJECTORY_LR it does not decide the result: the losses agree to 7e-7
+    relative over the 4 steps (measured), gradient norm and pred_std to
+    3e-6. So, after each step: the loss, gradient norm and pred_std to 2e-5
+    relative; every param within 2 * lr * (steps so far) of JAX's (the sign
+    noise bound; measured up to 1.2 * lr a step); on the entries whose
+    gradient exceeded 1e-3 of the largest at every step so far (half of
+    them by step 4), the update from the initial params to 5e-2 relative
+    (measured 1.1e-2: Adam's second moment still holds the early steps'
+    small gradients); the BN statistics after the first step to 1e-4 of
+    each leaf's largest entry, after step t + 1 to 2e-3 * t of it (the
+    batch statistics of params that sign noise moved apart: measured
+    8e-4, 2.1e-3, 3.7e-3)."""
+    model = _jax_mae()
+    jtx = jeng.wrap_accum_and_skip(jstate.make_optimizer(TRAJECTORY_LR), accum_steps=1)
+    jst = jstate.create_train_state(jax.tree.map(jnp.asarray, mae_variables["params"]), jtx,
+                                    batch_stats=jax.tree.map(jnp.asarray,
+                                                             mae_variables["batch_stats"]))
+    jstep = jeng.make_pixel_mae_step(model, jtx, mask_ratio=0.75)
+    port = _port_mae(use_checkpoint=True)
+    port.load_state_dict(mae_state_dict_from_flax(mae_variables))
+    tx = teng.wrap_accum_and_skip(tstate.make_optimizer(port.parameters(), TRAJECTORY_LR), 1)
+    state = tstate.create_train_state(port, tx)
+    step = teng.make_pixel_mae_step(port, mask_ratio=0.75)
+    names = dict(port.named_parameters())
+    start = {k: p.detach().numpy().copy() for k, p in names.items()}
+    sure, mu_prev = None, None
+    for t in range(TRAJECTORY_STEPS):
+        clip, key = _clip_u8(40 + t), jax.random.key(50 + t)
+        jst, jm = jstep(jst, {"clip": jnp.asarray(clip)}, key)
+        state, m = step(state, {"clip": torch.from_numpy(clip)},
+                        torch.Generator().manual_seed(t),
+                        mask=torch.from_numpy(np.array(_jax_mask(key))))
+        for k in ("loss", "grad_norm", "pred_std"):
+            assert float(m[k]) == pytest.approx(float(jm[k]), rel=2e-5), (t, k)
+        as_port = lambda tree: {k: v.numpy() for k, v in mae_state_dict_from_flax(  # noqa: E731
+            {"params": jax.tree.map(np.asarray, tree), "batch_stats": jst.batch_stats}).items()}
+        ref = as_port(jst.params)
+        # JAX's gradient of this step, from Adam's first moment (b1 0.9)
+        mu = as_port(_adam_state(jst.opt_state).mu)
+        grads = {k: (mu[k] - (0.9 * mu_prev[k] if mu_prev else 0.0)) / 0.1 for k in names}
+        mu_prev = mu
+        gmax = max(float(np.abs(g).max()) for g in grads.values())
+        now = {k: np.abs(g) > 1e-3 * gmax for k, g in grads.items()}
+        sure = now if sure is None else {k: sure[k] & now[k] for k in names}
+        for name, p in names.items():
+            got, want = p.detach().numpy(), ref[name]
+            np.testing.assert_allclose(got, want, rtol=0, atol=2 * TRAJECTORY_LR * (t + 1),
+                                       err_msg=f"step {t} {name}")
+            np.testing.assert_allclose((got - start[name])[sure[name]],
+                                       (want - start[name])[sure[name]], rtol=5e-2, atol=1e-7,
+                                       err_msg=f"step {t} {name}")
+        for key_, v in port.state_dict().items():
+            if key_.endswith(("running_mean", "running_var")):
+                drift = 1e-4 if t == 0 else 2e-3 * t
+                np.testing.assert_allclose(v.numpy(), ref[key_], rtol=0,
+                                           atol=drift * np.abs(ref[key_]).max(),
+                                           err_msg=f"step {t} {key_}")
+    assert state.step == TRAJECTORY_STEPS
