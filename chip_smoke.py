@@ -280,14 +280,28 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    logits held to the live model's (K1, 6 a forward) within
    EXPORT_TOL of the largest live logit; served and live ms per batch of 8
    (a host sync after each call), with the card's name and power limit.
+31. campaigns: the port's research campaign scripts at the campaign's full
+   width (16 x 112x112 clips, batch 16, embed 256, bf16) on a hard fixture
+   of 4 classes x 10 clips: ssl_transfer_campaign (1 SSL epoch, then
+   ft_ssl, ft_random and linear_probe for 2 epochs each, then the 8 x 3
+   feature-privacy grid) as the sweep cell A_lab100; mae_evidence (1 epoch
+   of configs/ssl_mae.yaml at batch 16); the pipeline-B cell B_lab50 from
+   its encoder (ft_ssl and two_stage on TinyViT, half the labels); then
+   make_campaign_artifacts and make_sweep_artifacts. Each entry call is a
+   path: seconds, step ms, peak memory, K1/K2 launches (K1 on every path,
+   K2 on every one that trains a backbone, none on linear_probe and the
+   privacy grid) and the (B, Lq, Lk, H, d) of every K1/K2 call, each of
+   which must be one of phases 3-4's shapes; 24 privacy rows, 1 MAE epoch
+   row, a sweep row a mode, finite losses.
 
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
 sanity check, privacy, the federated baseline, client steps, evaluation and
 the in-process bridge, the MoE and long-clip pretraining, the augmented
 finetune, the runtime's data steps, seq steps, FedAvg round and
-expert, model and pipe steps, pipeline C's picture, visualize_mae and the
-export's live model) is driven and read just after. The line before the
+expert, model and pipe steps, pipeline C's picture, visualize_mae, the
+export's live model and each entry call of the campaigns) is driven and
+read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -320,7 +334,10 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "system_federated", "train_ssl_mae_moe", "train_ssl_mae_longclip",
          "train_finetune_augment", "runtime_data_steps", "runtime_seq_steps",
          "runtime_fedavg", "runtime_expert_steps", "runtime_model_steps",
-         "runtime_pipe_steps", "train_mae_vis", "visualize_mae", "export_live")
+         "runtime_pipe_steps", "train_mae_vis", "visualize_mae", "export_live",
+         "campaign_train_ssl", "campaign_ft_ssl", "campaign_ft_random",
+         "campaign_linear_probe", "campaign_run_privacy", "mae_evidence",
+         "campaign_b_ft_ssl", "campaign_b_two_stage")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -437,6 +454,22 @@ ABLATION_GROUPS = {"sampling": ("train_finetune", 4), "ssl_objective": ("train_s
 # plain (TOL_FP32), held end to end over the forward's 6 calls
 EXPORT_BATCHES = (2, 8)
 EXPORT_TOL = 1e-4
+# phase 31: the research campaigns through the port's scripts at the
+# campaign's full width (16 x 112x112 clips, batch 16, embed 256, bf16;
+# mae_evidence at configs/ssl_mae.yaml's widths), counts cut for time: a
+# hard fixture of 4 classes x 10 clips, 1 SSL epoch, 2 finetune epochs, 1
+# MAE epoch; the default modes and privacy grid for pipeline A, then the
+# pipeline-B family at half the labels (the sweep's B_lab50 cell)
+CAMPAIGN_DATA = ["--classes", "4", "--clips", "10"]
+CAMPAIGN_A_ARGS = ["--ssl_epochs", "1", "--ft_epochs", "2"]
+MAE_EVIDENCE_ARGS = ["--epochs", "1", "--batch", "16", "--log_interval", "1"]
+CAMPAIGN_B_ARGS = ["--ft_epochs", "2", "--skip_ssl", "--skip_privacy", "--backbone", "tinyvit",
+                   "--ft_label_fraction", "0.5", "--modes", "ft_ssl,two_stage"]
+CAMPAIGN_A_MODES = ("ft_ssl", "ft_random", "linear_probe")
+CAMPAIGN_B_MODES = ("ft_ssl", "two_stage")
+MAE_EVIDENCE_EPOCHS, PRIVACY_GRID_ROWS = 1, 8 * 3
+# the campaign paths whose backbone is frozen or which train nothing: no K2
+CAMPAIGN_NO_K2 = ("campaign_linear_probe", "campaign_run_privacy")
 # phase 26: the launcher's pipeline-B run (configs/ssl_mae.yaml on phase 6's
 # 40-clip split; departures: one epoch of 2 steps of 20 clips, every step
 # logged, a checkpoint at its end)
@@ -480,7 +513,10 @@ K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
 # shard; then pipeline A's MobileViT blocks at 48 clips x 32 frames and its
 # temporal transformer, pipeline C's TinyViT stages 1-3 at 16 clips x
 # 32 frames and its decoder, and the MobileViT blocks at the FedAvg client
-# step's 16 clips x 32 frames and the privacy embedding's 8 x 32
+# step's 16 clips x 32 frames and the privacy embedding's 8 x 32; then the
+# campaigns' (phase 31) at 16 clips x 16 frames that no earlier path has:
+# pipeline A's temporal head, the TinyViT stages of the pipeline-B
+# finetune and of mae_evidence, and mae_evidence's decoder
 KERNEL_SHAPES = [
     ("mvit1", 128, 196, 196, 4, 32),
     ("mvit2", 128, 64, 64, 4, 40),
@@ -503,6 +539,10 @@ KERNEL_SHAPES = [
     ("mvit1_priv", 256, 196, 196, 4, 32),
     ("mvit2_priv", 256, 64, 64, 4, 40),
     ("mvit3_priv", 256, 16, 16, 4, 48),
+    ("temporal_campaign", 16, 16, 16, 4, 64),
+    ("tinyvit_stage1_campaign", 256, 784, 784, 6, 32),
+    ("tinyvit_stage2_campaign", 256, 196, 196, 12, 32),
+    ("mae_decoder_campaign", 16, 3136, 3136, 6, 64),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 HMMA_BF16 = "HMMA.16816.F32.BF16"
@@ -714,6 +754,13 @@ def summed(rows: list[dict]) -> dict:
     return out
 
 
+def shape_lap(kernel: str, shape: str, t0: float) -> None:
+    """Wall seconds that phases 3-4 spend on one shape, both dtypes: the
+    checks, the three timings and the library call."""
+    emit({"phase": "shape_seconds", "kernel": kernel, "shape": shape,
+          "seconds": time.perf_counter() - t0})
+
+
 def phase_kernel(fa, dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -724,6 +771,7 @@ def phase_kernel(fa, dev) -> dict:
     max_err = 0.0
     train_rows = []
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
+        t_shape = time.perf_counter()
         hd = H * d
         # strided thirds of a fused projection, as MultiHeadAttention passes them
         qkv = torch.randn(B, Lq, 3 * hd, device=dev, generator=g)
@@ -763,6 +811,7 @@ def phase_kernel(fa, dev) -> dict:
                 train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                                    "bound_ms": bound[0], "bound_by": bound[1]})
             del lib_out
+        shape_lap("K1", name, t_shape)
     return {"max_abs_err": max_err, **summed(train_rows)}
 
 
@@ -855,6 +904,7 @@ def phase_backward(fa, dev) -> dict:
     max_abs, max_rel = 0.0, 0.0
     train_rows = []
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
+        t_shape = time.perf_counter()
         hd = H * d
         qkv = torch.randn(B, Lq, 3 * hd, device=dev, generator=g)
         kv = torch.randn(B, Lk, 2 * hd, device=dev, generator=g)
@@ -897,6 +947,7 @@ def phase_backward(fa, dev) -> dict:
                 train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                                    "bound_ms": bound[0], "bound_by": bound[1]})
             del grads, refs, lib_out, leaves, views
+        shape_lap("K2", name, t_shape)
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
 
 
@@ -3207,6 +3258,180 @@ def phase_export(dev, tmp: str, smi: str) -> dict:
     return launched
 
 
+def campaign_argvs(root: str) -> dict:
+    """Phase 31's script command lines under ``root``, in the order they
+    run: (a) the pipeline-A campaign as the sweep cell ``A_lab100``, (b)
+    mae_evidence, (c) the pipeline-B cell ``B_lab50`` from (b)'s encoder,
+    (d) the two artifact scripts; every entry on the card."""
+    data, docs = os.path.join(root, "data"), os.path.join(root, "docs")
+    a_out, mae_out = os.path.join(root, "A_lab100"), os.path.join(root, "mae_b")
+    mae_ckpt = os.path.join(mae_out, "ckpt", f"ckpt_epoch_{MAE_EVIDENCE_EPOCHS}")
+    return {
+        "campaign_a": ["--out", a_out, "--data", data, *CAMPAIGN_DATA, *CAMPAIGN_A_ARGS,
+                       "--device", "cuda"],
+        "mae_evidence": ["--out", mae_out, "--data", data, *CAMPAIGN_DATA, *MAE_EVIDENCE_ARGS,
+                         "--device", "cuda"],
+        "campaign_b": ["--out", os.path.join(root, "B_lab50"), "--data", data, *CAMPAIGN_DATA,
+                       *CAMPAIGN_B_ARGS, "--ssl_ckpt", mae_ckpt, "--device", "cuda"],
+        "campaign_artifacts": ["--campaign", a_out, "--docs", docs],
+        "sweep_artifacts": ["--root", root, "--docs", docs],
+    }
+
+
+def phase_campaigns(tmp: str) -> dict:
+    """Phase 31: the research campaigns through the port's scripts
+    (:func:`campaign_argvs`). Each entry call a script makes is a path: its
+    launch counts set to 0 just before it and read just after, its steps
+    timed (:class:`StepRecorder`), its peak device memory, and the (B, Lq,
+    Lk, H, d) of each K1 and K2 call, every one of which must be a shape
+    that phases 3-4 hold against the plain versions. Returns the paths'
+    launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.entry import (run_privacy, train_finetune, train_ssl,
+                                                         train_ssl_mae)
+    from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+    from ssl_vit_video_analytics_tpu_torch.scripts import (make_campaign_artifacts,
+                                                           make_sweep_artifacts, mae_evidence,
+                                                           ssl_transfer_campaign)
+    from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
+
+    root = os.path.join(tmp, "campaigns")
+    argvs = campaign_argvs(root)
+    paths, runs, shapes = {}, {}, {}
+    current = {"family": "", "path": None}
+    entries = {"train_ssl": train_ssl, "train_finetune": train_finetune,
+               "run_privacy": run_privacy, "train_ssl_mae": train_ssl_mae}
+    originals = {name: module.run for name, module in entries.items()}
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def counted(entry: str):
+        def run(cfg, *args, **kw):
+            name = {"train_ssl": "campaign_train_ssl", "run_privacy": "campaign_run_privacy",
+                    "train_ssl_mae": "mae_evidence"}.get(
+                entry, f"campaign_{current['family']}{kw.get('mode')}")
+            batch = int(cfg.get("training", cfg.get("runtime", {}))["batch_size"])
+            rec = StepRecorder(batch, "campaign_step")
+            current["path"] = name
+            shapes[name] = set()
+            if entry != "run_privacy":
+                kw["on_step"] = rec.on_step
+            log = kw.get("log", print)
+
+            def epoch_log(msg):  # an epoch's first step starts its clock at the epoch
+                if "started" in msg:
+                    torch.cuda.synchronize()
+                    rec.t = time.perf_counter()
+                log(msg)
+
+            kw["log"] = epoch_log
+            torch.cuda.synchronize()
+            rec.start()
+            t0 = time.perf_counter()
+            out = originals[entry](cfg, *args, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec.take_counts()
+            paths[name] = rec.totals
+            timed = [s["step_ms"] for s in rec.steps if not s["includes_setup"]]
+            runs[name] = {
+                "seconds": seconds, "steps": len(rec.steps),
+                "step_ms": [s["step_ms"] for s in rec.steps],
+                "step_ms_median": sorted(timed)[len(timed) // 2] if timed else None,
+                "losses": [s["loss"] for s in rec.steps],
+                "max_memory_allocated_gb": max(
+                    [torch.cuda.max_memory_allocated() / 2 ** 30]
+                    + [s["max_memory_allocated_gb"] for s in rec.steps]),
+                "k1": rec.totals["flash_attention_fwd"], "k2": rec.totals["flash_attention_bwd"]}
+            return out
+        return run
+
+    def fwd_recorded(q, k, v, num_heads):
+        shapes[current["path"]].add(("K1", q.shape[0], q.shape[1], k.shape[1], num_heads,
+                                     q.shape[2] // num_heads, str(q.dtype)))
+        return fwd(q, k, v, num_heads)
+
+    def bwd_recorded(q, k, v, out, lse, dout, num_heads):
+        shapes[current["path"]].add(("K2", q.shape[0], q.shape[1], k.shape[1], num_heads,
+                                     q.shape[2] // num_heads, str(q.dtype)))
+        return bwd(q, k, v, out, lse, dout, num_heads)
+
+    def script(module, key: str) -> list[str]:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                module.main(argvs[key])
+        except BaseException:
+            sys.stdout.write(buf.getvalue()[-6000:])
+            raise
+        return buf.getvalue().splitlines()
+
+    lines = {}
+    here = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(ROOT)  # mae_evidence reads configs/ssl_mae.yaml from the repo root
+        for name, module in entries.items():
+            module.run = counted(name)
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd_recorded, bwd_recorded
+        lines["campaign_a"] = script(ssl_transfer_campaign, "campaign_a")
+        lines["mae_evidence"] = script(mae_evidence, "mae_evidence")
+        current["family"] = "b_"
+        lines["campaign_b"] = script(ssl_transfer_campaign, "campaign_b")
+        lines["campaign_artifacts"] = script(make_campaign_artifacts, "campaign_artifacts")
+        lines["sweep_artifacts"] = script(make_sweep_artifacts, "sweep_artifacts")
+    finally:
+        os.chdir(here)
+        for name, module in entries.items():
+            module.run = originals[name]
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    seconds = time.perf_counter() - t0
+
+    a, b, mae = (os.path.join(root, d) for d in ("A_lab100", "B_lab50", "mae_b"))
+    tables = {os.path.relpath(p, root): read_csv_dicts(p) for p in [
+        os.path.join(a, "ssl", "ssl_metrics.csv"),
+        *[os.path.join(a, "finetune", m, "metrics.csv") for m in CAMPAIGN_A_MODES],
+        os.path.join(a, "privacy", "feature_privacy.csv"),
+        os.path.join(mae, "mae_pretrain_metrics.csv"), os.path.join(mae, "mae_pretrain_steps.csv"),
+        *[os.path.join(b, "finetune", m, "metrics.csv") for m in CAMPAIGN_B_MODES],
+        os.path.join(root, "sweep_summary.csv"),
+        os.path.join(root, "docs", "csv", "ssl_transfer_sweep.csv")]}
+    with open(os.path.join(a, "campaign_summary.json")) as f, \
+            open(os.path.join(b, "campaign_summary.json")) as g:
+        best = {"A_lab100": json.load(f)["best_top1"], "B_lab50": json.load(g)["best_top1"]}
+    known = {s[1:] for s in KERNEL_SHAPES + LONGCLIP_SHAPES + TP_SHAPES}
+    missing = sorted({s[1:6] for ss in shapes.values() for s in ss} - known)
+    losses = [x for r in runs.values() for x in r["losses"]]
+    losses += [float(r[k]) for name, rows in tables.items() for r in rows
+               for k in ("total", "train_loss", "loss") if k in r]
+    said = [ln for ln_list in lines.values() for ln in ln_list
+            if ln.startswith(("[campaign]", "[mae-evidence]", "figure:", "csv:", "copied:",
+                              "MISSING:", "[INFO] loaded finetune", "[WARN] finetune ckpt"))]
+    summary = {"phase": "campaigns", "seconds": seconds, "paths": runs,
+               "best_top1": best, "rows": {name: len(rows) for name, rows in tables.items()},
+               "shapes": {name: sorted(ss) for name, ss in shapes.items()},
+               "shapes_not_in_phases_3_4": missing, "log": said}
+    emit(summary)
+    no_k1 = [p for p in runs if runs[p]["k1"] == 0]
+    k2_wrong = [p for p in runs if (runs[p]["k2"] == 0) != (p in CAMPAIGN_NO_K2)]
+    rows = summary["rows"]
+    if not (set(runs) == {p for p in PATHS if p.startswith("campaign_")} | {"mae_evidence"}
+            and not no_k1 and not k2_wrong and not missing
+            and rows[os.path.join("A_lab100", "privacy", "feature_privacy.csv")]
+            == PRIVACY_GRID_ROWS
+            and rows[os.path.join("mae_b", "mae_pretrain_metrics.csv")] == MAE_EVIDENCE_EPOCHS
+            and rows["sweep_summary.csv"] == len(CAMPAIGN_A_MODES) + len(CAMPAIGN_B_MODES)
+            and losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"campaigns: paths {sorted(runs)}, no K1 {no_k1}, K2 wrong "
+                             f"{k2_wrong}, shapes missing {missing}, rows {rows}, "
+                             f"{len(losses)} losses, not finite "
+                             f"{[x for x in losses if not math.isfinite(x)]}")
+    return paths
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -3321,6 +3546,8 @@ def main() -> None:
             stop_ablation_cell(cell)
         paths["export_live"] = phase_export(dev, tmp, smi)
         lap("export")
+        paths.update(phase_campaigns(tmp))
+        lap("campaigns")
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

@@ -1,11 +1,14 @@
-"""Probe entry points of the port: the counterparts of the JAX package's
-Pallas microbenchmarks ``scripts/probe_dw.py`` (P1) and
-``scripts/probe_exp.py`` (P2), each driving its Hopper kernel.
+"""Scripts of the port: the counterparts of the JAX package's Pallas
+microbenchmarks ``scripts/probe_dw.py`` (P1) and ``scripts/probe_exp.py``
+(P2), each driving its Hopper kernel, the step profiler, and the research
+campaigns (``ssl_transfer_campaign``, ``mae_evidence``, ``r5_privacy_grid``
+and the artifact scripts ``make_{campaign,sweep,seed}_artifacts``).
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_dw [BT] [check|bench|all]
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_exp
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.ssl_transfer_campaign --smoke --device cpu
 
-Both run on ``cuda`` unless ``--device cpu`` is given; on the CPU the
+Each runs on ``cuda`` unless ``--device cpu`` is given; on the CPU the
 kernels' plain versions run and the times are the CPU's.
 """
 from __future__ import annotations

@@ -4,7 +4,9 @@ are the JAX ones once the entry package is mapped; ``--device`` goes on to
 every cell only when given; ``--max_per_group 0`` runs no cell; one real
 cell of the dynamic grid runs the port's ``run_dynamic`` in a subprocess on
 the CPU. Then the port's experiment runners (``experiments/torch/``): one
-for each JAX runner the port takes, valid bash, naming only port entries.
+for each JAX runner the port takes, valid bash, naming only port entries
+and scripts (a JAX ``python scripts/<name>.py`` is the port's ``python -m
+ssl_vit_video_analytics_tpu_torch.scripts.<name>``).
 """
 import json
 import pathlib
@@ -22,11 +24,10 @@ from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_ENTRY, PORT_ENTRY = "ssl_vit_video_analytics_tpu.entry", "ssl_vit_video_analytics_tpu_torch.entry"
-# the JAX runners the port leaves out: TPU-environment code, preprocessing
-# without a model, and the research campaigns (JAX scripts)
-NOT_PORTED = {"run_segmented.sh", "run_full_pipeline_dataset.sh",
-              "run_ssl_transfer_campaign.sh", "run_transfer_sweep.sh",
-              "run_transfer_sweep_app.sh"}
+PORT_SCRIPTS = "ssl_vit_video_analytics_tpu_torch.scripts"
+# the JAX runners the port leaves out: TPU-environment code and
+# preprocessing without a model
+NOT_PORTED = {"run_segmented.sh", "run_full_pipeline_dataset.sh"}
 
 
 def _drive(module, argv, monkeypatch, capsys):
@@ -94,7 +95,10 @@ def test_experiment_runners_mirror_the_jax_ones_with_port_entries():
         assert subprocess.run(["bash", "-n", str(path)], capture_output=True).returncode == 0
         text = path.read_text()
         modules = re.findall(r"python -m (\S+)", text)
-        jax_modules = re.findall(r"python -m (\S+)", (REPO / "experiments" / path.name).read_text())
-        assert modules and modules == [m.replace(JAX_ENTRY, PORT_ENTRY) for m in jax_modules]
+        jax_calls = re.findall(r"python (?:-m (\S+)|scripts/(\w+)\.py)",
+                               (REPO / "experiments" / path.name).read_text())
+        assert modules and modules == [m.replace(JAX_ENTRY, PORT_ENTRY) if m
+                                       else f"{PORT_SCRIPTS}.{script}"
+                                       for m, script in jax_calls]
         assert "ssl_vit_video_analytics_tpu." not in text
         assert path.stat().st_mode & 0o111  # executable, as the JAX runners

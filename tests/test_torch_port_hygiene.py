@@ -86,7 +86,10 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "parallel/ep.py", "parallel/tp.py", "parallel/pp.py", "parallel/shard.py",
             "reporting/plotting.py", "reporting/visualize.py", "entry/plotting.py",
             "entry/visualize_mae.py", "entry/ablations.py", "tools/export_serving.py",
-            "tools/import_torch_checkpoint.py"} <= walked
+            "tools/import_torch_checkpoint.py", "scripts/ssl_transfer_campaign.py",
+            "scripts/mae_evidence.py", "scripts/make_campaign_artifacts.py",
+            "scripts/make_sweep_artifacts.py", "scripts/make_seed_artifacts.py",
+            "scripts/r5_privacy_grid.py"} <= walked
 
 
 def test_wrapper_on_cpu_runs_plain_version_without_building(tmp_path, monkeypatch):
@@ -425,3 +428,85 @@ def test_chip_smoke_opt_in_pipeline_b_configs_are_their_yamls(name, short, const
     assert {k for k in merged if k.split(".")[0] in ("model", "ssl", "training", "dataset",
                                                      "device", "seed")} - {
         "dataset.train_split", "training.save_dir", "device.prefetch"} <= set(cfg)
+
+
+def test_chip_smoke_campaigns_run_the_scripts_at_full_width_with_counts_cut(tmp_path,
+                                                                             monkeypatch):
+    """Phase 31 runs the campaign scripts at their full width (16 x 112x112
+    clips, batch 16, embed 256, bf16; mae_evidence at configs/ssl_mae.yaml's
+    widths), cut only in counts: a 4-class x 10-clip fixture, 1 SSL epoch, 2
+    finetune epochs with the default modes and privacy grid, 1 MAE epoch at
+    batch 16, then the pipeline-B cell at half the labels from that
+    encoder. The configs the scripts hand the entries are recorded here
+    with the entries replaced."""
+    from ssl_vit_video_analytics_tpu_torch.entry import (run_privacy, train_finetune,
+                                                         train_ssl, train_ssl_mae)
+    from ssl_vit_video_analytics_tpu_torch.scripts import mae_evidence, ssl_transfer_campaign
+
+    chip_smoke = _chip_smoke()
+    assert chip_smoke.CAMPAIGN_DATA == ["--classes", "4", "--clips", "10"]
+    assert chip_smoke.CAMPAIGN_A_ARGS == ["--ssl_epochs", "1", "--ft_epochs", "2"]
+    assert chip_smoke.MAE_EVIDENCE_ARGS == ["--epochs", "1", "--batch", "16",
+                                            "--log_interval", "1"]
+    assert chip_smoke.CAMPAIGN_B_ARGS == [
+        "--ft_epochs", "2", "--skip_ssl", "--skip_privacy", "--backbone", "tinyvit",
+        "--ft_label_fraction", "0.5", "--modes", "ft_ssl,two_stage"]
+    assert (chip_smoke.CAMPAIGN_A_MODES, chip_smoke.CAMPAIGN_B_MODES) == (
+        ("ft_ssl", "ft_random", "linear_probe"), ("ft_ssl", "two_stage"))
+    assert (chip_smoke.MAE_EVIDENCE_EPOCHS, chip_smoke.PRIVACY_GRID_ROWS) == (1, 24)
+    assert {f"campaign_{m}" for m in chip_smoke.CAMPAIGN_A_MODES} | {
+        f"campaign_b_{m}" for m in chip_smoke.CAMPAIGN_B_MODES} | {
+        "campaign_train_ssl", "campaign_run_privacy", "mae_evidence"} <= set(chip_smoke.PATHS)
+
+    tmp = str(tmp_path)
+    argvs = chip_smoke.campaign_argvs(tmp)
+    assert list(argvs) == ["campaign_a", "mae_evidence", "campaign_b", "campaign_artifacts",
+                           "sweep_artifacts"]
+    for key in ("campaign_a", "mae_evidence", "campaign_b"):
+        assert argvs[key][-2:] == ["--device", "cuda"] and "--smoke" not in argvs[key]
+    calls = []
+    monkeypatch.chdir(REPO)  # mae_evidence reads configs/ from the working directory
+    for module, entry in ((train_ssl, "train_ssl"), (train_finetune, "train_finetune"),
+                          (run_privacy, "run_privacy"), (train_ssl_mae, "train_ssl_mae")):
+        monkeypatch.setattr(module, "run", lambda cfg, *a, _e=entry, **kw: calls.append(
+            (_e, cfg, kw.get("mode"), kw.get("device"))) or {"best_top1": 0.0})
+    monkeypatch.setattr(mae_evidence, "fig_mae_pretrain", lambda *a, **kw: None)
+    monkeypatch.setattr(mae_evidence, "make_triptychs", lambda *a, **kw: None)
+    ssl_transfer_campaign.main(argvs["campaign_a"])
+    mae_evidence.main(argvs["mae_evidence"])
+    ssl_transfer_campaign.main(argvs["campaign_b"])
+    n_train = len((tmp_path / "data" / "splits" / "train.txt").read_text().splitlines())
+    subset = os.path.join(tmp, "B_lab50", "ft_train_subset.txt")
+    n_subset = len(pathlib.Path(subset).read_text().splitlines())
+    mae_ckpt = os.path.join(tmp, "mae_b", "ckpt", "ckpt_epoch_1")
+    assert [(c[0], c[2]) for c in calls] == [
+        ("train_ssl", None), ("train_finetune", "ft_ssl"), ("train_finetune", "ft_random"),
+        ("train_finetune", "linear_probe"), ("run_privacy", None), ("train_ssl_mae", None),
+        ("train_finetune", "ft_ssl"), ("train_finetune", "two_stage")]
+    assert {c[3] for c in calls} == {"cuda"} and (n_train, n_subset) == (32, 16)
+    for entry, cfg, mode, _ in calls:
+        d = cfg["dataset"]
+        assert (d["clip_len"], d["image_size"], cfg["device"]["compute_dtype"]) == (
+            16, 112, "bfloat16"), entry
+        if entry == "train_ssl_mae":
+            yml = load_yaml(os.path.join(REPO, "configs", "ssl_mae.yaml"))["model"]
+            m, tr = cfg["model"], cfg["training"]
+            assert {k: m[k] for k in ("embed_dims", "decoder_embed_dim", "decoder_depth",
+                                      "decoder_num_heads")} == {
+                k: yml[k] for k in ("embed_dims", "decoder_embed_dim", "decoder_depth",
+                                    "decoder_num_heads")}
+            assert (tr["batch_size"], tr["epochs"], tr["accumulation_steps"], tr["save_full"],
+                    m["use_checkpoint"], tr["log_interval"]) == (16, 1, 1, True, False, 1)
+            continue
+        batch = cfg["runtime" if entry == "run_privacy" else "training"]["batch_size"]
+        assert (batch, cfg["model"]["embed_dim"]) == (16, 256), entry
+        if entry == "train_ssl":
+            assert (cfg["model"]["temporal_layers"], cfg["training"]["epochs"]) == (4, 1)
+        if entry == "train_finetune":
+            assert cfg["training"]["epochs"] == 2
+        if entry == "run_privacy":
+            fp = cfg["feature_privacy"]
+            assert len(fp["noise_sigmas"]) * len(fp["mask_ratios"]) == 24
+    b_cells = [c[1] for c in calls[-2:]]
+    assert all(c["model"]["backbone"] == "tinyvit" and c["model"]["pretrained_ssl"] == mae_ckpt
+               and c["dataset"]["train_split"] == subset for c in b_cells)
