@@ -20,14 +20,17 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    each P1 kernel: every bf16 flash kernel must have products, every P1
    kernel copies, and no P1 or P2 kernel may spill.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
-   card, at the serving slice's shapes and at the pipeline-B shapes, in fp32
+   card, at the serving slice's shapes, at the pipeline-B shapes and at
+   every head dim past the models' own (16, 20, 24, 80, 96, 128, 256: the
+   kernels take 1..256, each at the least width built that holds it), in fp32
    (TF32 off) and in bf16 (against the plain fp32 attention of the same
    bf16-rounded inputs): out to 1e-4 (fp32) or 2e-2 (bf16) of its largest
    magnitude, lse to the same numbers absolute; the
    time per call of each, of PyTorch's scaled_dot_product_attention on the
    same inputs (and which of its backends ran), and the bound: the larger
    of 4*B*H*Lq*Lk*d flops over the peak (989 TFLOP/s bf16, 67 fp32) and
-   the bytes in and out over 3.35 TB/s.
+   the bytes in and out over 3.35 TB/s. Then a head dim of 257 must raise
+   in K1 and K2, with nothing launched (no fallback).
 4. K2 vs plain: the backward kernel against the plain fp32 backward of the
    same inputs (and K1's out and lse), at the same shapes, in fp32 (max abs
    error of each gradient over its max magnitude, tolerance 1e-4) and bf16
@@ -293,6 +296,24 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    privacy grid) and the (B, Lq, Lk, H, d) of every K1/K2 call, each of
    which must be one of phases 3-4's shapes; 24 privacy rows, 1 MAE epoch
    row, a sweep row a mode, finite losses.
+32. decoder repack: entry.train_ssl_mae on configs/ssl_mae.yaml with
+   --set model.decoder_num_heads=3 (the decoder's 6 heads of 64 as 3 of
+   128; phase 6's split and departure), TRAIN_STEPS steps: per step the
+   loss (finite), step ms, K1/K2 20/12 and the K1/K2 calls by head dim (the
+   decoder's 4 layers at d = 128, REPACK_CALLS_BY_D); then the ported probe
+   scripts/probe_decoder_repack (6x64 against 3x128 from the same weights)
+   on phase 31's hard fixture at batch 16 with REPACK_PROBE_STEPS steps an
+   arm: its lines, both arms' ms a step and the trajectory deviation.
+33. dataset front end without JAX: cv2 writes FRONT_END's videos (UCF101's
+   320x240 at 25 fps, MJPG .avi, a class name that needs normalizing);
+   experiments/torch/run_full_pipeline_dataset.sh runs over them at 112
+   (standardize, extract + pack, splits, verify) with a jax that cannot be
+   imported first on its path; each stage's seconds, the packed arrays'
+   count and shape; then one train_finetune epoch (ft_ssl, phase 6's
+   encoder, the campaign's pipeline-B overrides, device-resident) and
+   evaluate on the test split read the packed store (K1/K2 8/8 a step, K1 8
+   an eval batch), and the batches of the packed store, host and
+   device-resident, equal those read from the JPEG frames.
 
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
@@ -300,8 +321,9 @@ sanity check, privacy, the federated baseline, client steps, evaluation and
 the in-process bridge, the MoE and long-clip pretraining, the augmented
 finetune, the runtime's data steps, seq steps, FedAvg round and
 expert, model and pipe steps, pipeline C's picture, visualize_mae, the
-export's live model and each entry call of the campaigns) is driven and
-read just after. The line before the
+export's live model, each entry call of the campaigns, the repacked
+pretraining and its probe, and the finetune and evaluate on the front
+end's packed store) is driven and read just after. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -309,6 +331,7 @@ the repo beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -337,7 +360,8 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "runtime_pipe_steps", "train_mae_vis", "visualize_mae", "export_live",
          "campaign_train_ssl", "campaign_ft_ssl", "campaign_ft_random",
          "campaign_linear_probe", "campaign_run_privacy", "mae_evidence",
-         "campaign_b_ft_ssl", "campaign_b_two_stage")
+         "campaign_b_ft_ssl", "campaign_b_two_stage", "train_ssl_mae_repack",
+         "probe_decoder_repack", "train_finetune_packed", "evaluate_packed")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -470,6 +494,21 @@ CAMPAIGN_B_MODES = ("ft_ssl", "two_stage")
 MAE_EVIDENCE_EPOCHS, PRIVACY_GRID_ROWS = 1, 8 * 3
 # the campaign paths whose backbone is frozen or which train nothing: no K2
 CAMPAIGN_NO_K2 = ("campaign_linear_probe", "campaign_run_privacy")
+# phase 32: the decoder repack, --set model.decoder_num_heads=3 on phase 6's
+# run (6 heads of 64 become 3 of 128); per step the K1/K2 calls at each head
+# dim: the decoder's 4 layers (not checkpointed) at 128, the encoder's 8 at
+# 32 (K1 again in the checkpointed recompute)
+REPACK_OVERRIDES = {"model": {"decoder_num_heads": 3}}
+REPACK_CALLS_BY_D = {"K1_d128": 4, "K2_d128": 4, "K1_d32": 16, "K2_d32": 8}
+# the probe's steps an arm (its default 60, cut for the script's time)
+REPACK_PROBE_STEPS = 10
+# phase 33: videos as UCF101's (320x240, 25 fps, MJPG .avi) of a few classes,
+# 7 a class so that the runner's 70/15/15 split leaves one for val; one
+# class name with a space, as standardize_structure normalizes
+FRONT_END = {"classes": ("ApplyEyeMakeup", "Basketball", "Jump Rope", "PlayingGuitar"),
+             "videos_per_class": 7, "frames": 48, "width": 320, "height": 240, "fps": 25.0}
+FRONT_END_MODE = "ft_ssl"
+
 # phase 26: the launcher's pipeline-B run (configs/ssl_mae.yaml on phase 6's
 # 40-clip split; departures: one epoch of 2 steps of 20 clips, every step
 # logged, a checkpoint at its end)
@@ -516,7 +555,11 @@ K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
 # step's 16 clips x 32 frames and the privacy embedding's 8 x 32; then the
 # campaigns' (phase 31) at 16 clips x 16 frames that no earlier path has:
 # pipeline A's temporal head, the TinyViT stages of the pipeline-B
-# finetune and of mae_evidence, and mae_evidence's decoder
+# finetune and of mae_evidence, and mae_evidence's decoder; then the head
+# dims past the models' defaults: the decoder repack (phase 32, 3 x 128),
+# pipeline A's temporal head at embed 384 (4 x 96), one row at each of d =
+# 16, 20 (staged element by element), 24 and 80 at the serving length, and
+# the widest, d = 256
 KERNEL_SHAPES = [
     ("mvit1", 128, 196, 196, 4, 32),
     ("mvit2", 128, 64, 64, 4, 40),
@@ -543,12 +586,20 @@ KERNEL_SHAPES = [
     ("tinyvit_stage1_campaign", 256, 784, 784, 6, 32),
     ("tinyvit_stage2_campaign", 256, 196, 196, 12, 32),
     ("mae_decoder_campaign", 16, 3136, 3136, 6, 64),
+    ("mae_decoder_h3", 4, 3136, 3136, 3, 128),
+    ("temporal_d96", 48, 32, 32, 4, 96),
+    ("l196_d16", 128, 196, 196, 4, 16),
+    ("l196_d20", 128, 196, 196, 4, 20),
+    ("l196_d24", 128, 196, 196, 4, 24),
+    ("l196_d80", 128, 196, 196, 4, 80),
+    ("mae_decoder_d256", 4, 3136, 3136, 2, 256),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
 HMMA_BF16 = "HMMA.16816.F32.BF16"
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
-# K1's bf16 kernel and K2's two, for each of the four head dims
-BF16_FLASH_KERNELS = 3 * 4
+# K1's bf16 kernel and K2's two, for each kernel width (flash_mma.cuh:
+# 32, 40, 48, 64, 96, 128, 256)
+BF16_FLASH_KERNELS = 3 * 7
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # bf16 attention outputs of two implementations differ by up to ~7e-3 of
@@ -812,6 +863,22 @@ def phase_kernel(fa, dev) -> dict:
                                    "bound_ms": bound[0], "bound_by": bound[1]})
             del lib_out
         shape_lap("K1", name, t_shape)
+    # no fallback to the plain version: a head dim past the kernels' range
+    # raises on the card, and nothing is launched
+    wide = torch.zeros(1, 8, fa.MAX_HEAD_DIM + 1, device=dev)
+    before = (fa.launches.count, fa.bwd_launches.count)
+    refusals = {}
+    for kernel, call in (("K1", lambda: fa.flash_attention_fwd(wide, wide, wide, 1)),
+                         ("K2", lambda: fa.flash_attention_bwd(
+                             wide, wide, wide, wide, torch.zeros(1, 8, 1, device=dev), wide,
+                             1))):
+        try:
+            call()
+        except ValueError as e:
+            refusals[kernel] = str(e)
+    emit({"phase": "kernel_refuses", "d": fa.MAX_HEAD_DIM + 1, "errors": refusals})
+    if set(refusals) != {"K1", "K2"} or (fa.launches.count, fa.bwd_launches.count) != before:
+        raise AssertionError(f"a head dim above {fa.MAX_HEAD_DIM} did not raise: {refusals}")
     return {"max_abs_err": max_err, **summed(train_rows)}
 
 
@@ -3432,6 +3499,242 @@ def phase_campaigns(tmp: str) -> dict:
     return paths
 
 
+def phase_repack(dev, tmp: str, split: str) -> dict:
+    """Phase 32: the decoder repack through entry.train_ssl_mae (phase 6's
+    config and split with REPACK_OVERRIDES), then the ported probe on phase
+    31's hard fixture. Returns both paths' launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_hard_synthetic_dataset
+    from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+    from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+    from ssl_vit_video_analytics_tpu_torch.scripts import probe_decoder_repack
+
+    B = SSL_MAE_YAML["training"]["batch_size"]
+    cfg = merged(ssl_mae_cfg(split, os.path.join(tmp, "repack_out")), REPACK_OVERRIDES)
+    calls = {}
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def fwd_by_d(q, k, v, num_heads):
+        key = f"K1_d{q.shape[2] // num_heads}"
+        calls[key] = calls.get(key, 0) + 1
+        return fwd(q, k, v, num_heads)
+
+    def bwd_by_d(q, k, v, out, lse, dout, num_heads):
+        key = f"K2_d{q.shape[2] // num_heads}"
+        calls[key] = calls.get(key, 0) + 1
+        return bwd(q, k, v, out, lse, dout, num_heads)
+
+    def by_d(metrics, state, row):
+        out = {"calls_by_d": dict(calls)}
+        calls.clear()
+        return out
+
+    rec = StepRecorder(B, "repack_train_step", extra=by_d)
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd_by_d, bwd_by_d
+    try:
+        rec.start()
+        t0 = time.perf_counter()
+        out = train_ssl_mae.run(cfg, log=rec.lines.append, max_steps=TRAIN_STEPS,
+                                on_step=rec.on_step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    rec.take_counts()
+    timed = [s["step_ms"] for s in rec.steps if not s["includes_setup"]]
+    summary = {"phase": "repack_train", "decoder_num_heads": 3, "steps": out["steps"],
+               "seconds": seconds, "last_loss": out["last_loss"],
+               "step_ms_median": sorted(timed)[len(timed) // 2] if timed else None,
+               "launches": rec.totals, "log": rec.lines[-2:]}
+    emit(summary)
+    bad = [s for s in rec.steps if (s["k1_calls"], s["k2_calls"], s["calls_by_d"])
+           != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, REPACK_CALLS_BY_D)]
+    if out["steps"] != TRAIN_STEPS or bad or not all(math.isfinite(s["loss"])
+                                                     for s in rec.steps):
+        raise AssertionError(f"repack: {out['steps']} steps; calls or losses off in {bad}")
+
+    # the probe, from the repo root as a user runs it, on phase 31's fixture
+    # (made again, the same clips, where phase 31 did not run)
+    data = os.path.join(tmp, "campaigns", "data")
+    make_hard_synthetic_dataset(data, num_classes=int(CAMPAIGN_DATA[1]),
+                                videos_per_class=int(CAMPAIGN_DATA[3]), num_frames=16,
+                                image_size=112)
+    argv = ["--data", data, "--batch", "16", "--steps", str(REPACK_PROBE_STEPS)]
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = probe_decoder_repack.main(argv)
+    except BaseException:
+        sys.stdout.write(buf.getvalue()[-6000:])
+        raise
+    torch.cuda.synchronize()
+    probe_launches = read_counts()
+    lines = buf.getvalue().splitlines()
+    probe = {"phase": "repack_probe", "argv": argv, "seconds": time.perf_counter() - t0,
+             "ms_per_step_6x64": res["ms_6x64"], "ms_per_step_3x128": res["ms_3x128"],
+             "max_rel_dev": res["max_rel_dev"], "mean_rel_dev": res["mean_rel_dev"],
+             "launches": probe_launches, "lines": lines}
+    emit(probe)
+    losses = list(res["losses_6x64"]) + list(res["losses_3x128"])
+    if not (len(lines) == 6 and lines[0].startswith("[heads=6 d=64]")
+            and lines[1].startswith("[heads=3 d=128]") and all(map(math.isfinite, losses))
+            and probe_launches["flash_attention_fwd"] and probe_launches["flash_attention_bwd"]):
+        raise AssertionError(f"repack probe: {probe}")
+    return {"train_ssl_mae_repack": rec.totals, "probe_decoder_repack": probe_launches}
+
+
+def write_videos(root: str) -> int:
+    """FRONT_END's videos under ``root``/<class>/ as cv2 writes them; each
+    frame a moving bar over noise, so that no two are alike. Returns the
+    count."""
+    import cv2
+    import numpy as np
+
+    fe = FRONT_END
+    rng = np.random.default_rng(0)
+    n = 0
+    for c, cls in enumerate(fe["classes"]):
+        os.makedirs(os.path.join(root, cls))
+        for v in range(fe["videos_per_class"]):
+            name = f"v_{cls.replace(' ', '')}_g01_c{v + 1:02d}.avi"  # UCF101's file names
+            w = cv2.VideoWriter(os.path.join(root, cls, name),
+                                cv2.VideoWriter_fourcc(*"MJPG"), fe["fps"],
+                                (fe["width"], fe["height"]))
+            if not w.isOpened():
+                raise AssertionError("cv2.VideoWriter does not open an MJPG .avi")
+            for t in range(fe["frames"]):
+                frame = rng.integers(0, 64, (fe["height"], fe["width"], 3), dtype=np.uint8)
+                x = (8 * t + 40 * v) % fe["width"]
+                frame[:, x:x + 24] = 60 * c, 200, 255 - 30 * v
+                w.write(frame)
+            w.release()
+            n += 1
+    return n
+
+
+def phase_front_end(dev, tmp: str, ssl_ckpt: str) -> dict:
+    """Phase 33: the dataset front end on the card's machine without JAX
+    (see the module doc). Returns the finetune's and evaluate's launches."""
+    import numpy as np
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.data.loader import iterate_batches
+    from ssl_vit_video_analytics_tpu_torch.entry import common, evaluate, train_finetune
+
+    videos, frames, run_dir = (os.path.join(tmp, f"fe_{d}") for d in ("videos", "frames",
+                                                                       "run"))
+    splits = os.path.join(run_dir, "data", "splits")  # where the runner writes them
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    n_videos = write_videos(videos)
+    stages = {"write_videos": time.perf_counter() - t0}
+    # a jax that cannot be imported, first on the path of every stage
+    blocker = os.path.join(tmp, "fe_no_jax")
+    os.makedirs(blocker)
+    with open(os.path.join(blocker, "jax.py"), "w") as f:
+        f.write("raise ImportError('the front end must not import jax')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([blocker, ROOT]), PYTHONUNBUFFERED="1")
+    ends = (("standardize", "class_index.txt"), ("extract_and_pack", "[INFO] extracted "),
+            ("splits", "UCF101_test.txt: "), ("verify", "[INFO] Dataset pipeline finished"))
+    out_lines = []
+    t_stage = time.perf_counter()
+    proc = subprocess.Popen(["bash", os.path.join(ROOT, "experiments", "torch",
+                                                  "run_full_pipeline_dataset.sh"),
+                             videos, frames, "UCF101", "112"], cwd=run_dir, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        for line in proc.stdout:
+            out_lines.append(line.rstrip("\n"))
+            for stage, marker in ends:
+                if marker in line and stage not in stages:
+                    stages[stage] = time.perf_counter() - t_stage
+                    t_stage = time.perf_counter()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    packed = sorted(os.path.relpath(os.path.join(d, f), frames)
+                    for d, _, fs in os.walk(frames) for f in fs if f == "packed_112.npy")
+    shape = list(np.load(os.path.join(frames, packed[0]), mmap_mode="r").shape) if packed \
+        else None
+    fe = {"phase": "front_end", "videos": n_videos, "rc": rc, "stage_seconds": stages,
+          "packed_arrays": len(packed), "packed_shape": shape,
+          "jax_on_the_machine": importlib.util.find_spec("jax") is not None,
+          "log": out_lines[-12:]}
+    emit(fe)
+    if rc != 0 or len(packed) != n_videos or shape != [FRONT_END["frames"], 112, 112, 3] \
+            or set(stages) != {"write_videos", *(s for s, _ in ends)}:
+        raise AssertionError(f"front end: {fe}\n" + "\n".join(out_lines[-40:]))
+
+    # one finetune epoch and evaluate on the packed store (device-resident)
+    split = {n: os.path.join(splits, f"UCF101_{n}.txt") for n in ("train", "val", "test")}
+    cfg = merged(finetune_cfg(split["train"], split["val"], ssl_ckpt[:-len(".pt")],
+                              os.path.join(tmp, "fe_out")),
+                 {"dataset": {"num_classes": len(FRONT_END["classes"])},
+                  "training": {"epochs": 1}})
+    B = cfg["training"]["batch_size"]
+    rec = StepRecorder(B, "front_end_finetune_step")
+    rec.start()
+    t0 = time.perf_counter()
+    out = train_finetune.run(cfg, mode=FRONT_END_MODE, log=rec.lines.append,
+                             on_step=rec.on_step)
+    torch.cuda.synchronize()
+    ft_seconds = time.perf_counter() - t0
+    rec.take_counts()
+    best = os.path.join(cfg["paths"]["save_dir"], FRONT_END_MODE, "best")
+    reset_counts()
+    t0 = time.perf_counter()
+    ev_lines = []
+    ev = evaluate.run(cfg, best if out["best_ckpt"] else None, split["test"],
+                      log=ev_lines.append, measure_latency=False)
+    torch.cuda.synchronize()
+    ev_seconds = time.perf_counter() - t0
+    ev_launches = read_counts()
+    n_test = sum(1 for _ in open(split["test"]))
+
+    # the packed store's batches, host and device-resident, against the
+    # JPEG frames'
+    same = {}
+    for name in ("train", "test"):
+        jpeg = common.dataset_from_cfg(merged(cfg, {"dataset": {"backend": "jpeg"}}),
+                                       split[name], "supervised", seed=cfg["seed"])
+        ds = common.dataset_from_cfg(cfg, split[name], "supervised", seed=cfg["seed"])
+        kw = dict(shuffle=True, seed=cfg["seed"], epoch=0, drop_last=False)
+        ref = list(iterate_batches(jpeg, B, **kw))
+        host = list(iterate_batches(ds, B, **kw))
+        store = common.maybe_device_resident(cfg, ds, dev, log=lambda m: None)
+        resident = list(store.epoch_batches(B, **kw))
+        same[name] = bool(ref) and len(ref) == len(host) == len(resident) and all(
+            np.array_equal(np.asarray(r[k]), np.asarray(h[k]))
+            and np.array_equal(np.asarray(r[k]), g[k].cpu().numpy())
+            for r, h, g in zip(ref, host, resident) for k in ("clip", "label", "valid"))
+        del store
+    summary = {"phase": "front_end_transfer", "mode": FRONT_END_MODE,
+               "finetune_seconds": ft_seconds, "steps": len(rec.steps),
+               "best_top1": out["best_top1"], "evaluate_seconds": ev_seconds,
+               "evaluate_top1": ev["acc"]["top1"], "evaluate_clips": n_test,
+               "launches": {"train_finetune_packed": rec.totals, "evaluate_packed": ev_launches},
+               "device_resident": sum("device-resident store" in m for m in rec.lines),
+               "batches_equal_jpeg": same,
+               "log": [m for m in rec.lines + ev_lines if "val top1" in m or "[WARN]" in m]}
+    emit(summary)
+    eval_batches = -(-n_test // B)
+    bad = [s for s in rec.steps if (s["k1_calls"], s["k2_calls"]) != (FT_K1_CALLS, FT_K2_CALLS)]
+    if not (rec.steps and not bad and all(math.isfinite(s["loss"]) for s in rec.steps)
+            and summary["device_resident"] >= 1 and all(same.values())
+            and (ev_launches["flash_attention_fwd"], ev_launches["flash_attention_bwd"])
+            == (FT_K1_CALLS * eval_batches, 0)):
+        raise AssertionError(f"front end transfer: {summary}; steps off {bad}")
+    return summary["launches"]
+
+
 def step_seeds(dev, seeds: list[int]) -> None:
     """Phases 12 and 14 on each of ``seeds`` (the clips and draws; the
     weights stay those of seed 0), every judgement emitted; fails at the
@@ -3548,6 +3851,10 @@ def main() -> None:
         lap("export")
         paths.update(phase_campaigns(tmp))
         lap("campaigns")
+        paths.update(phase_repack(dev, tmp, ssl_split))
+        lap("decoder repack")
+        paths.update(phase_front_end(dev, tmp, ssl_ckpt))
+        lap("front end")
 
     def by_path(kernel: str) -> dict:
         return {path: paths[path][kernel] for path in PATHS}

@@ -10,8 +10,9 @@ the early-exit serving path of the MobileViT-S video classifier
 (``entry/train_ssl.py``, ``entry/train_ssl_mae.py``, ``entry/train_mae.py``),
 the finetune path (``entry/train_finetune.py``, ``entry/evaluate.py``), the
 privacy layers and FedAvg (``entry/run_privacy.py``,
-``entry/run_federated.py``) and the two kernel probes
-(``scripts/probe_dw.py``, ``scripts/probe_exp.py``). Every
+``entry/run_federated.py``), the two kernel probes
+(``scripts/probe_dw.py``, ``scripts/probe_exp.py``) and the dataset front
+end (``preprocess/``, ``tools/verify_dataset.py``). Every
 Pallas kernel of the JAX package has a CUDA counterpart under
 ``ops/csrc/``, built by ``ops/kernel_build.py``.
 """

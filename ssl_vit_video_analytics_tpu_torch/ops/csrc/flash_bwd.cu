@@ -10,7 +10,9 @@
 //   dV = P^T dO
 //   dS = P * (dO v^T - delta)
 //   dQ = scale * dS k,   dK = scale * dS^T q
-// in the input dtype (fp32 or bf16), with every sum in fp32.
+// in the input dtype (fp32 or bf16), with every sum in fp32. Like the JAX
+// kernel it takes any head dim (here 1..256): each kernel is built for a
+// width DP and runs every d up to it (flash_mma.cuh, kernel_width).
 //
 // The TPU kernel walks the q-blocks of one batch row IN ORDER and carries
 // dK/dV in VMEM scratch from one grid step to the next. CTAs run
@@ -26,7 +28,8 @@
 // and query rows >= Lq are masked explicitly; nothing is zero-padded in
 // device memory. Inputs are strided views, as in K1 (row stride 3*H*d for
 // the thirds of a fused qkv projection); dO has its own strides; outputs
-// are contiguous [B, L, H*d].
+// are contiguous [B, L, H*d]. The CTAs of a launch are all in grid.x, so
+// the batch has no 65535 ceiling.
 //
 // What bounds it: per (batch row, head) the backward does about
 // 14*Lq*Lk*d flops against about (4*Lq + 4*Lk)*d elements of traffic per
@@ -35,9 +38,9 @@
 //
 // - bf16, the working type of pretraining: every product on the tensor
 //   cores (flash_mma.cuh: mma.sync m16n8k16, bf16 operands, fp32
-//   accumulators), 4 warps per CTA, 16 rows each, and a 2-stage cp.async
-//   pipeline of 64-row tiles, so the copy of the next tile overlaps the
-//   products on this one.
+//   accumulators), 4 warps per CTA, 16 rows each, and a 2-stage pipeline of
+//   64-row tiles, so the copy of the next tile overlaps the products on
+//   this one.
 //   * dkdv: each warp keeps its 16 keys' K and V fragments in registers and
 //     computes S^T = K Q^T and dP^T = V dO^T with the keys as the M
 //     dimension, 16 query columns at a time. P^T = exp2(S^T scale log2(e) -
@@ -45,12 +48,19 @@
 //     accumulator layout that is the A fragment of dV += P^T dO and
 //     dK += dS^T Q, with dO and Q read by ldmatrix.trans. P^T and dS^T are
 //     rounded to bf16 before those products, as `_bwd_kernel` rounds them.
+//     Wide heads: from DP = 128 the K and V fragments are read from the
+//     CTA's staged K and V tiles one k16 step at a time (beside 2 x DP/2
+//     accumulator registers they would not fit), and at DP = 256 a CTA
+//     accumulates one half of dK's and dV's columns (two CTAs a key tile,
+//     each recomputing S^T and dP^T over all of d).
 //   * dq: each warp keeps its 16 rows' Q and dO fragments in registers,
 //     computes S and dP over 16 keys at a time, dS = P (dP - D) rounded to
-//     bf16, and dQ += dS K with K read by ldmatrix.trans.
-// - fp32: the CUDA-core kernels, two threads per row (thread `half` of a
-//   pair owns the columns c = 2t + half, one shuffle per dot product), fp32
-//   FMAs. TF32 tensor-core products would miss the 1e-4 to which the fp32
+//     bf16, and dQ += dS K with K read by ldmatrix.trans. At DP = 256 the Q
+//     and dO fragments are read from their staged tiles.
+// - fp32: the CUDA-core kernels, kSplit threads per row (2 up to DP = 64,
+//   4 to 128, 8 at 256; thread `part` of a row owns the columns
+//   c = kSplit t + part, and a dot product ends in a shuffle), fp32 FMAs.
+//   TF32 tensor-core products would miss the 1e-4 to which the fp32
 //   training step is held against the plain path.
 
 #include <cuda_bf16.h>
@@ -63,72 +73,95 @@
 namespace {
 
 using flash_mma::bf16;
+using flash_mma::Dims;
+using flash_mma::GridIdx;
 
-constexpr int kRows = 64;                 // fp32: rows (keys or queries) per CTA
-constexpr int kSplit = 2;                 // fp32: threads per row
-constexpr int kThreads = kRows * kSplit;  // 128
-constexpr int kTileQ = 64;                // fp32: query rows staged per step (dkdv)
-constexpr int kTileK = 32;                // fp32: keys staged per step (dq)
+constexpr int kFp32Threads = 128;
 
-// sum of the two partial dot products of a thread pair (adjacent lanes)
-__device__ __forceinline__ float pair_sum(float x) {
-  return x + __shfl_xor_sync(0xffffffffu, x, 1);
+template <int DP>
+struct Fp32Cfg {
+  static constexpr int kSplit = DP <= 64 ? 2 : DP <= 128 ? 4 : 8;  // threads per row
+  static constexpr int kCols = DP / kSplit;                        // columns a thread owns
+  static constexpr int kRows = kFp32Threads / kSplit;  // keys (dkdv) or queries (dq) per CTA
+  static constexpr int kTileQ = DP <= 64 ? 64 : DP <= 128 ? 32 : 16;  // dkdv: queries staged
+  static constexpr int kTileK = DP <= 128 ? 32 : 16;                  // dq: keys staged
+};
+
+template <int DP>
+struct Bf16Cfg {
+  static constexpr bool kKVSmem = DP >= 128;         // dkdv: K, V fragments from smem
+  static constexpr int kOutSplit = DP > 128 ? 2 : 1;  // dkdv: column slices of dK/dV
+  static constexpr bool kQSmem = DP > 128;           // dq: Q, dO fragments from smem
+  static constexpr size_t kDkdvSmem =
+      (4 + (kKVSmem ? 2 : 0)) * Dims<DP>::kTileElems * sizeof(bf16);
+  static constexpr size_t kDqSmem = (4 + (kQSmem ? 2 : 0)) * Dims<DP>::kTileElems * sizeof(bf16);
+};
+
+// the sum of the partial dot products of the kSplit adjacent lanes of a row
+template <int kSplit>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int DP>
+__global__ void __launch_bounds__(kFp32Threads)
 flash_bwd_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const float* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk,
-                           int H, int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
-                           int64_t v_sb, int64_t v_sl, int64_t do_sb, int64_t do_sl,
-                           float scale) {
-  constexpr int DH = D / kSplit;
-  __shared__ float qs[kTileQ][D];
-  __shared__ float dos[kTileQ][D];
-  __shared__ float lse_s[kTileQ];
-  __shared__ float delta_s[kTileQ];
+                           int H, int d, int64_t q_sb, int64_t q_sl, int64_t k_sb,
+                           int64_t k_sl, int64_t v_sb, int64_t v_sl, int64_t do_sb,
+                           int64_t do_sl, float scale) {
+  using C = Fp32Cfg<DP>;
+  constexpr int S = C::kSplit, CT = C::kCols;
+  __shared__ float qs[C::kTileQ][DP];
+  __shared__ float dos[C::kTileQ][DP];
+  __shared__ float lse_s[C::kTileQ];
+  __shared__ float delta_s[C::kTileQ];
 
   const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int key = blockIdx.x * kRows + (tid >> 1);
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  const int part = tid % S;
+  const GridIdx g = flash_mma::grid_idx((Lk + C::kRows - 1) / C::kRows, H);
+  const int key = g.tile * C::kRows + tid / S;
+  const int h = g.h;
+  const int64_t b = g.b;
   // keys past Lk compute on a copy of the last key and store nothing
   const int64_t krow = key < Lk ? key : Lk - 1;
 
-  float kr[DH], vr[DH], dkr[DH], dvr[DH];
-  const float* kp = k + b * k_sb + krow * k_sl + h * D;
-  const float* vp = v + b * v_sb + krow * v_sl + h * D;
+  float kr[CT], vr[CT], dkr[CT], dvr[CT];
+  const float* kp = k + b * k_sb + krow * k_sl + h * d;
+  const float* vp = v + b * v_sb + krow * v_sl + h * d;
 #pragma unroll
-  for (int t = 0; t < DH; ++t) {
-    kr[t] = kp[2 * t + half];
-    vr[t] = vp[2 * t + half];
+  for (int t = 0; t < CT; ++t) {
+    const int c = S * t + part;
+    kr[t] = c < d ? kp[c] : 0.f;
+    vr[t] = c < d ? vp[c] : 0.f;
     dkr[t] = 0.f;
     dvr[t] = 0.f;
   }
 
-  const float* qb = q + b * q_sb + h * D;
-  const float* dob = dout + b * do_sb + h * D;
+  const float* qb = q + b * q_sb + h * d;
+  const float* dob = dout + b * do_sb + h * d;
   const float* lse_b = lse + b * Lq * H + h;
   const float* delta_b = delta + b * Lq * H + h;
 
-  for (int q0 = 0; q0 < Lq; q0 += kTileQ) {
+  for (int q0 = 0; q0 < Lq; q0 += C::kTileQ) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = tid; e < kTileQ * D; e += kThreads) {
-      const int i = e / D;
-      const int c = e - i * D;
+    for (int e = tid; e < C::kTileQ * DP; e += kFp32Threads) {
+      const int i = e / DP;
+      const int c = e - i * DP;
       const int64_t row = q0 + i;
       float qx = 0.f, dx = 0.f;
-      if (row < Lq) {
+      if (row < Lq && c < d) {
         qx = qb[row * q_sl + c];
         dx = dob[row * do_sl + c];
       }
       qs[i][c] = qx;
       dos[i][c] = dx;
     }
-    if (tid < kTileQ) {
+    if (tid < C::kTileQ) {
       const int64_t row = q0 + tid;
       lse_s[tid] = row < Lq ? lse_b[row * H] : 0.f;
       delta_s[tid] = row < Lq ? delta_b[row * H] : 0.f;
@@ -136,83 +169,89 @@ flash_bwd_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict_
     __syncthreads();
 
     // uniform over the CTA: the shuffles below see every lane
-    const int n = min(kTileQ, Lq - q0);
+    const int n = min(C::kTileQ, Lq - q0);
     for (int i = 0; i < n; ++i) {
       float s0 = 0.f, s1 = 0.f, dp0 = 0.f, dp1 = 0.f;
 #pragma unroll
-      for (int t = 0; t < DH; t += 2) {
-        s0 = fmaf(qs[i][2 * t + half], kr[t], s0);
-        dp0 = fmaf(dos[i][2 * t + half], vr[t], dp0);
-        if (t + 1 < DH) {
-          s1 = fmaf(qs[i][2 * t + 2 + half], kr[t + 1], s1);
-          dp1 = fmaf(dos[i][2 * t + 2 + half], vr[t + 1], dp1);
+      for (int t = 0; t < CT; t += 2) {
+        s0 = fmaf(qs[i][S * t + part], kr[t], s0);
+        dp0 = fmaf(dos[i][S * t + part], vr[t], dp0);
+        if (t + 1 < CT) {
+          s1 = fmaf(qs[i][S * (t + 1) + part], kr[t + 1], s1);
+          dp1 = fmaf(dos[i][S * (t + 1) + part], vr[t + 1], dp1);
         }
       }
-      const float s = pair_sum(s0 + s1);
-      const float dp = pair_sum(dp0 + dp1);
+      const float s = row_sum<S>(s0 + s1);
+      const float dp = row_sum<S>(dp0 + dp1);
       const float p = expf(s * scale - lse_s[i]);
       const float ds = p * (dp - delta_s[i]);
 #pragma unroll
-      for (int t = 0; t < DH; ++t) {
-        dvr[t] = fmaf(p, dos[i][2 * t + half], dvr[t]);
-        dkr[t] = fmaf(ds, qs[i][2 * t + half], dkr[t]);
+      for (int t = 0; t < CT; ++t) {
+        dvr[t] = fmaf(p, dos[i][S * t + part], dvr[t]);
+        dkr[t] = fmaf(ds, qs[i][S * t + part], dkr[t]);
       }
     }
   }
 
   if (key < Lk) {
-    const int64_t o = (b * Lk + key) * (int64_t)(H * D) + h * D;
+    const int64_t o = (b * Lk + key) * (int64_t)H * d + h * d;
 #pragma unroll
-    for (int t = 0; t < DH; ++t) {
-      dk[o + 2 * t + half] = dkr[t] * scale;
-      dv[o + 2 * t + half] = dvr[t];
+    for (int t = 0; t < CT; ++t) {
+      const int c = S * t + part;
+      if (c < d) {
+        dk[o + c] = dkr[t] * scale;
+        dv[o + c] = dvr[t];
+      }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int DP>
+__global__ void __launch_bounds__(kFp32Threads)
 flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq, int Lq, int Lk, int H, int64_t q_sb,
+                         float* __restrict__ dq, int Lq, int Lk, int H, int d, int64_t q_sb,
                          int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb,
                          int64_t v_sl, int64_t do_sb, int64_t do_sl, float scale) {
-  constexpr int DH = D / kSplit;
-  __shared__ float ks[kTileK][D];
-  __shared__ float vs[kTileK][D];
+  using C = Fp32Cfg<DP>;
+  constexpr int S = C::kSplit, CT = C::kCols;
+  __shared__ float ks[C::kTileK][DP];
+  __shared__ float vs[C::kTileK][DP];
 
   const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int row = blockIdx.x * kRows + (tid >> 1);
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  const int part = tid % S;
+  const GridIdx g = flash_mma::grid_idx((Lq + C::kRows - 1) / C::kRows, H);
+  const int row = g.tile * C::kRows + tid / S;
+  const int h = g.h;
+  const int64_t b = g.b;
   // rows past Lq compute on a copy of the last row and store nothing
   const int64_t qrow = row < Lq ? row : Lq - 1;
 
-  float qr[DH], dor[DH], dqr[DH];
-  const float* qp = q + b * q_sb + qrow * q_sl + h * D;
-  const float* dop = dout + b * do_sb + qrow * do_sl + h * D;
+  float qr[CT], dor[CT], dqr[CT];
+  const float* qp = q + b * q_sb + qrow * q_sl + h * d;
+  const float* dop = dout + b * do_sb + qrow * do_sl + h * d;
 #pragma unroll
-  for (int t = 0; t < DH; ++t) {
-    qr[t] = qp[2 * t + half];
-    dor[t] = dop[2 * t + half];
+  for (int t = 0; t < CT; ++t) {
+    const int c = S * t + part;
+    qr[t] = c < d ? qp[c] : 0.f;
+    dor[t] = c < d ? dop[c] : 0.f;
     dqr[t] = 0.f;
   }
   const float lse_r = lse[(b * Lq + qrow) * H + h];
   const float delta_r = delta[(b * Lq + qrow) * H + h];
 
-  const float* kb = k + b * k_sb + h * D;
-  const float* vb = v + b * v_sb + h * D;
+  const float* kb = k + b * k_sb + h * d;
+  const float* vb = v + b * v_sb + h * d;
 
-  for (int k0 = 0; k0 < Lk; k0 += kTileK) {
+  for (int k0 = 0; k0 < Lk; k0 += C::kTileK) {
     __syncthreads();
-    for (int e = tid; e < kTileK * D; e += kThreads) {
-      const int j = e / D;
-      const int c = e - j * D;
+    for (int e = tid; e < C::kTileK * DP; e += kFp32Threads) {
+      const int j = e / DP;
+      const int c = e - j * DP;
       const int64_t kk = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (kk < Lk) {
+      if (kk < Lk && c < d) {
         kx = kb[kk * k_sl + c];
         vx = vb[kk * v_sl + c];
       }
@@ -221,30 +260,33 @@ flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     __syncthreads();
 
-    const int n = min(kTileK, Lk - k0);
+    const int n = min(C::kTileK, Lk - k0);
     for (int j = 0; j < n; ++j) {
       float s0 = 0.f, s1 = 0.f, dp0 = 0.f, dp1 = 0.f;
 #pragma unroll
-      for (int t = 0; t < DH; t += 2) {
-        s0 = fmaf(qr[t], ks[j][2 * t + half], s0);
-        dp0 = fmaf(dor[t], vs[j][2 * t + half], dp0);
-        if (t + 1 < DH) {
-          s1 = fmaf(qr[t + 1], ks[j][2 * t + 2 + half], s1);
-          dp1 = fmaf(dor[t + 1], vs[j][2 * t + 2 + half], dp1);
+      for (int t = 0; t < CT; t += 2) {
+        s0 = fmaf(qr[t], ks[j][S * t + part], s0);
+        dp0 = fmaf(dor[t], vs[j][S * t + part], dp0);
+        if (t + 1 < CT) {
+          s1 = fmaf(qr[t + 1], ks[j][S * (t + 1) + part], s1);
+          dp1 = fmaf(dor[t + 1], vs[j][S * (t + 1) + part], dp1);
         }
       }
-      const float s = pair_sum(s0 + s1);
-      const float dp = pair_sum(dp0 + dp1);
+      const float s = row_sum<S>(s0 + s1);
+      const float dp = row_sum<S>(dp0 + dp1);
       const float ds = expf(s * scale - lse_r) * (dp - delta_r);
 #pragma unroll
-      for (int t = 0; t < DH; ++t) dqr[t] = fmaf(ds, ks[j][2 * t + half], dqr[t]);
+      for (int t = 0; t < CT; ++t) dqr[t] = fmaf(ds, ks[j][S * t + part], dqr[t]);
     }
   }
 
   if (row < Lq) {
-    float* dqp = dq + (b * Lq + row) * (int64_t)(H * D) + h * D;
+    float* dqp = dq + (b * Lq + row) * (int64_t)H * d + h * d;
 #pragma unroll
-    for (int t = 0; t < DH; ++t) dqp[2 * t + half] = dqr[t] * scale;
+    for (int t = 0; t < CT; ++t) {
+      const int c = S * t + part;
+      if (c < d) dqp[c] = dqr[t] * scale;
+    }
   }
 }
 
@@ -262,58 +304,68 @@ __device__ __forceinline__ void load_rows_stats(float* lse_s, float* delta_s,
     flash_mma::cp_async4(flash_mma::smem_addr(delta_s + t), delta_b + off, ok);
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(flash_mma::kThreads)
 flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv, int Lq, int Lk,
-                           int H, int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
-                           int64_t v_sb, int64_t v_sl, int64_t do_sb, int64_t do_sl,
-                           float scale) {
+                           int H, int d, int64_t q_sb, int64_t q_sl, int64_t k_sb,
+                           int64_t k_sl, int64_t v_sb, int64_t v_sl, int64_t do_sb,
+                           int64_t do_sl, float scale) {
   using namespace flash_mma;
-  using P = Dims<D>;
+  using P = Dims<DP>;
+  using C = Bf16Cfg<DP>;
+  constexpr int kNOut = P::kN8 / C::kOutSplit;  // n8 tiles of dK/dV columns a CTA owns
   // Q stages 0-1, then dO stages 0-1. The CTA's K and V tiles ride in stage
-  // 1 until their fragments are in registers.
-  __shared__ __align__(16) bf16 smem[4 * P::kTileElems];
+  // 1 until their fragments are in registers, or, from DP = 128, have tiles
+  // of their own for the whole sweep.
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const smem = reinterpret_cast<bf16*>(smem_raw);
   __shared__ __align__(16) float lse_s[2][kTile];
   __shared__ __align__(16) float delta_s[2][kTile];
   bf16* const qs[2] = {smem, smem + P::kTileElems};
   bf16* const dos[2] = {smem + 2 * P::kTileElems, smem + 3 * P::kTileElems};
+  bf16* const kt = C::kKVSmem ? smem + 4 * P::kTileElems : qs[1];
+  bf16* const vt = C::kKVSmem ? smem + 5 * P::kTileElems : dos[1];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const bf16* qb = q + b * q_sb + h * D;
-  const bf16* dob = dout + b * do_sb + h * D;
+  const GridIdx g = grid_idx((Lk + kTile - 1) / kTile * C::kOutSplit, H);
+  const int k0 = g.tile / C::kOutSplit * kTile;
+  const int c0 = g.tile % C::kOutSplit * kNOut * 8;  // first dK/dV column of this CTA
+  const int h = g.h;
+  const int64_t b = g.b;
+  const bf16* qb = q + b * q_sb + h * d;
+  const bf16* dob = dout + b * do_sb + h * d;
   const float* lse_b = lse + b * Lq * H + h;
   const float* delta_b = delta + b * Lq * H + h;
 
-  zero_pad_columns<D>(smem, 4 * kTile);
-  load_tile<D>(qs[1], k + b * k_sb + k0 * k_sl + h * D, k_sl, min(kTile, Lk - k0));
-  load_tile<D>(dos[1], v + b * v_sb + k0 * v_sl + h * D, v_sl, min(kTile, Lk - k0));
-  load_tile<D>(qs[0], qb, q_sl, min(kTile, Lq));
-  load_tile<D>(dos[0], dob, do_sl, min(kTile, Lq));
+  zero_pad_columns<DP>(smem, (C::kKVSmem ? 6 : 4) * kTile, d);
+  load_tile<DP>(kt, k + b * k_sb + k0 * k_sl + h * d, k_sl, min(kTile, Lk - k0), d);
+  load_tile<DP>(vt, v + b * v_sb + k0 * v_sl + h * d, v_sl, min(kTile, Lk - k0), d);
+  load_tile<DP>(qs[0], qb, q_sl, min(kTile, Lq), d);
+  load_tile<DP>(dos[0], dob, do_sl, min(kTile, Lq), d);
   load_rows_stats(lse_s[0], delta_s[0], lse_b, delta_b, H, 0, Lq);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[P::kK16][4], vf[P::kK16][4];
-  load_a<D>(kf, qs[1], warp * 16);
-  load_a<D>(vf, dos[1], warp * 16);
-  __syncthreads();  // every warp holds its K and V before stage 1 is overwritten
+  uint32_t kf[C::kKVSmem ? 1 : P::kK16][4], vf[C::kKVSmem ? 1 : P::kK16][4];
+  if constexpr (!C::kKVSmem) {
+    load_a<DP>(kf, kt, warp * 16);
+    load_a<DP>(vf, vt, warp * 16);
+    __syncthreads();  // every warp holds its K and V before stage 1 is overwritten
+  }
 
   const float sl2 = scale * kLog2e;
-  float dka[P::kN8][4] = {}, dva[P::kN8][4] = {};
+  float dka[kNOut][4] = {}, dva[kNOut][4] = {};
   const int ntiles = (Lq + kTile - 1) / kTile;
   for (int n = 0; n < ntiles; ++n) {
     const int st = n & 1;
     if (n + 1 < ntiles) {
       const int q1 = (n + 1) * kTile;
-      load_tile<D>(qs[st ^ 1], qb + q1 * q_sl, q_sl, min(kTile, Lq - q1));
-      load_tile<D>(dos[st ^ 1], dob + q1 * do_sl, do_sl, min(kTile, Lq - q1));
+      load_tile<DP>(qs[st ^ 1], qb + q1 * q_sl, q_sl, min(kTile, Lq - q1), d);
+      load_tile<DP>(dos[st ^ 1], dob + q1 * do_sl, do_sl, min(kTile, Lq - q1), d);
       load_rows_stats(lse_s[st ^ 1], delta_s[st ^ 1], lse_b, delta_b, H, q1, Lq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -328,8 +380,13 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       if (qbase + 16 * j >= Lq) break;  // uniform: the rest of the tile is past Lq
       // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 16 queries
       float s[2][4] = {}, dp[2][4] = {};
-      mma_abt<D>(s[0], s[1], kf, qs[st], 16 * j);
-      mma_abt<D>(dp[0], dp[1], vf, dos[st], 16 * j);
+      if constexpr (C::kKVSmem) {
+        mma_abt_s<DP>(s[0], s[1], kt, warp * 16, qs[st], 16 * j);
+        mma_abt_s<DP>(dp[0], dp[1], vt, warp * 16, dos[st], 16 * j);
+      } else {
+        mma_abt<DP>(s[0], s[1], kf, qs[st], 16 * j);
+        mma_abt<DP>(dp[0], dp[1], vf, dos[st], 16 * j);
+      }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -345,47 +402,54 @@ flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       uint32_t pa[4], dsa[4];
       acc_to_a(pa, s[0], s[1]);
       acc_to_a(dsa, dp[0], dp[1]);
-      mma_at<D>(dva, pa, dos[st], 16 * j);   // dV += P^T dO
-      mma_at<D>(dka, dsa, qs[st], 16 * j);   // dK += dS^T Q
+      mma_at<DP, kNOut>(dva, pa, dos[st], 16 * j, c0);   // dV += P^T dO
+      mma_at<DP, kNOut>(dka, dsa, qs[st], 16 * j, c0);   // dK += dS^T Q
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
-  const int64_t ld = static_cast<int64_t>(H) * D;
-  const int64_t off = b * Lk * ld + h * D;
-  store_rows<D>(dk + off, ld, k0 + warp * 16, Lk, dka, scale, scale);
-  store_rows<D>(dv + off, ld, k0 + warp * 16, Lk, dva, 1.f, 1.f);
+  const int64_t ld = static_cast<int64_t>(H) * d;
+  const int64_t off = b * Lk * ld + h * d;
+  store_rows<kNOut>(dk + off, ld, k0 + warp * 16, Lk, dka, scale, scale, d, c0);
+  store_rows<kNOut>(dv + off, ld, k0 + warp * 16, Lk, dva, 1.f, 1.f, d, c0);
 }
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(flash_mma::kThreads)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int Lq, int Lk, int H, int64_t q_sb,
-                         int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb,
-                         int64_t v_sl, int64_t do_sb, int64_t do_sl, float scale) {
+                         bf16* __restrict__ dq, int Lq, int Lk, int H, int d,
+                         int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
+                         int64_t v_sb, int64_t v_sl, int64_t do_sb, int64_t do_sl,
+                         float scale) {
   using namespace flash_mma;
-  using P = Dims<D>;
+  using P = Dims<DP>;
+  using C = Bf16Cfg<DP>;
   // K stages 0-1, then V stages 0-1. The CTA's Q and dO tiles ride in stage
-  // 1 until their fragments are in registers.
-  __shared__ __align__(16) bf16 smem[4 * P::kTileElems];
+  // 1 until their fragments are in registers, or, at DP = 256, have tiles
+  // of their own for the whole sweep.
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const smem = reinterpret_cast<bf16*>(smem_raw);
   bf16* const ks[2] = {smem, smem + P::kTileElems};
   bf16* const vs[2] = {smem + 2 * P::kTileElems, smem + 3 * P::kTileElems};
+  bf16* const qt = C::kQSmem ? smem + 4 * P::kTileElems : ks[1];
+  bf16* const dt = C::kQSmem ? smem + 5 * P::kTileElems : vs[1];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const bf16* kb = k + b * k_sb + h * D;
-  const bf16* vb = v + b * v_sb + h * D;
+  const GridIdx g = grid_idx((Lq + kTile - 1) / kTile, H);
+  const int q0 = g.tile * kTile;
+  const int h = g.h;
+  const int64_t b = g.b;
+  const bf16* kb = k + b * k_sb + h * d;
+  const bf16* vb = v + b * v_sb + h * d;
 
-  zero_pad_columns<D>(smem, 4 * kTile);
-  load_tile<D>(ks[1], q + b * q_sb + q0 * q_sl + h * D, q_sl, min(kTile, Lq - q0));
-  load_tile<D>(vs[1], dout + b * do_sb + q0 * do_sl + h * D, do_sl, min(kTile, Lq - q0));
-  load_tile<D>(ks[0], kb, k_sl, min(kTile, Lk));
-  load_tile<D>(vs[0], vb, v_sl, min(kTile, Lk));
+  zero_pad_columns<DP>(smem, (C::kQSmem ? 6 : 4) * kTile, d);
+  load_tile<DP>(qt, q + b * q_sb + q0 * q_sl + h * d, q_sl, min(kTile, Lq - q0), d);
+  load_tile<DP>(dt, dout + b * do_sb + q0 * do_sl + h * d, do_sl, min(kTile, Lq - q0), d);
+  load_tile<DP>(ks[0], kb, k_sl, min(kTile, Lk), d);
+  load_tile<DP>(vs[0], vb, v_sl, min(kTile, Lk), d);
   cp_async_commit();
 
   // lse (base 2) and delta of rows g and g+8 of this warp; rows past Lq
@@ -399,10 +463,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[P::kK16][4], df[P::kK16][4];
-  load_a<D>(qf, ks[1], warp * 16);
-  load_a<D>(df, vs[1], warp * 16);
-  __syncthreads();  // every warp holds its Q and dO before stage 1 is overwritten
+  uint32_t qf[C::kQSmem ? 1 : P::kK16][4], df[C::kQSmem ? 1 : P::kK16][4];
+  if constexpr (!C::kQSmem) {
+    load_a<DP>(qf, qt, warp * 16);
+    load_a<DP>(df, dt, warp * 16);
+    __syncthreads();  // every warp holds its Q and dO before stage 1 is overwritten
+  }
 
   const float sl2 = scale * kLog2e;
   float dqa[P::kN8][4] = {};
@@ -411,8 +477,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = n & 1;
     if (n + 1 < ntiles) {
       const int k1 = (n + 1) * kTile;
-      load_tile<D>(ks[st ^ 1], kb + k1 * k_sl, k_sl, min(kTile, Lk - k1));
-      load_tile<D>(vs[st ^ 1], vb + k1 * v_sl, v_sl, min(kTile, Lk - k1));
+      load_tile<DP>(ks[st ^ 1], kb + k1 * k_sl, k_sl, min(kTile, Lk - k1), d);
+      load_tile<DP>(vs[st ^ 1], vb + k1 * v_sl, v_sl, min(kTile, Lk - k1), d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -425,8 +491,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 4; ++j) {  // 16 keys at a time
       if (kbase + 16 * j >= Lk) break;  // uniform: the rest of the tile is past Lk
       float s[2][4] = {}, dp[2][4] = {};
-      mma_abt<D>(s[0], s[1], qf, ks[st], 16 * j);   // S = Q K^T
-      mma_abt<D>(dp[0], dp[1], df, vs[st], 16 * j);  // dP = dO V^T
+      if constexpr (C::kQSmem) {
+        mma_abt_s<DP>(s[0], s[1], qt, warp * 16, ks[st], 16 * j);   // S = Q K^T
+        mma_abt_s<DP>(dp[0], dp[1], dt, warp * 16, vs[st], 16 * j);  // dP = dO V^T
+      } else {
+        mma_abt<DP>(s[0], s[1], qf, ks[st], 16 * j);
+        mma_abt<DP>(dp[0], dp[1], df, vs[st], 16 * j);
+      }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -438,80 +509,112 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       uint32_t dsa[4];
       acc_to_a(dsa, dp[0], dp[1]);
-      mma_at<D>(dqa, dsa, ks[st], 16 * j);  // dQ += dS K
+      mma_at<DP, P::kN8>(dqa, dsa, ks[st], 16 * j);  // dQ += dS K
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
-  const int64_t ld = static_cast<int64_t>(H) * D;
-  store_rows<D>(dq + b * Lq * ld + h * D, ld, q0 + warp * 16, Lq, dqa, scale, scale);
+  const int64_t ld = static_cast<int64_t>(H) * d;
+  store_rows<P::kN8>(dq + b * Lq * ld + h * d, ld, q0 + warp * 16, Lq, dqa, scale, scale, d);
 }
 
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  int B, Lq, Lk, H;
+  int B, Lq, Lk, H, d;
   int64_t q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb, do_sl;
   float scale;
   cudaStream_t stream;
 };
 
-// the dK/dV kernel, then the dQ kernel, on one stream
-template <typename T, typename DkDv, typename Dq>
-int launch_pair(const Args& a, DkDv dkdv, Dq dq, int threads, int rows) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const dim3 grid_kv((a.Lk + rows - 1) / rows, a.H, a.B);
-  dkdv<<<grid_kv, threads, 0, a.stream>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Lq,
-      a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.do_sb, a.do_sl, a.scale);
+// (tiles x split x H x B) CTAs in grid.x, or 0 past its 2^31 - 1
+inline unsigned grid_x(int L, int rows, int split, const Args& a) {
+  const int64_t n = static_cast<int64_t>((L + rows - 1) / rows) * split * a.H * a.B;
+  return n <= 0x7fffffff ? static_cast<unsigned>(n) : 0u;
+}
+
+template <int DP>
+int launch_fp32(const Args& a) {
+  using C = Fp32Cfg<DP>;
+  const unsigned grid_kv = grid_x(a.Lk, C::kRows, 1, a);
+  const unsigned grid_q = grid_x(a.Lq, C::kRows, 1, a);
+  if (!grid_kv || !grid_q) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  flash_bwd_dkdv_fp32_kernel<DP><<<grid_kv, kFp32Threads, 0, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.Lq, a.Lk, a.H, a.d, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.do_sb, a.do_sl,
+      a.scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((a.Lq + rows - 1) / rows, a.H, a.B);
-  dq<<<grid_q, threads, 0, a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq),
-                                       a.Lq, a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb,
-                                       a.v_sl, a.do_sb, a.do_sl, a.scale);
+  flash_bwd_dq_fp32_kernel<DP><<<grid_q, kFp32Threads, 0, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.Lq, a.Lk, a.H, a.d, a.q_sb,
+      a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.do_sb, a.do_sl, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DP>
+int launch_bf16(const Args& a) {
+  using C = Bf16Cfg<DP>;
+  const unsigned grid_kv = grid_x(a.Lk, flash_mma::kTile, C::kOutSplit, a);
+  const unsigned grid_q = grid_x(a.Lq, flash_mma::kTile, 1, a);
+  if (!grid_kv || !grid_q) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const auto dkdv = flash_bwd_dkdv_bf16_kernel<DP>;
+  const auto dq = flash_bwd_dq_bf16_kernel<DP>;
+  cudaError_t err = flash_mma::allow_smem(dkdv, C::kDkdvSmem);
+  if (err == cudaSuccess) err = flash_mma::allow_smem(dq, C::kDqSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv<<<grid_kv, flash_mma::kThreads, C::kDkdvSmem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.Lq, a.Lk, a.H, a.d, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.do_sb,
+      a.do_sl, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq<<<grid_q, flash_mma::kThreads, C::kDqSmem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dq), a.Lq, a.Lk, a.H, a.d,
+      a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.do_sb, a.do_sl, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
 int launch(int dtype, const Args& a) {
-  if (dtype == 0)
-    return launch_pair<float>(a, flash_bwd_dkdv_fp32_kernel<D>, flash_bwd_dq_fp32_kernel<D>,
-                              kThreads, kRows);
-  if (dtype == 1)
-    return launch_pair<bf16>(a, flash_bwd_dkdv_bf16_kernel<D>, flash_bwd_dq_bf16_kernel<D>,
-                             flash_mma::kThreads, flash_mma::kTile);
+  if (dtype == 0) return launch_fp32<DP>(a);
+  if (dtype == 1) return launch_bf16<DP>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (q, k,
-// v and dout 16-byte aligned with strides of whole 16-byte chunks, as the
-// wrapper checks). Strides are in elements; dq/dk/dv are contiguous
-// [B, L, H*d]. Returns the first launch's cudaError_t (0 = success).
-extern "C" int ssl_vit_flash_bwd(int dtype, int head_dim, const void* q,
-                                 const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, void* dk,
-                                 void* dv, int B, int Lq, int Lk, int H,
-                                 int64_t q_sb, int64_t q_sl, int64_t k_sb,
-                                 int64_t k_sl, int64_t v_sb, int64_t v_sl,
-                                 int64_t do_sb, int64_t do_sl, float scale,
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// head_dim: any d in 1..256; where d is a multiple of 8, bf16 q, k, v and
+// dout must be 16-byte aligned with strides of whole 16-byte chunks, as
+// the wrapper checks. Strides are in elements; dq/dk/dv are contiguous [B, L, H*d]. Returns the first
+// failed launch's cudaError_t (0 = success).
+extern "C" int ssl_vit_flash_bwd(int dtype, int head_dim, const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, void* dq, void* dk,
+                                 void* dv, int B, int Lq, int Lk, int H, int64_t q_sb,
+                                 int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb,
+                                 int64_t v_sl, int64_t do_sb, int64_t do_sl, float scale,
                                  void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, dk, dv, B, Lq, Lk, H,
-               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb, do_sl, scale,
-               static_cast<cudaStream_t>(stream)};
-  switch (head_dim) {
+               static_cast<const float*>(delta), dq, dk, dv, B, Lq, Lk, H, head_dim,
+               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, do_sb,
+               do_sl, scale, static_cast<cudaStream_t>(stream)};
+  switch (flash_mma::kernel_width(head_dim)) {
     case 32: return launch<32>(dtype, a);
     case 40: return launch<40>(dtype, a);
     case 48: return launch<48>(dtype, a);
     case 64: return launch<64>(dtype, a);
+    case 96: return launch<96>(dtype, a);
+    case 128: return launch<128>(dtype, a);
+    case 256: return launch<256>(dtype, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

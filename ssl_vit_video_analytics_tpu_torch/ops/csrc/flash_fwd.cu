@@ -6,6 +6,9 @@
 // (q/k/v are [B, L, H*d], head h owns columns [h*d, (h+1)*d)), writing
 // `out` [B, Lq, H*d] in the input dtype and the per-row logsumexp of the
 // scaled logits `lse` [B, Lq, H] in fp32 (the backward kernel reads it).
+// Like the JAX kernel it takes any head dim (here 1..256): each kernel is
+// built for a width DP and runs every d up to it (flash_mma.cuh,
+// kernel_width), with the scale 1/sqrt(d) of the real d from the wrapper.
 //
 // Both kernels walk K/V in tiles with an ONLINE softmax (running max and
 // sum in fp32), so any Lk fits; the TPU kernel kept all of K/V resident in
@@ -14,7 +17,8 @@
 // device memory, and zero tokens that the caller put in the sequence
 // (MobileViT's 7x7 -> 8x8 pad) are real keys. Inputs are strided views: the
 // row stride of q/k/v is a parameter (3*H*d for the thirds of a fused qkv
-// projection), the last dim is contiguous.
+// projection), the last dim is contiguous. One CTA per (query tile, head,
+// batch row), all in grid.x, so the batch has no 65535 ceiling.
 //
 // What bounds it: about 4*Lq*Lk*d flops per (batch row, head) against
 // about 4*L*d elements of traffic, so it is bound by operations at every
@@ -23,18 +27,24 @@
 // - bf16, the working type of both main paths: flash_fwd_bf16_kernel runs
 //   S = Q K^T and O += P V on the tensor cores (flash_mma.cuh: mma.sync
 //   m16n8k16, bf16 operands, fp32 accumulators). One CTA of 4 warps per
-//   (64-row query tile, head, batch row); each warp owns 16 query rows and
-//   keeps their Q fragments in registers for the whole sweep. K and V come
-//   in 64-key tiles through a 2-stage cp.async pipeline, so the copy of the
-//   next tile overlaps the products on this one. The softmax runs on the
-//   S accumulators in fp32 registers, in base 2 (scale * log2(e) folded
-//   into one multiply before ex2), with the row max and sum reduced across
-//   the quad of lanes that shares a row. P is rounded to bf16 unnormalised
-//   and goes from the S accumulators straight into the A fragment of P V;
-//   1/l is applied after the product, in `_fwd_kernel`'s own order.
-// - fp32: flash_fwd_fp32_kernel, one thread per query row with fp32 FMAs
-//   on the CUDA cores. TF32 tensor-core products would miss the 1e-4 to
-//   which the fp32 training step is held against the plain path.
+//   64-row query tile; each warp owns 16 query rows and, up to DP = 128,
+//   keeps their Q fragments in registers for the whole sweep (at DP = 256
+//   they would not fit beside the 128 registers of the output accumulators,
+//   so each k16 step's fragment is read from the staged Q tile). K and V
+//   come in 64-key tiles (32 at DP = 256, to keep the S accumulators and
+//   the stages small) through a 2-stage pipeline, so the copy of the next
+//   tile overlaps the products on this one. The softmax runs on the S
+//   accumulators in fp32 registers, in base 2 (scale * log2(e) folded into
+//   one multiply before ex2), with the row max and sum reduced across the
+//   quad of lanes that shares a row. P is rounded to bf16 unnormalised and
+//   goes from the S accumulators straight into the A fragment of P V; 1/l
+//   is applied after the product, in `_fwd_kernel`'s own order.
+// - fp32: flash_fwd_fp32_kernel, fp32 FMAs on the CUDA cores, one thread
+//   per query row up to DP = 64, 2 threads from DP = 96 and 4 at DP = 256
+//   (each owns every kSplit-th column; a dot product ends in a shuffle), so
+//   that a thread's share of q and of the output stays in 128 registers.
+//   TF32 tensor-core products would miss the 1e-4 to which the fp32
+//   training step is held against the plain path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,50 +56,81 @@
 namespace {
 
 using flash_mma::bf16;
+using flash_mma::Dims;
+using flash_mma::GridIdx;
 
-constexpr int kBlockQ = 64;  // fp32: query rows per CTA, one thread each
-constexpr int kBlockK = 32;  // fp32: keys per shared-memory tile
-constexpr int kKeysBf16 = 64;  // bf16: keys per K/V tile (faster than 32 at d = 64)
+constexpr int kFp32Threads = 64;
 
-template <int D>
-__global__ void __launch_bounds__(kBlockQ)
+template <int DP>
+struct Fp32Cfg {
+  static constexpr int kSplit = DP <= 64 ? 1 : DP <= 128 ? 2 : 4;  // threads per row
+  static constexpr int kCols = DP / kSplit;                        // columns a thread owns
+  static constexpr int kRows = kFp32Threads / kSplit;              // query rows per CTA
+  static constexpr int kKeys = DP <= 128 ? 32 : 16;                // keys per smem tile
+};
+
+template <int DP>
+struct Bf16Cfg {
+  static constexpr int kKeys = DP <= 128 ? 64 : 32;  // keys per K/V tile
+  static constexpr bool kQSmem = DP > 128;           // Q fragments read from smem
+  static constexpr int kStage = 2 * kKeys * Dims<DP>::kStride;  // K rows, then V rows
+  static constexpr int kRows = 4 * kKeys + (kQSmem ? flash_mma::kTile : 0);
+  static constexpr size_t kSmemBytes = kRows * Dims<DP>::kStride * sizeof(bf16);
+};
+
+// the sum of the partial dot products of the kSplit adjacent lanes of a row
+template <int kSplit>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < kSplit; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kFp32Threads)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
-                      float* __restrict__ lse, int Lq, int Lk, int H,
+                      float* __restrict__ lse, int Lq, int Lk, int H, int d,
                       int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
                       int64_t v_sb, int64_t v_sl, float scale) {
-  __shared__ float ks[kBlockK][D];
-  __shared__ float vs[kBlockK][D];
+  using C = Fp32Cfg<DP>;
+  __shared__ float ks[C::kKeys][DP];
+  __shared__ float vs[C::kKeys][DP];
 
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * kBlockQ + tid;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  const int part = tid % C::kSplit;  // this thread's columns: kSplit * t + part
+  const GridIdx g = flash_mma::grid_idx((Lq + C::kRows - 1) / C::kRows, H);
+  const int row = g.tile * C::kRows + tid / C::kSplit;
+  const int h = g.h;
+  const int64_t b = g.b;
   // rows past Lq compute on a copy of the last row and write nothing
   const int64_t qrow = row < Lq ? row : Lq - 1;
 
-  float qr[D];
-  const float* qp = q + b * q_sb + qrow * q_sl + h * D;
+  float qr[C::kCols];
+  const float* qp = q + b * q_sb + qrow * q_sl + h * d;
 #pragma unroll
-  for (int c = 0; c < D; ++c) qr[c] = qp[c] * scale;
+  for (int t = 0; t < C::kCols; ++t) {
+    const int c = C::kSplit * t + part;
+    qr[t] = c < d ? qp[c] * scale : 0.f;
+  }
 
-  float acc[D];
+  float acc[C::kCols];
 #pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
+  for (int t = 0; t < C::kCols; ++t) acc[t] = 0.f;
   float m = -INFINITY;  // running max of the logits
   float l = 0.f;        // running sum of exp(logit - m)
 
-  const float* kb = k + b * k_sb + h * D;
-  const float* vb = v + b * v_sb + h * D;
+  const float* kb = k + b * k_sb + h * d;
+  const float* vb = v + b * v_sb + h * d;
 
-  for (int k0 = 0; k0 < Lk; k0 += kBlockK) {
+  for (int k0 = 0; k0 < Lk; k0 += C::kKeys) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = tid; e < kBlockK * D; e += kBlockQ) {
-      const int j = e / D;
-      const int c = e - j * D;
+    for (int e = tid; e < C::kKeys * DP; e += kFp32Threads) {
+      const int j = e / DP;
+      const int c = e - j * DP;
       const int64_t key = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (key < Lk) {
+      if (key < Lk && c < d) {
         kx = kb[key * k_sl + c];
         vx = vb[key * v_sl + c];
       }
@@ -99,13 +140,14 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // every tile holds at least one key < Lk, so tile_max is finite
-    float s[kBlockK];
+    float s[C::kKeys];
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < C::kKeys; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int c = 0; c < D; ++c) dot = fmaf(qr[c], ks[j][c], dot);
+      for (int t = 0; t < C::kCols; ++t) dot = fmaf(qr[t], ks[j][C::kSplit * t + part], dot);
+      dot = row_sum<C::kSplit>(dot);
       s[j] = (k0 + j < Lk) ? dot : -INFINITY;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -113,61 +155,70 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = expf(m - m_new);  // 0 on the first tile
     l *= alpha;
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
+    for (int t = 0; t < C::kCols; ++t) acc[t] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < C::kKeys; ++j) {
       const float p = expf(s[j] - m_new);  // masked keys give exp(-inf) = 0
       l += p;
 #pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vs[j][c], acc[c]);
+      for (int t = 0; t < C::kCols; ++t) acc[t] = fmaf(p, vs[j][C::kSplit * t + part], acc[t]);
     }
     m = m_new;
   }
 
   if (row < Lq) {
     const float inv = 1.f / l;
-    float* op = out + (b * Lq + row) * (int64_t)(H * D) + h * D;
+    float* op = out + (b * Lq + row) * (int64_t)H * d + h * d;
 #pragma unroll
-    for (int c = 0; c < D; ++c) op[c] = acc[c] * inv;
-    lse[(b * Lq + row) * H + h] = m + logf(l);
+    for (int t = 0; t < C::kCols; ++t) {
+      const int c = C::kSplit * t + part;
+      if (c < d) op[c] = acc[t] * inv;
+    }
+    if (part == 0) lse[(b * Lq + row) * H + h] = m + logf(l);
   }
 }
 
-template <int D, int kKeys>
+template <int DP>
 __global__ void __launch_bounds__(flash_mma::kThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int Lq, int Lk, int H, int64_t q_sb,
-                      int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl,
-                      float scale) {
+                      float* __restrict__ lse, int Lq, int Lk, int H, int d,
+                      int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl, int64_t v_sb,
+                      int64_t v_sl, float scale) {
   using namespace flash_mma;
-  using P = Dims<D>;
-  static_assert(kKeys == 32 || kKeys == 64, "a key tile of 2 or 4 k16 blocks");
-  constexpr int kStage = 2 * kKeys * P::kStride;  // a stage: K rows, then V rows
-  // The 64-row Q tile rides in stage 1 until its fragments are in
-  // registers, before the second key tile is loaded.
-  __shared__ __align__(16) bf16 smem[2 * kStage];
-  bf16* const ks[2] = {smem, smem + kStage};
-  bf16* const vs[2] = {smem + kKeys * P::kStride, smem + kStage + kKeys * P::kStride};
+  using P = Dims<DP>;
+  using C = Bf16Cfg<DP>;
+  constexpr int kKeys = C::kKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const ks[2] = {smem, smem + C::kStage};
+  bf16* const vs[2] = {smem + kKeys * P::kStride, smem + C::kStage + kKeys * P::kStride};
+  // Up to DP = 128 the 64-row Q tile rides in stage 1 until its fragments
+  // are in registers, before the second key tile is loaded; at DP = 256 it
+  // has rows of its own for the whole sweep.
+  bf16* const qs = C::kQSmem ? smem + 2 * C::kStage : ks[1];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const bf16* kb = k + b * k_sb + h * D;
-  const bf16* vb = v + b * v_sb + h * D;
+  const GridIdx g = grid_idx((Lq + kTile - 1) / kTile, H);
+  const int q0 = g.tile * kTile;
+  const int h = g.h;
+  const int64_t b = g.b;
+  const bf16* kb = k + b * k_sb + h * d;
+  const bf16* vb = v + b * v_sb + h * d;
 
-  zero_pad_columns<D>(smem, 4 * kKeys);
-  load_tile<D>(ks[1], q + b * q_sb + q0 * q_sl + h * D, q_sl, min(kTile, Lq - q0));
-  load_tile<D, kKeys>(ks[0], kb, k_sl, min(kKeys, Lk));
-  load_tile<D, kKeys>(vs[0], vb, v_sl, min(kKeys, Lk));
+  zero_pad_columns<DP>(smem, C::kRows, d);
+  load_tile<DP>(qs, q + b * q_sb + q0 * q_sl + h * d, q_sl, min(kTile, Lq - q0), d);
+  load_tile<DP, kKeys>(ks[0], kb, k_sl, min(kKeys, Lk), d);
+  load_tile<DP, kKeys>(vs[0], vb, v_sl, min(kKeys, Lk), d);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[P::kK16][4];
-  load_a<D>(qf, ks[1], warp * 16);
-  __syncthreads();  // every warp holds its Q before stage 1 is overwritten
+  uint32_t qf[C::kQSmem ? 1 : P::kK16][4];
+  if constexpr (!C::kQSmem) {
+    load_a<DP>(qf, qs, warp * 16);
+    __syncthreads();  // every warp holds its Q before stage 1 is overwritten
+  }
 
   const float sl2 = scale * kLog2e;  // logits -> base-2 exponents
   float o[P::kN8][4] = {};
@@ -178,8 +229,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int st = n & 1;
     if (n + 1 < ntiles) {
       const int k1 = (n + 1) * kKeys;
-      load_tile<D, kKeys>(ks[st ^ 1], kb + k1 * k_sl, k_sl, min(kKeys, Lk - k1));
-      load_tile<D, kKeys>(vs[st ^ 1], vb + k1 * v_sl, v_sl, min(kKeys, Lk - k1));
+      load_tile<DP, kKeys>(ks[st ^ 1], kb + k1 * k_sl, k_sl, min(kKeys, Lk - k1), d);
+      load_tile<DP, kKeys>(vs[st ^ 1], vb + k1 * v_sl, v_sl, min(kKeys, Lk - k1), d);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -191,7 +242,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int kN = kKeys / 8;  // n8 tiles of keys
     float s[kN][4] = {};
 #pragma unroll
-    for (int j = 0; j < kN / 2; ++j) mma_abt<D>(s[2 * j], s[2 * j + 1], qf, ks[st], 16 * j);
+    for (int j = 0; j < kN / 2; ++j) {
+      if constexpr (C::kQSmem)
+        mma_abt_s<DP>(s[2 * j], s[2 * j + 1], qs, warp * 16, ks[st], 16 * j);
+      else
+        mma_abt<DP>(s[2 * j], s[2 * j + 1], qf, ks[st], 16 * j);
+    }
 
     const int kbase = n * kKeys;
     if (kbase + kKeys > Lk) {  // the ragged last tile: keys >= Lk to -inf
@@ -241,7 +297,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (kbase + 16 * j < Lk) {
         uint32_t a[4];
         acc_to_a(a, s[2 * j], s[2 * j + 1]);
-        mma_at<D>(o, a, vs[st], 16 * j);
+        mma_at<DP, P::kN8>(o, a, vs[st], 16 * j);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -255,8 +311,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     inv[r] = 1.f / l[r];
   }
   const int row0 = q0 + warp * 16;
-  store_rows<D>(out + b * Lq * (int64_t)(H * D) + h * D, (int64_t)H * D, row0, Lq, o, inv[0],
-                inv[1]);
+  const int64_t ld = static_cast<int64_t>(H) * d;
+  store_rows<P::kN8>(out + b * Lq * ld + h * d, ld, row0, Lq, o, inv[0], inv[1], d);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -266,72 +322,77 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
-                int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale,
-                cudaStream_t stream) {
-  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_fp32_kernel<D><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, Lq, Lk, H, q_sb, q_sl,
-      k_sb, k_sl, v_sb, v_sl, scale);
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  float* lse;
+  int B, Lq, Lk, H, d;
+  int64_t q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
+  float scale;
+  cudaStream_t stream;
+};
+
+// (tiles x H x B) CTAs in grid.x, or 0 past its 2^31 - 1
+inline unsigned grid_x(int L, int rows, const Args& a) {
+  const int64_t n = static_cast<int64_t>((L + rows - 1) / rows) * a.H * a.B;
+  return n <= 0x7fffffff ? static_cast<unsigned>(n) : 0u;
+}
+
+template <int DP>
+int launch_fp32(const Args& a) {
+  const unsigned grid = grid_x(a.Lq, Fp32Cfg<DP>::kRows, a);
+  if (!grid) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_fwd_fp32_kernel<DP><<<grid, kFp32Threads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Lq, a.Lk, a.H,
+      a.d, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
-                int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale,
-                cudaStream_t stream) {
-  const dim3 grid((Lq + flash_mma::kTile - 1) / flash_mma::kTile, H, B);
-  flash_fwd_bf16_kernel<D, kKeysBf16><<<grid, flash_mma::kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale);
+template <int DP>
+int launch_bf16(const Args& a) {
+  using C = Bf16Cfg<DP>;
+  const unsigned grid = grid_x(a.Lq, flash_mma::kTile, a);
+  if (!grid) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto kernel = flash_fwd_bf16_kernel<DP>;
+  const cudaError_t err = flash_mma::allow_smem(kernel, C::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, flash_mma::kThreads, C::kSmemBytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Lq, a.Lk, a.H, a.d,
+      a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
-           int B, int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl, int64_t k_sb,
-           int64_t k_sl, int64_t v_sb, int64_t v_sl, float scale, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_fp32<D>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
-                          v_sl, scale, stream);
-  if (dtype == 1)
-    return launch_bf16<D>(q, k, v, out, lse, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
-                          v_sl, scale, stream);
+template <int DP>
+int launch(int dtype, const Args& a) {
+  if (dtype == 0) return launch_fp32<DP>(a);
+  if (dtype == 1) return launch_bf16<DP>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16 (q, k,
-// v 16-byte aligned with strides of whole 16-byte chunks, as the wrapper
-// checks). Strides are in elements. Returns the launch's cudaError_t.
-extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q,
-                                 const void* k, const void* v, void* out,
-                                 void* lse, int B, int Lq, int Lk, int H,
-                                 int64_t q_sb, int64_t q_sl, int64_t k_sb,
-                                 int64_t k_sl, int64_t v_sb, int64_t v_sl,
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// head_dim: any d in 1..256; where d is a multiple of 8, bf16 q, k and v
+// must be 16-byte aligned with strides of whole 16-byte chunks, as the
+// wrapper checks. Strides are in elements. Returns the launch's cudaError_t.
+extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                                 int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl,
+                                 int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl,
                                  float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lse_f = static_cast<float*>(lse);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
-                        v_sb, v_sl, scale, s);
-    case 40:
-      return launch<40>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
-                        v_sb, v_sl, scale, s);
-    case 48:
-      return launch<48>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
-                        v_sb, v_sl, scale, s);
-    case 64:
-      return launch<64>(dtype, q, k, v, out, lse_f, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl,
-                        v_sb, v_sl, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,    k,    v,    out,  static_cast<float*>(lse), B, Lq, Lk, H, head_dim,
+               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (flash_mma::kernel_width(head_dim)) {
+    case 32: return launch<32>(dtype, a);
+    case 40: return launch<40>(dtype, a);
+    case 48: return launch<48>(dtype, a);
+    case 64: return launch<64>(dtype, a);
+    case 96: return launch<96>(dtype, a);
+    case 128: return launch<128>(dtype, a);
+    case 256: return launch<256>(dtype, a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -9,9 +9,15 @@ kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles:
 K1 walks K/V with an online softmax, so it has no sequence-length ceiling
 and needs no padding; K2 splits the backward into a dK/dV pass over key
 tiles and a dQ pass over query tiles, so that no two CTAs write one output.
-The dtype picks the kernel: bf16 runs on the tensor cores (``mma.sync``,
-tiles staged by 16-byte ``cp.async`` copies, hence :func:`check_alignment`),
-fp32 on the CUDA cores.
+The dtype picks the kernel: bf16 runs on the tensor cores (``mma.sync``),
+fp32 on the CUDA cores. Like the JAX kernels, which pack heads into
+128-lane groups and scale by ``d_real``, they take any head dim, here
+1..:data:`MAX_HEAD_DIM`: each is built for the widths of
+:data:`KERNEL_WIDTHS` and runs a d at the least width that holds it, with
+the columns past d zero in shared memory and the scale ``1/sqrt(d)`` of the
+real d. bf16 tiles are staged by 16-byte ``cp.async`` copies where d is a
+multiple of 8 (hence :func:`check_alignment`), else element by element; no
+input is copied or padded in device memory.
 
 Layout is the JAX package's: q ``[B, Lq, H*d]``, k/v ``[B, Lk, H*d]``, head
 ``h`` owns columns ``[h*d, (h+1)*d)``. The thirds of a fused qkv projection
@@ -37,9 +43,16 @@ from torch.autograd.function import once_differentiable
 from . import kernel_build
 from .kernel_build import LaunchCounter
 
-SUPPORTED_HEAD_DIMS = (32, 40, 48, 64)
+# the widths the kernels are built for (csrc/flash_mma.cuh, kernel_width);
+# a head dim runs at the least one that holds it
+KERNEL_WIDTHS = (32, 40, 48, 64, 96, 128, 256)
+MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535
+# CTAs of one launch, all in grid.x; the most a kernel launches for a row
+# tile of (B, H) is 2 (K2's dK/dV column halves at width 256), and its
+# least row tile 16 (the fp32 kernels at width 256)
+_MAX_GRID_X = 2**31 - 1
+_MIN_TILE_ROWS, _MAX_CTAS_PER_TILE = 16, 2
 _ALIGN_BYTES = 16
 
 # K1 launches in this process (one per launch, added where it launches)
@@ -119,9 +132,8 @@ def _check_kernel_args(q, k, v, num_heads):
     if HD % num_heads:
         raise ValueError(f"H*d={HD} does not divide into {num_heads} heads")
     d = HD // num_heads
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built into the kernel "
-                         f"(supported: {SUPPORTED_HEAD_DIMS})")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside the kernels' range 1..{MAX_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -131,8 +143,10 @@ def _check_kernel_args(q, k, v, num_heads):
         if t.stride(2) != 1:
             raise ValueError(f"{name} must have a contiguous last dim (stride "
                              f"{t.stride(2)}); pass the packed view, not a transpose")
-    if B > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ:
-        raise ValueError(f"B={B} or H={num_heads} exceeds the kernel grid")
+    tiles = -(-max(Lq, k.shape[1]) // _MIN_TILE_ROWS) * _MAX_CTAS_PER_TILE
+    if B * num_heads * tiles > _MAX_GRID_X:
+        raise ValueError(f"B={B} x H={num_heads} x L={max(Lq, k.shape[1])} exceeds the "
+                         f"kernel grid")
     if k.shape[1] == 0:
         raise ValueError("attention over zero keys")
     return B, Lq, k.shape[1], HD, d
@@ -148,10 +162,10 @@ def _misalignment(t: torch.Tensor) -> tuple[int, list[int]]:
 
 def check_alignment(**tensors: torch.Tensor) -> None:
     """Raise unless each tensor's data pointer, and its batch and row
-    strides in bytes, are multiples of 16: the bf16 kernels stage rows
-    through shared memory in 16-byte ``cp.async`` copies. The thirds of a
-    fused qkv projection pass (offsets ``h*d*2`` bytes, row stride
-    ``3*H*d*2``, for every supported d)."""
+    strides in bytes, are multiples of 16: where d is a multiple of 8 the
+    bf16 kernels stage rows through shared memory in 16-byte ``cp.async``
+    copies. The thirds of a fused qkv projection pass (offsets ``h*d*2``
+    bytes, row stride ``3*H*d*2``, for every such d)."""
     for name, t in tensors.items():
         ptr, strides = _misalignment(t)
         if ptr or any(strides):
@@ -168,6 +182,16 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     if ptr or any(strides) or t.stride(2) != 1:
         return t.clone(memory_format=torch.contiguous_format)
     return t
+
+
+def _check_staging(d: int, dtype: torch.dtype, **tensors: torch.Tensor) -> bool:
+    """Whether the kernel stages these tensors' rows in 16-byte copies (bf16
+    with d a multiple of 8; then they must pass :func:`check_alignment`, or
+    this raises). Any other d, and fp32, is read element by element."""
+    if dtype != torch.bfloat16 or d % 8:
+        return False
+    check_alignment(**tensors)
+    return True
 
 
 def _check_cuda(t: torch.Tensor) -> None:
@@ -187,8 +211,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, num_heads)
     _check_cuda(q)
     B, Lq, Lk, HD, d = _check_kernel_args(q, k, v, num_heads)
-    if q.dtype == torch.bfloat16:
-        check_alignment(q=q, k=k, v=v)
+    _check_staging(d, q.dtype, q=q, k=k, v=v)
     out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Lq, num_heads), dtype=torch.float32, device=q.device)
     if Lq == 0 or B == 0:
@@ -229,8 +252,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (B, Lq, num_heads) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [B, Lq, H] = {(B, Lq, num_heads)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if q.dtype == torch.bfloat16:
-        check_alignment(q=q, k=k, v=v)
+    if _check_staging(d, q.dtype, q=q, k=k, v=v):
         dout = _aligned(dout)
     elif dout.stride(2) != 1:
         dout = dout.contiguous()  # autograd may hand an expanded gradient

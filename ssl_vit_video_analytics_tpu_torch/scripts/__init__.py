@@ -1,8 +1,9 @@
 """Scripts of the port: the counterparts of the JAX package's Pallas
 microbenchmarks ``scripts/probe_dw.py`` (P1) and ``scripts/probe_exp.py``
-(P2), each driving its Hopper kernel, the step profiler, and the research
-campaigns (``ssl_transfer_campaign``, ``mae_evidence``, ``r5_privacy_grid``
-and the artifact scripts ``make_{campaign,sweep,seed}_artifacts``).
+(P2), each driving its Hopper kernel, the decoder head repack probe
+(``probe_decoder_repack``), the step profiler, and the research campaigns
+(``ssl_transfer_campaign``, ``mae_evidence``, ``r5_privacy_grid`` and the
+artifact scripts ``make_{campaign,sweep,seed}_artifacts``).
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_dw [BT] [check|bench|all]
     python -m ssl_vit_video_analytics_tpu_torch.scripts.probe_exp

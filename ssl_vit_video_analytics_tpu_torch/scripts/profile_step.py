@@ -7,6 +7,8 @@ few steps (2, after 3 warm-up steps) of the port's ``entry.train_ssl_mae.run`` o
     python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step
     python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step \
         --config configs/ssl_mae_moe.yaml
+    python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step \
+        --set model.decoder_num_heads=3          # the decoder repack
 
 Prints one JSON object: the host-clock ms of each profiled step, the
 device time per step summed over every kernel, the idle share (1 - device
@@ -84,10 +86,12 @@ def depthwise_3x3(events, steps: int) -> list[dict]:
 
 
 def run(warm: int = 3, steps: int = 2, top: int = 25,
-        config: str = os.path.join(REPO, "configs", "ssl_mae.yaml")) -> dict:
+        config: str = os.path.join(REPO, "configs", "ssl_mae.yaml"),
+        overrides: tuple[str, ...] = ()) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU")
-    cfg = load_config(config, base=os.path.join(REPO, "configs", "base.yaml"))
+    cfg = load_config(config, base=os.path.join(REPO, "configs", "base.yaml"),
+                      overrides=overrides)
     with tempfile.TemporaryDirectory() as tmp:
         splits = make_synthetic_dataset(os.path.join(tmp, "data"), num_classes=8,
                                         videos_per_class=6, num_frames=64, image_size=112,
@@ -124,7 +128,7 @@ def run(warm: int = 3, steps: int = 2, top: int = 25,
         e.device_time_total for e in prof.events() if e.name == "aten::einsum") / 1e3 / steps
     return {
         "device": torch.cuda.get_device_name(0),
-        "config": os.path.relpath(config, REPO),
+        "config": os.path.relpath(config, REPO), "overrides": list(overrides),
         "steps": steps,
         "step_ms": [1e3 * (marks[i + 1] - marks[i]) for i in range(warm, warm + steps)],
         "device_ms_per_step": device_ms / steps,
@@ -140,7 +144,10 @@ def run(warm: int = 3, steps: int = 2, top: int = 25,
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", default=os.path.join(REPO, "configs", "ssl_mae.yaml"))
-    print(json.dumps(run(config=os.path.abspath(p.parse_args().config))))
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help="override a config entry, as the entries' --set")
+    args = p.parse_args()
+    print(json.dumps(run(config=os.path.abspath(args.config), overrides=tuple(args.set))))
 
 
 if __name__ == "__main__":

@@ -25,9 +25,10 @@ from ssl_vit_video_analytics_tpu_torch.utils.io import read_csv_dicts
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_ENTRY, PORT_ENTRY = "ssl_vit_video_analytics_tpu.entry", "ssl_vit_video_analytics_tpu_torch.entry"
 PORT_SCRIPTS = "ssl_vit_video_analytics_tpu_torch.scripts"
-# the JAX runners the port leaves out: TPU-environment code and
-# preprocessing without a model
-NOT_PORTED = {"run_segmented.sh", "run_full_pipeline_dataset.sh"}
+PORT_PREPROCESS = "ssl_vit_video_analytics_tpu_torch.preprocess"
+PORT_TOOLS = "ssl_vit_video_analytics_tpu_torch.tools"
+# the JAX runner the port leaves out: TPU-environment code
+NOT_PORTED = {"run_segmented.sh"}
 
 
 def _drive(module, argv, monkeypatch, capsys):
@@ -95,10 +96,14 @@ def test_experiment_runners_mirror_the_jax_ones_with_port_entries():
         assert subprocess.run(["bash", "-n", str(path)], capture_output=True).returncode == 0
         text = path.read_text()
         modules = re.findall(r"python -m (\S+)", text)
-        jax_calls = re.findall(r"python (?:-m (\S+)|scripts/(\w+)\.py)",
-                               (REPO / "experiments" / path.name).read_text())
-        assert modules and modules == [m.replace(JAX_ENTRY, PORT_ENTRY) if m
-                                       else f"{PORT_SCRIPTS}.{script}"
-                                       for m, script in jax_calls]
+        # entries, scripts/*.py, and the dataset front end's preprocess/*.py
+        # and root verify_dataset.py
+        jax_calls = re.findall(
+            r"python (?:-m (\S+)|scripts/(\w+)\.py|preprocess/(\w+)\.py|(verify_dataset)\.py)",
+            (REPO / "experiments" / path.name).read_text())
+        assert modules and modules == [
+            m.replace(JAX_ENTRY, PORT_ENTRY) if m else f"{PORT_SCRIPTS}.{script}" if script
+            else f"{PORT_PREPROCESS}.{pre}" if pre else f"{PORT_TOOLS}.{tool}"
+            for m, script, pre, tool in jax_calls]
         assert "ssl_vit_video_analytics_tpu." not in text
         assert path.stat().st_mode & 0o111  # executable, as the JAX runners

@@ -93,9 +93,9 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
     B, L, H, d = 1, 8, 2, 32
     x = torch.zeros(B, L, H * d)
     assert fa._check_kernel_args(x, x, x, H) == (B, L, L, H * d, d)
-    with pytest.raises(ValueError, match="head dim"):
-        fa._check_kernel_args(torch.zeros(B, L, 2 * 24), torch.zeros(B, L, 48),
-                              torch.zeros(B, L, 48), 2)
+    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
+        fa._check_kernel_args(torch.zeros(B, L, 2 * 257), torch.zeros(B, L, 514),
+                              torch.zeros(B, L, 514), 2)
     with pytest.raises(ValueError, match="contiguous last dim"):
         t = torch.zeros(B, H * d, L).transpose(1, 2)
         fa._check_kernel_args(t, x, x, H)

@@ -57,10 +57,13 @@ def test_plain_bf16_matches_jax_flash_in_bf16(B, Lq, Lk, H, d):
         assert err <= TOL_BF16, (name, err)
 
 
-@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+# the models' four head dims (tests/test_torch_port_head_dims.py takes the
+# other widths through the wrapper's staging rule)
+@pytest.mark.parametrize("d", (32, 40, 48, 64))
 def test_fused_qkv_thirds_meet_the_bf16_alignment(d):
     """MultiHeadAttention's thirds of a fused bf16 qkv: offsets h*d*2 bytes,
-    row stride 3*H*d*2 bytes, multiples of 16 for every supported d."""
+    row stride 3*H*d*2 bytes, multiples of 16 where d is a multiple of 8
+    (the kernels stage those rows in 16-byte copies)."""
     H = 3
     qkv = torch.zeros(2, 17, 3 * H * d, dtype=torch.bfloat16)
     hd = H * d

@@ -1,0 +1,311 @@
+"""K1/K2 at every head dim the JAX kernels take (1..256 on the card), on the
+CPU: the port's plain forward and backward against the JAX package's Pallas
+kernels (interpret mode) and ``_sdpa_xla`` at head dims past the models'
+defaults, the wrapper's range and staging rules, the width table against
+the CUDA sources, one pipeline-B step with the decoder repacked to 3 heads
+of 128 against JAX's ``make_pixel_mae_step``, and the ported repack probe
+at toy widths.
+
+Tolerances: as tests/test_torch_port_attention.py (forward, 2e-5) and
+tests/test_torch_port_attention_bwd.py (gradients, 5e-5), fp32 sums in other
+orders; the step as tests/test_torch_port_train_step.py (1e-4).
+"""
+import functools
+import math
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ssl_vit_video_analytics_tpu.data.masking import get_tube_mask as jax_tube_mask
+from ssl_vit_video_analytics_tpu.models.mae import TinyVideoMAE as JaxMAE
+from ssl_vit_video_analytics_tpu.models.tiny_vit import TinyViT as JaxTinyViT
+from ssl_vit_video_analytics_tpu.ops.attention import _sdpa_xla
+from ssl_vit_video_analytics_tpu.ops.flash_attention import (
+    flash_attention_packed as jax_flash_packed)
+from ssl_vit_video_analytics_tpu.train import mae_engine as jeng
+from ssl_vit_video_analytics_tpu.train import state as jstate
+from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_hard_synthetic_dataset
+from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+from ssl_vit_video_analytics_tpu_torch.models.mae import TinyVideoMAE
+from ssl_vit_video_analytics_tpu_torch.models.tiny_vit import TinyViT
+from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+from ssl_vit_video_analytics_tpu_torch.scripts import probe_decoder_repack as probe
+from ssl_vit_video_analytics_tpu_torch.train import mae_engine as teng
+from ssl_vit_video_analytics_tpu_torch.train import state as tstate
+from ssl_vit_video_analytics_tpu_torch.utils.convert import (
+    flatten_variables, mae_state_dict_from_flax, unflatten_variables)
+
+torch.set_num_threads(2)  # six test workers share the host
+
+CSRC = Path(fa.__file__).resolve().parent / "csrc"
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+BWD_TOL = dict(atol=5e-5, rtol=5e-5)
+# below, between and at the widths the kernels are built for: the narrow
+# heads, a d staged element by element (20), pipeline A's temporal head at
+# embed 384 (96), the decoder repack (128) and the widest (256)
+HEAD_DIMS = (16, 20, 24, 80, 96, 128, 256)
+
+
+def _inputs(seed, B, Lq, Lk, H, d):
+    rng = np.random.default_rng(seed)
+    shapes = ((B, Lq, H * d), (B, Lk, H * d), (B, Lk, H * d), (B, Lq, H * d))
+    return [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_plain_forward_matches_jax_flash_and_xla(d):
+    B, Lq, Lk, H = 2, 37, 70, 2
+    q, k, v, _ = _inputs(d, B, Lq, Lk, H, d)
+    ref_pallas = np.asarray(jax.jit(jax_flash_packed, static_argnums=3)(q, k, v, H))
+    split = lambda x: x.reshape(x.shape[0], x.shape[1], H, d)  # noqa: E731
+    ref_xla = np.asarray(_sdpa_xla(split(q), split(k), split(v))).reshape(B, Lq, H * d)
+    out, lse = fa.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)), H)
+    np.testing.assert_allclose(out.numpy(), ref_pallas, **FWD_TOL)
+    np.testing.assert_allclose(out.numpy(), ref_xla, **FWD_TOL)
+    # lse of the logits scaled by 1/sqrt(d) of the real d, as JAX's d_real
+    s = np.einsum("blhd,bmhd->bhlm", split(q).astype(np.float64),
+                  split(k).astype(np.float64)) / math.sqrt(d)
+    ref_lse = np.log(np.exp(s).sum(-1)).transpose(0, 2, 1)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **FWD_TOL)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_plain_backward_matches_jax_vjp_and_xla(d):
+    B, Lq, Lk, H = 1, 45, 30, 2
+    q, k, v, dout = _inputs(100 + d, B, Lq, Lk, H, d)
+    _, vjp = jax.vjp(jax.jit(lambda a, b, c: jax_flash_packed(a, b, c, H)), q, k, v)
+    ref_pallas = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    def xla(a, b, c):
+        split = lambda x: x.reshape(x.shape[0], x.shape[1], H, d)  # noqa: E731
+        return _sdpa_xla(split(a), split(b), split(c)).reshape(B, Lq, H * d)
+
+    _, vjp_x = jax.vjp(jax.jit(xla), q, k, v)
+    ref_xla = [np.asarray(g) for g in vjp_x(jnp.asarray(dout))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, dout))
+    out, lse = fa.flash_attention_plain(tq, tk, tv, H)
+    grads = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, H)
+    for g, rp, rx, name in zip(grads, ref_pallas, ref_xla, "qkv"):
+        np.testing.assert_allclose(g.numpy(), rp, **BWD_TOL, err_msg=f"d{name} vs Pallas")
+        np.testing.assert_allclose(g.numpy(), rx, **BWD_TOL, err_msg=f"d{name} vs XLA")
+
+
+def test_wrapper_takes_every_head_dim_up_to_256():
+    """Every d in 1..256 passes the kernels' checks; 257 and more raise with
+    the range."""
+    for d in range(1, 257):
+        x = torch.zeros(1, 3, 2 * d)
+        assert fa._check_kernel_args(x, x, x, 2)[-1] == d
+    assert fa.MAX_HEAD_DIM == 256
+    for bad in (257, 300):
+        x = torch.zeros(1, 3, bad)
+        with pytest.raises(ValueError, match=f"head dim {bad} is outside the kernels' "
+                                             "range 1..256"):
+            fa._check_kernel_args(x, x, x, 1)
+
+
+def test_batches_past_65535_pass_the_grid_check():
+    """(tile, head, batch row) fold into grid.x: B = 65536 passes; a launch
+    past 2^31 - 1 CTAs raises."""
+    x = torch.zeros(65536, 5, 64)
+    assert fa._check_kernel_args(x, x, x, 2)[0] == 65536
+    big = torch.zeros(1, 1, 8).expand(2**20, 2**14, 8)
+    with pytest.raises(ValueError, match="exceeds the kernel grid"):
+        fa._check_kernel_args(big, big, big, 1)
+
+
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 64, 96, 128, 256])
+def test_fused_qkv_thirds_stage_in_16_byte_copies(d):
+    """Where d is a multiple of 8 the bf16 thirds of a fused qkv pass the
+    16-byte alignment and stage by cp.async; the wrapper copies nothing."""
+    H = 3
+    qkv = torch.zeros(2, 17, 3 * H * d, dtype=torch.bfloat16)
+    hd = H * d
+    thirds = dict(q=qkv[..., :hd], k=qkv[..., hd:2 * hd], v=qkv[..., 2 * hd:])
+    assert fa._check_staging(d, torch.bfloat16, **thirds)
+    assert not fa._check_staging(d, torch.float32, **thirds)
+    offset = torch.zeros(2, 17, hd + 1, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._check_staging(d, torch.bfloat16, q=offset, k=offset, v=offset)
+
+
+@pytest.mark.parametrize("d", [1, 7, 12, 20, 100, 130, 250])
+def test_other_head_dims_stage_element_by_element(d):
+    """A d that is not a multiple of 8 puts the thirds at offsets of h*d*2
+    bytes: the kernels stage them element by element, and nothing raises or
+    is copied."""
+    H = 3
+    qkv = torch.zeros(2, 17, 3 * H * d, dtype=torch.bfloat16)
+    hd = H * d
+    thirds = dict(q=qkv[..., :hd], k=qkv[..., hd:2 * hd], v=qkv[..., 2 * hd:])
+    assert not fa._check_staging(d, torch.bfloat16, **thirds)
+    load_tile = re.search(r"void load_tile\(.*?\n\}", (CSRC / "flash_mma.cuh").read_text(),
+                          re.S).group(0)
+    assert "if ((d & 7) == 0) {" in load_tile  # cp.async chunks only where d % 8 == 0
+
+
+def test_kernel_widths_match_the_cuda_sources():
+    """The wrapper's width table is the CUDA sources': flash_mma.cuh's
+    kernel_width() (each d to the least width that holds it) and the
+    instantiations that both entry points dispatch to."""
+    header = (CSRC / "flash_mma.cuh").read_text()
+    body = re.search(r"constexpr int kernel_width\(int d\) \{(.*?)\}", header, re.S).group(1)
+    limit = int(re.search(r"constexpr int kMaxHeadDim = (\d+);", header).group(1))
+    steps = [int(n) for n in re.findall(r"d <= (\d+) \? \1", body)]
+    assert "d <= kMaxHeadDim ? kMaxHeadDim" in body
+    assert tuple(steps + [limit]) == fa.KERNEL_WIDTHS
+    assert limit == fa.MAX_HEAD_DIM
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        cases = re.findall(r"case (\d+): return launch<\1>", (CSRC / source).read_text())
+        assert tuple(int(c) for c in cases) == fa.KERNEL_WIDTHS, source
+
+
+# --- one pipeline-B step with the decoder repacked to 3 heads of 128 -------
+
+B, T, S = 2, 4, 32
+L = (S // 8) ** 2
+DIMS, DEPTHS, HEADS = (8, 16, 24, 32), (1, 1, 1, 1), (1, 2, 2, 2)
+
+
+def _perturb(v, seed):
+    """Every param moved off its init, BN statistics made non-trivial."""
+    rng = np.random.default_rng(seed)
+    flat = flatten_variables(jax.tree.map(np.asarray, v))
+    for key, a in flat.items():
+        if key.endswith("/mean"):
+            a = 0.3 * rng.standard_normal(a.shape)
+        elif key.endswith("/var"):
+            a = rng.uniform(0.5, 2.0, a.shape)
+        else:
+            a = a + 0.1 * rng.standard_normal(a.shape)
+        flat[key] = a.astype(np.float32)
+    return unflatten_variables(flat)
+
+
+def test_pipeline_b_step_with_the_d128_decoder_matches_jax():
+    """The decoder 384 wide with 3 heads (d = 128) and one block, fp32, the
+    JAX tube mask injected: loss, gradient norm, prediction std and every
+    gradient (Adam's first moment over 1 - b1) as JAX's step gives them."""
+    jax_model = JaxMAE(encoder=JaxTinyViT(embed_dims=DIMS, depths=DEPTHS, num_heads=HEADS,
+                                          use_checkpoint=False, drop_path_rate=0.0),
+                       clip_len=T, img_size=S, patch_size=8, decoder_embed_dim=384,
+                       decoder_depth=1, decoder_num_heads=3)
+    variables = _perturb(jax.jit(lambda k: jax_model.init(
+        k, jnp.zeros((B, T, S, S, 3)), jnp.zeros((B, T, L), bool)))(jax.random.key(0)), 1)
+    clip = np.random.default_rng(13).integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
+    key = jax.random.key(14)
+    jtx = jeng.wrap_accum_and_skip(jstate.make_optimizer(1e-3), accum_steps=1)
+    jst = jstate.create_train_state(jax.tree.map(jnp.asarray, variables["params"]), jtx,
+                                    batch_stats=jax.tree.map(jnp.asarray,
+                                                             variables["batch_stats"]))
+    new_jst, jm = jeng.make_pixel_mae_step(jax_model, jtx, mask_ratio=0.75)(
+        jst, {"clip": jnp.asarray(clip)}, key)
+    adam = [s for s in jax.tree_util.tree_leaves(
+        new_jst.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)][0]
+    ref_grads = {k: v.numpy() / 0.1 for k, v in mae_state_dict_from_flax(
+        {"params": jax.tree.map(np.asarray, adam.mu),
+         "batch_stats": new_jst.batch_stats}).items()}
+
+    port = TinyVideoMAE(TinyViT(embed_dims=DIMS, depths=DEPTHS, num_heads=HEADS,
+                                drop_path_rate=0.0, use_checkpoint=True, num_stages=3),
+                        clip_len=T, img_size=S, decoder_embed_dim=384, decoder_depth=1,
+                        decoder_num_heads=3)
+    assert port.decoder.blocks[0].attn.num_heads == 3
+    port.load_state_dict(mae_state_dict_from_flax(variables))
+    tx = teng.wrap_accum_and_skip(tstate.make_optimizer(port.parameters(), 1e-3), 1)
+    state = tstate.create_train_state(port, tx)
+    k_mask, _ = jax.random.split(key)  # as make_pixel_mae_step splits its key
+    mask = torch.from_numpy(np.array(jax_tube_mask(k_mask, B, T, L, 0.75)))
+    state, m = teng.make_pixel_mae_step(port, mask_ratio=0.75)(
+        state, {"clip": torch.from_numpy(clip)}, torch.Generator().manual_seed(0), mask=mask)
+    for name in ("loss", "grad_norm", "pred_std"):
+        assert float(m[name]) == pytest.approx(float(jm[name]), rel=1e-4), name
+    opt = tstate.adamw_of(tx).opt
+    gmax = max(float(np.abs(g).max()) for g in ref_grads.values())
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose((opt.state[p]["exp_avg"] / 0.1).numpy(), ref_grads[name],
+                                   rtol=1e-4, atol=1e-4 * gmax, err_msg=name)
+
+
+# --- the ported repack probe -------------------------------------------------
+
+def test_repack_probe_runs_both_arms_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The probe's compare() at toy widths (one encoder block a stage,
+    dims 24/48/96, the decoder 384 wide and 1 deep), 32x32 clips, 2 steps:
+    both arms print their lines with finite losses, then the summary; the
+    6x64 and 3x128 arms start from the same weights, so their first losses
+    are near each other."""
+    make_hard_synthetic_dataset(str(tmp_path), num_classes=2, videos_per_class=2,
+                                num_frames=4, image_size=32)
+    clips = probe.load_clips(str(tmp_path), image_size=32)
+    assert clips.shape == (4, 4, 32, 32, 3) and clips.dtype == np.uint8
+    monkeypatch.setattr(train_ssl_mae, "tiny_vit_21m_variant",
+                        functools.partial(train_ssl_mae.tiny_vit_21m_variant,
+                                          depths=(1, 1, 1, 1)))
+    out = probe.compare(clips, batch=2, steps=2, device=torch.device("cpu"),
+                        embed_dims=(24, 48, 96, 576), decoder_depth=1)
+    text = capsys.readouterr().out
+    for heads, d in ((6, 64), (3, 128)):
+        line = re.search(rf"\[heads={heads} d={d}\] ([\d.]+) ms/step \(([\d.]+) clips/s\) "
+                         r"loss (\S+) -> (\S+)", text)
+        assert line, text
+        assert all(math.isfinite(float(x)) for x in line.groups()), line.group(0)
+    assert "step time: 6x64" in text and "trajectory deviation" in text
+    assert np.isfinite(out["losses_6x64"]).all() and np.isfinite(out["losses_3x128"]).all()
+    assert out["losses_6x64"].shape == out["losses_3x128"].shape == (2,)
+    assert out["max_rel_dev"] < 0.5
+    if not torch.cuda.is_available():  # the refusal off the card stays, as in JAX
+        with pytest.raises(SystemExit, match="chip-only probe"):
+            probe.main(["--data", str(tmp_path)])
+
+
+# --- chip_smoke.py's phases 3-4 and 32 -----------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _flat(cfg, prefix=""):
+    out = {}
+    for key, value in cfg.items():
+        if isinstance(value, dict):
+            out.update(_flat(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def test_chip_smoke_holds_every_width_and_runs_the_repack_as_a_user_would():
+    """Phases 3-4 hold K1/K2 at a shape of every head dim the acceptance
+    names and build a bf16 kernel of each width; phase 32's run is phase 6's
+    with --set model.decoder_num_heads=3 and nothing else, and its calls
+    by head dim add up to the pipeline-B step's."""
+    cs = _chip_smoke()
+    dims = {shape[5] for shape in cs.KERNEL_SHAPES}
+    assert {16, 20, 24, 32, 40, 48, 64, 80, 96, 128, 256} <= dims
+    assert ("mae_decoder_h3", 4, 3136, 3136, 3, 128) in cs.KERNEL_SHAPES
+    assert ("temporal_d96", 48, 32, 32, 4, 96) in cs.KERNEL_SHAPES
+    assert cs.BF16_FLASH_KERNELS == 3 * len(fa.KERNEL_WIDTHS)
+    base = _flat(cs.ssl_mae_cfg("train.txt", "out"))
+    repack = _flat(cs.merged(cs.ssl_mae_cfg("train.txt", "out"), cs.REPACK_OVERRIDES))
+    assert {k for k in base.keys() | repack.keys() if base.get(k) != repack.get(k)} == {
+        "model.decoder_num_heads"}
+    assert (base["model.decoder_num_heads"], repack["model.decoder_num_heads"]) == (6, 3)
+    assert base["model.decoder_embed_dim"] // 3 == 128
+    by_d = cs.REPACK_CALLS_BY_D
+    assert (by_d["K1_d128"] + by_d["K1_d32"], by_d["K2_d128"] + by_d["K2_d32"]) == (
+        cs.K1_CALLS_PER_STEP, cs.K2_CALLS_PER_STEP)
+    assert {"train_ssl_mae_repack", "probe_decoder_repack"} <= set(cs.PATHS)

@@ -60,13 +60,23 @@ def _strided_qkv(dev, B, Lq, Lk, H, d, dtype, seed=0):
 # client step's 512 frames (16 clips x 32) and the privacy embedding's 256
 MOBILEVIT_FRAMES = [(n, L, L, 4, d) for n in (512, 256)
                     for L, d in ((196, 32), (64, 40), (16, 48))]
+# head dims past the four of the models' defaults: every kernel width
+# (csrc/flash_mma.cuh, kernel_width) and a d below each (16 and 20 run at
+# width 32, 80 at 96), odd ones (staged element by element), the decoder
+# repack (3 x 128) and pipeline A's temporal head at embed 384 (4 x 96)
+WIDE_AND_ODD = [(2, 196, 196, 2, 16), (3, 50, 50, 3, 20), (2, 17, 40, 2, 24),
+                (1, 33, 33, 1, 7), (2, 77, 77, 2, 80), (2, 32, 32, 4, 96),
+                (2, 100, 300, 3, 128), (1, 130, 5, 2, 100), (2, 65, 33, 2, 130),
+                (1, 70, 70, 2, 200), (2, 65, 129, 2, 256), (1, 1, 1, 1, 1)]
+# the head dims held at every tile edge
+EDGE_HEAD_DIMS = (1, 7, 16, 20, 24, 32, 40, 48, 64, 72, 80, 96, 100, 128, 130, 200, 256)
 
 
 @pytest.mark.parametrize("B,Lq,Lk,H,d", [
     (4, 196, 196, 4, 32), (4, 64, 64, 4, 40), (8, 16, 16, 4, 48),
     (2, 100, 300, 2, 64), (3, 65, 33, 3, 32), (1, 1, 1, 1, 40), (2, 7, 129, 2, 48),
     (3, 32, 32, 4, 64), (2, 49, 49, 18, 32), (2, 288, 288, 8, 64),
-    *MOBILEVIT_FRAMES,
+    *MOBILEVIT_FRAMES, *WIDE_AND_ODD,
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
@@ -87,8 +97,9 @@ def test_kernel_refuses_instead_of_falling_back(dev):
     q, k, v = _strided_qkv(dev, 1, 8, 8, 2, 32, torch.float32)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half(), 2)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_fwd(q, k, v, 4)  # d = 16 is not built
+    wide = torch.zeros(1, 8, 257, device=dev)
+    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
+        fa.flash_attention_fwd(wide, wide, wide, 1)
     with pytest.raises(ValueError, match="contiguous last dim"):
         t = torch.zeros(1, 64, 8, device=dev).transpose(1, 2)
         fa.flash_attention_fwd(t, k, v, 2)
@@ -122,7 +133,7 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor, scale: float = 0.0) -> float:
     (2, 196, 196, 3, 32), (2, 64, 64, 4, 40), (3, 100, 300, 2, 48), (2, 65, 33, 2, 64),
     (1, 1, 1, 1, 32), (2, 7, 129, 2, 64), (1, 130, 5, 3, 40),
     (3, 32, 32, 4, 64), (2, 49, 49, 18, 32), (2, 288, 288, 8, 64),
-    *MOBILEVIT_FRAMES[:3],
+    *MOBILEVIT_FRAMES[:3], *WIDE_AND_ODD,
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
@@ -150,12 +161,37 @@ def test_backward_kernel_refuses_instead_of_falling_back(dev):
     dout = torch.ones_like(out)
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half(), 2)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_bwd(q, k, v, out, torch.zeros(1, 8, 4, device=dev), dout, 4)
+    wide = torch.zeros(1, 8, 257, device=dev)
+    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
+        fa.flash_attention_bwd(wide, wide, wide, wide, torch.zeros(1, 8, 1, device=dev),
+                               wide, 1)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd(q, k, v, out, lse.double(), dout, 2)
     with pytest.raises(ValueError, match="must match q"):
         fa.flash_attention_bwd(q, k, v, out, lse, dout[:, :4], 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batches_past_65535(dev, dtype):
+    """(tile, head, batch row) are folded into grid.x: B = 65536 runs, and
+    its first and last rows agree with the plain versions of those rows."""
+    B, L, H, d = 65536, 5, 2, 32
+    q, k, v = _strided_qkv(dev, B, L, L, H, d, dtype, seed=5)
+    dout = torch.randn(B, L, H * d, device=dev).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, H)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, H)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for rows in (slice(0, 1), slice(B - 1, B)):
+        one = [t[rows].float() for t in (q, k, v)]
+        ref_out, ref_lse = fa.flash_attention_plain(*one, H)
+        torch.testing.assert_close(out[rows].float(), ref_out, atol=tol, rtol=0)
+        torch.testing.assert_close(lse[rows], ref_lse, atol=1e-4, rtol=0)
+        refs = fa.flash_attention_bwd_plain(*one, out[rows].float(), lse[rows],
+                                            dout[rows].float(), H)
+        scale = 1e-2 * max(float(r.abs().max()) for r in refs)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            assert _rel_err(got[rows], ref, scale) <= tol, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -196,7 +232,7 @@ EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 196)
 
 
 @pytest.mark.parametrize("Lq", EDGE_LENGTHS)
-@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", EDGE_HEAD_DIMS)
 def test_bf16_forward_at_tile_edges(dev, d, Lq):
     """K1 in bf16 (the tensor-core kernel) against the plain fp32 attention
     of the same bf16 inputs, strided qkv thirds, every Lk of the edges."""
@@ -212,7 +248,7 @@ def test_bf16_forward_at_tile_edges(dev, d, Lq):
 
 
 @pytest.mark.parametrize("Lq", EDGE_LENGTHS)
-@pytest.mark.parametrize("d", fa.SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", EDGE_HEAD_DIMS)
 def test_bf16_backward_at_tile_edges(dev, d, Lq):
     """K2 in bf16 (the tensor-core kernels) against the plain fp32 backward
     of the same bf16 inputs, strided qkv thirds, every Lk of the edges."""
@@ -235,7 +271,8 @@ def test_bf16_flash_kernels_run_on_the_tensor_cores(dev):
     """Every bf16 flash kernel's SASS holds bf16 tensor-core products
     (HMMA.16816.F32.BF16); the fp32 kernels hold none."""
     libs = kernel_build.build()
-    for lib, kernels in (("flash_fwd", 4), ("flash_bwd", 8)):
+    widths = len(fa.KERNEL_WIDTHS)
+    for lib, kernels in (("flash_fwd", widths), ("flash_bwd", 2 * widths)):
         counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path),
                                                 "HMMA.16816.F32.BF16")
         bf16 = {f: n for f, n in counts.items() if "bf16_kernel" in f}
