@@ -21,16 +21,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    kernel copies, and no P1 or P2 kernel may spill.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
    card, at the serving slice's shapes, at the pipeline-B shapes and at
-   every head dim past the models' own (16, 20, 24, 80, 96, 128, 256: the
-   kernels take 1..256, each at the least width built that holds it), in fp32
+   every head dim past the models' own (16, 20, 24, 80, 96, 128, 256: each
+   at the least width built that holds it; then 300, 384, 512 and 1024 on
+   the wide kernels, in chunks of 64 columns: the one-head decoders of
+   pipelines B and C among them), in fp32
    (TF32 off) and in bf16 (against the plain fp32 attention of the same
    bf16-rounded inputs): out to 1e-4 (fp32) or 2e-2 (bf16) of its largest
    magnitude, lse to the same numbers absolute; the
    time per call of each, of PyTorch's scaled_dot_product_attention on the
-   same inputs (and which of its backends ran), and the bound: the larger
+   same inputs (and which of its backends ran: its flash and cuDNN backends
+   stop at d = 256), and the bound: the larger
    of 4*B*H*Lq*Lk*d flops over the peak (989 TFLOP/s bf16, 67 fp32) and
-   the bytes in and out over 3.35 TB/s. Then a head dim of 257 must raise
-   in K1 and K2, with nothing launched (no fallback).
+   the bytes in and out over 3.35 TB/s. Then what the kernels do not take
+   must raise in K1 and K2, with nothing launched (no fallback): fp16, q/k/v
+   of mismatched shapes, a bf16 view off 16-byte alignment, and a grid of
+   2^31 CTAs or more (B = L = 2^16 at d = 1024, expanded from one row).
 4. K2 vs plain: the backward kernel against the plain fp32 backward of the
    same inputs (and K1's out and lse), at the same shapes, in fp32 (max abs
    error of each gradient over its max magnitude, tolerance 1e-4) and bf16
@@ -149,7 +154,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    decoder 512 wide, 2 blocks of 8 heads) at B=2 clips x 32 frames, the same
    weights, tube mask and drop-path decisions, fp32 and bf16, as phase 12
    (K1 22, K2 12 calls: 10 TinyViT layers, each recomputed once under remat,
-   and 2 decoder layers).
+   and 2 decoder layers). Then the same with mae.decoder.num_heads: 1 (one
+   head of 512: the decoder's 2 K1 and 2 K2 calls on the wide kernels).
 15. pipeline C: the port's entry.train_mae.run on configs/mae_train.yaml
    with the batch cut to 16 clips x 32 frames (the published 256 x 32 do not
    fit one card) and a checkpoint every epoch, bf16, resident split of 32
@@ -299,8 +305,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 32. decoder repack: entry.train_ssl_mae on configs/ssl_mae.yaml with
    --set model.decoder_num_heads=3 (the decoder's 6 heads of 64 as 3 of
    128; phase 6's split and departure), TRAIN_STEPS steps: per step the
-   loss (finite), step ms, K1/K2 20/12 and the K1/K2 calls by head dim (the
-   decoder's 4 layers at d = 128, REPACK_CALLS_BY_D); then the ported probe
+   loss (finite), step ms, peak memory, K1/K2 20/12 and the K1/K2 calls by
+   head dim (the decoder's 4 layers at d = 128); the same with --set
+   model.decoder_num_heads=1 (one head of 384: the decoder's 4 layers on
+   the wide kernels; REPACK_ARMS); then the ported probe
    scripts/probe_decoder_repack (6x64 against 3x128 from the same weights)
    on phase 31's hard fixture at batch 16 with REPACK_PROBE_STEPS steps an
    arm: its lines, both arms' ms a step and the trajectory deviation.
@@ -322,8 +330,11 @@ the in-process bridge, the MoE and long-clip pretraining, the augmented
 finetune, the runtime's data steps, seq steps, FedAvg round and
 expert, model and pipe steps, pipeline C's picture, visualize_mae, the
 export's live model, each entry call of the campaigns, the repacked
-pretraining and its probe, and the finetune and evaluate on the front
-end's packed store) is driven and read just after. The line before the
+pretraining at 3 heads and at 1 and its probe, and the finetune and
+evaluate on the front end's packed store) is driven and read just after.
+The wide kernels' launches (d > 256) are also counted apart, and the line
+of kernels lists them apart, their launches from the one-head repacked
+pretraining. The line before the
 last lists the kernels, each with its launches on every path, its time,
 the plain version's, the library call's and the bound; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest of
@@ -361,7 +372,8 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "campaign_train_ssl", "campaign_ft_ssl", "campaign_ft_random",
          "campaign_linear_probe", "campaign_run_privacy", "mae_evidence",
          "campaign_b_ft_ssl", "campaign_b_two_stage", "train_ssl_mae_repack",
-         "probe_decoder_repack", "train_finetune_packed", "evaluate_packed")
+         "train_ssl_mae_repack_h1", "probe_decoder_repack", "train_finetune_packed",
+         "evaluate_packed")
 
 # configs/dynamic.yaml, spelled out: the card's machine may lack yaml
 # (a CPU test holds these to the file)
@@ -494,12 +506,18 @@ CAMPAIGN_B_MODES = ("ft_ssl", "two_stage")
 MAE_EVIDENCE_EPOCHS, PRIVACY_GRID_ROWS = 1, 8 * 3
 # the campaign paths whose backbone is frozen or which train nothing: no K2
 CAMPAIGN_NO_K2 = ("campaign_linear_probe", "campaign_run_privacy")
-# phase 32: the decoder repack, --set model.decoder_num_heads=3 on phase 6's
-# run (6 heads of 64 become 3 of 128); per step the K1/K2 calls at each head
-# dim: the decoder's 4 layers (not checkpointed) at 128, the encoder's 8 at
-# 32 (K1 again in the checkpointed recompute)
-REPACK_OVERRIDES = {"model": {"decoder_num_heads": 3}}
-REPACK_CALLS_BY_D = {"K1_d128": 4, "K2_d128": 4, "K1_d32": 16, "K2_d32": 8}
+# phase 32: the decoder repack on phase 6's run, --set
+# model.decoder_num_heads=3 (6 heads of 64 become 3 of 128) and its far end,
+# =1 (one head of 384, the wide kernels): each arm's path, overrides and
+# K1/K2 calls a step at each head dim: the decoder's 4 layers (not
+# checkpointed) at 128 or 384, the encoder's 8 at 32 (K1 again in the
+# checkpointed recompute)
+REPACK_ARMS = {
+    "train_ssl_mae_repack": ({"model": {"decoder_num_heads": 3}},
+                             {"K1_d128": 4, "K2_d128": 4, "K1_d32": 16, "K2_d32": 8}),
+    "train_ssl_mae_repack_h1": ({"model": {"decoder_num_heads": 1}},
+                                {"K1_d384": 4, "K2_d384": 4, "K1_d32": 16, "K2_d32": 8}),
+}
 # the probe's steps an arm (its default 60, cut for the script's time)
 REPACK_PROBE_STEPS = 10
 # phase 33: videos as UCF101's (320x240, 25 fps, MJPG .avi) of a few classes,
@@ -559,7 +577,9 @@ K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
 # dims past the models' defaults: the decoder repack (phase 32, 3 x 128),
 # pipeline A's temporal head at embed 384 (4 x 96), one row at each of d =
 # 16, 20 (staged element by element), 24 and 80 at the serving length, and
-# the widest, d = 256
+# the widest width, d = 256; then the wide kernels: the one-head decoders
+# of pipelines B (phase 32, 1 x 384) and C (phase 14, 1 x 512), a d staged
+# element by element (300) and d = 1024
 KERNEL_SHAPES = [
     ("mvit1", 128, 196, 196, 4, 32),
     ("mvit2", 128, 64, 64, 4, 40),
@@ -593,13 +613,23 @@ KERNEL_SHAPES = [
     ("l196_d24", 128, 196, 196, 4, 24),
     ("l196_d80", 128, 196, 196, 4, 80),
     ("mae_decoder_d256", 4, 3136, 3136, 2, 256),
+    ("mae_decoder_h1", 4, 3136, 3136, 1, 384),
+    ("token_mae_decoder_h1", 16, 288, 288, 1, 512),
+    ("l196_d300", 128, 196, 196, 1, 300),
+    ("l784_d1024", 4, 784, 784, 1, 1024),
 ]
 TRAIN_SHAPES = ("tinyvit_stage1", "tinyvit_stage2", "mae_decoder")
+# the wide kernels' row on the line of kernels: phase 32's one-head decoder
+WIDE_SHAPE = "mae_decoder_h1"
+# pipeline C's one-head decoder (phase 14's second check), its K1/K2 calls
+# on the wide kernels a step (2 decoder layers)
+MAE_H1_OVERRIDES = {"mae": {"decoder": {"num_heads": 1}}}
+MAE_H1_WIDE_CALLS = (2, 2)
 HMMA_BF16 = "HMMA.16816.F32.BF16"
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # K1's bf16 kernel and K2's two, for each kernel width (flash_mma.cuh:
-# 32, 40, 48, 64, 96, 128, 256)
-BF16_FLASH_KERNELS = 3 * 7
+# 32, 40, 48, 64, 96, 128, 256) and the wide kernels
+BF16_FLASH_KERNELS = 3 * (7 + 1)
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # bf16 attention outputs of two implementations differ by up to ~7e-3 of
@@ -719,6 +749,8 @@ def counters() -> dict:
     from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
 
     return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+            "flash_attention_fwd_wide": fa.wide_launches,
+            "flash_attention_bwd_wide": fa.wide_bwd_launches,
             "dw3x3": depthwise.launches, "unary_chain": unary_chain.launches}
 
 
@@ -821,6 +853,7 @@ def phase_kernel(fa, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     train_rows = []
+    wide = {"max_abs_err": 0.0}  # the wide kernels' row of the line of kernels
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
         t_shape = time.perf_counter()
         hd = H * d
@@ -858,28 +891,48 @@ def phase_kernel(fa, dev) -> dict:
                                      f"{dtype}: out {rel_out} relative, lse {err_lse} > "
                                      f"{tol}")
             max_err = max(max_err, err_out, err_lse)
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound[0], "bound_by": bound[1]}
             if name in TRAIN_SHAPES and dtype == torch.bfloat16:
-                train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                                   "bound_ms": bound[0], "bound_by": bound[1]})
+                train_rows.append(row)
+            if d > fa.KERNEL_WIDTHS[-1]:
+                wide["max_abs_err"] = max(wide["max_abs_err"], err_out, err_lse)
+                if name == WIDE_SHAPE and dtype == torch.bfloat16:
+                    wide.update(row, sdpa_backend=sdpa_backend(qh, kh, vh))
             del lib_out
         shape_lap("K1", name, t_shape)
-    # no fallback to the plain version: a head dim past the kernels' range
-    # raises on the card, and nothing is launched
-    wide = torch.zeros(1, 8, fa.MAX_HEAD_DIM + 1, device=dev)
-    before = (fa.launches.count, fa.bwd_launches.count)
+    refuses(fa, dev)
+    return {"max_abs_err": max_err, **summed(train_rows), "wide": wide}
+
+
+def refuses(fa, dev) -> None:
+    """No fallback to the plain version: what the kernels do not take
+    raises in K1 and K2 on the card (fp16, mismatched shapes, a bf16 view
+    off 16-byte alignment, a grid of 2^31 CTAs or more at d = 1024), and
+    nothing is launched."""
+    import torch
+
+    x = torch.zeros(1, 8, 64, device=dev)
+    lse = torch.zeros(1, 8, 1, device=dev)
+    off = torch.zeros(1, 8, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
+    big = torch.zeros(1, 1, 1024, device=dev).expand(2**16, 2**16, 1024)
+    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**16, 2**16, 1)
+    cases = {"dtype": (TypeError, (x.half(),) * 3, lse),
+             "shape": (ValueError, (x, x[:, :4], x), lse),
+             "alignment": (ValueError, (off,) * 3, lse),
+             "grid": (ValueError, (big,) * 3, big_lse)}
+    before = read_counts()
     refusals = {}
-    for kernel, call in (("K1", lambda: fa.flash_attention_fwd(wide, wide, wide, 1)),
-                         ("K2", lambda: fa.flash_attention_bwd(
-                             wide, wide, wide, wide, torch.zeros(1, 8, 1, device=dev), wide,
-                             1))):
-        try:
-            call()
-        except ValueError as e:
-            refusals[kernel] = str(e)
-    emit({"phase": "kernel_refuses", "d": fa.MAX_HEAD_DIM + 1, "errors": refusals})
-    if set(refusals) != {"K1", "K2"} or (fa.launches.count, fa.bwd_launches.count) != before:
-        raise AssertionError(f"a head dim above {fa.MAX_HEAD_DIM} did not raise: {refusals}")
-    return {"max_abs_err": max_err, **summed(train_rows)}
+    for case, (exc, (q, k, v), stats) in cases.items():
+        for kernel, call in (("K1", lambda: fa.flash_attention_fwd(q, k, v, 1)),
+                             ("K2", lambda: fa.flash_attention_bwd(q, k, v, q, stats, q, 1))):
+            try:
+                call()
+            except exc as e:
+                refusals[f"{kernel}_{case}"] = str(e)
+    emit({"phase": "kernel_refuses", "errors": refusals})
+    if len(refusals) != 2 * len(cases) or read_counts() != before:
+        raise AssertionError(f"the kernels took what they must refuse: {refusals}")
 
 
 def phase_build() -> dict:
@@ -970,6 +1023,7 @@ def phase_backward(fa, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     max_abs, max_rel = 0.0, 0.0
     train_rows = []
+    wide = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for name, B, Lq, Lk, H, d in KERNEL_SHAPES:
         t_shape = time.perf_counter()
         hd = H * d
@@ -1010,12 +1064,19 @@ def phase_backward(fa, dev) -> dict:
                 raise AssertionError(f"K2 disagrees with the plain backward at {name} "
                                      f"{dtype}: {errs} > {tol}")
             max_abs, max_rel = max(max_abs, abs_err), max(max_rel, *errs.values())
+            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound[0], "bound_by": bound[1]}
             if name in TRAIN_SHAPES and dtype == torch.bfloat16:
-                train_rows.append({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                                   "bound_ms": bound[0], "bound_by": bound[1]})
+                train_rows.append(row)
+            if d > fa.KERNEL_WIDTHS[-1]:
+                wide.update(max_abs_err=max(wide["max_abs_err"], abs_err),
+                            max_rel_err=max(wide["max_rel_err"], *errs.values()))
+                if name == WIDE_SHAPE and dtype == torch.bfloat16:
+                    wide.update(row, sdpa_backend=backend)
             del grads, refs, lib_out, leaves, views
         shape_lap("K2", name, t_shape)
-    return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows)}
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel, **summed(train_rows),
+            "wide": wide}
 
 
 def phase_longclip_kernels(fa, dev, shape: tuple) -> dict:
@@ -1677,7 +1738,9 @@ def compare_impls(model, run, want_k1_k2: tuple, record: dict) -> dict:
         torch.cuda.synchronize()
         counts = read_counts()
         res[impl] = {"loss": float(loss), "grads": grads, "ms": 1e3 * (time.perf_counter() - t0),
-                     "k1_k2": (counts["flash_attention_fwd"], counts["flash_attention_bwd"])}
+                     "k1_k2": (counts["flash_attention_fwd"], counts["flash_attention_bwd"]),
+                     "wide_k1_k2": (counts["flash_attention_fwd_wide"],
+                                    counts["flash_attention_bwd_wide"])}
     set_attn_impl(model, "kernel")
     model.load_state_dict(start)
     if res["kernel"]["k1_k2"] != want_k1_k2 or res["plain"]["k1_k2"] != (0, 0):
@@ -2107,10 +2170,13 @@ def phase_ssl_train(dev, tmp: str) -> dict:
     return rec.totals
 
 
-def phase_mae_step(dev, seed: int = 7) -> list[dict]:
+def phase_mae_step(dev, seed: int = 7, overrides: dict | None = None,
+                   wide_k1_k2: tuple = (0, 0)) -> list[dict]:
     """Pipeline C's loss and gradients at full width through the kernels
     and through the plain versions; ``seed`` draws the clips, the token
-    mask and the drop-path decisions."""
+    mask and the drop-path decisions; ``overrides`` go over the config, and
+    the kernel runs must make ``wide_k1_k2`` of their calls on the wide
+    kernels."""
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.masking import get_mask_ratio, make_token_mask
@@ -2122,7 +2188,7 @@ def phase_mae_step(dev, seed: int = 7) -> list[dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = mae_train_cfg("", "")
+    cfg = merged(mae_train_cfg("", ""), overrides or {})
     mae = cfg["mae"]
     B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
     P = mae["stage4_pool"] ** 2
@@ -2140,11 +2206,16 @@ def phase_mae_step(dev, seed: int = 7) -> list[dict]:
             drop = model.draw_drop_path(B, T, g)
         clip = normalize_clip(clip_u8, dtype=dtype)
         names, params = zip(*model.named_parameters())
-        out = {"phase": "mae_step_kernel_vs_plain", "B": B, "T": T, "seed": seed}
+        out = {"phase": "mae_step_kernel_vs_plain", "B": B, "T": T, "seed": seed,
+               "decoder_num_heads": mae["decoder"]["num_heads"]}
         res = compare_impls(model, lambda: token_mae_loss_and_grads(
             model, list(params), clip, mask, drop, loss_fn)[::3], (MAE_K1_CALLS, MAE_K2_CALLS),
             out)
+        out["wide_k1_k2"] = list(res["kernel"]["wide_k1_k2"])
         outs.append(judge_step(out, dtype, res, list(names), ref32))
+        if res["kernel"]["wide_k1_k2"] != tuple(wide_k1_k2):
+            raise AssertionError(f"pipeline C step: wide kernel calls {out['wide_k1_k2']}, "
+                                 f"want {list(wide_k1_k2)}")
         del model, res
     return outs
 
@@ -3501,61 +3572,19 @@ def phase_campaigns(tmp: str) -> dict:
 
 def phase_repack(dev, tmp: str, split: str) -> dict:
     """Phase 32: the decoder repack through entry.train_ssl_mae (phase 6's
-    config and split with REPACK_OVERRIDES), then the ported probe on phase
-    31's hard fixture. Returns both paths' launches."""
+    config and split with each arm's overrides of REPACK_ARMS: 3 heads of
+    128, then 1 of 384), then the ported probe on phase 31's hard fixture.
+    Returns the three paths' launches."""
     import contextlib
     import io
 
     import torch
 
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_hard_synthetic_dataset
-    from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
-    from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
     from ssl_vit_video_analytics_tpu_torch.scripts import probe_decoder_repack
 
-    B = SSL_MAE_YAML["training"]["batch_size"]
-    cfg = merged(ssl_mae_cfg(split, os.path.join(tmp, "repack_out")), REPACK_OVERRIDES)
-    calls = {}
-    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
-
-    def fwd_by_d(q, k, v, num_heads):
-        key = f"K1_d{q.shape[2] // num_heads}"
-        calls[key] = calls.get(key, 0) + 1
-        return fwd(q, k, v, num_heads)
-
-    def bwd_by_d(q, k, v, out, lse, dout, num_heads):
-        key = f"K2_d{q.shape[2] // num_heads}"
-        calls[key] = calls.get(key, 0) + 1
-        return bwd(q, k, v, out, lse, dout, num_heads)
-
-    def by_d(metrics, state, row):
-        out = {"calls_by_d": dict(calls)}
-        calls.clear()
-        return out
-
-    rec = StepRecorder(B, "repack_train_step", extra=by_d)
-    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd_by_d, bwd_by_d
-    try:
-        rec.start()
-        t0 = time.perf_counter()
-        out = train_ssl_mae.run(cfg, log=rec.lines.append, max_steps=TRAIN_STEPS,
-                                on_step=rec.on_step)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
-    rec.take_counts()
-    timed = [s["step_ms"] for s in rec.steps if not s["includes_setup"]]
-    summary = {"phase": "repack_train", "decoder_num_heads": 3, "steps": out["steps"],
-               "seconds": seconds, "last_loss": out["last_loss"],
-               "step_ms_median": sorted(timed)[len(timed) // 2] if timed else None,
-               "launches": rec.totals, "log": rec.lines[-2:]}
-    emit(summary)
-    bad = [s for s in rec.steps if (s["k1_calls"], s["k2_calls"], s["calls_by_d"])
-           != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, REPACK_CALLS_BY_D)]
-    if out["steps"] != TRAIN_STEPS or bad or not all(math.isfinite(s["loss"])
-                                                     for s in rec.steps):
-        raise AssertionError(f"repack: {out['steps']} steps; calls or losses off in {bad}")
+    paths = {path: repack_train(split, os.path.join(tmp, path), path, overrides, calls_by_d)
+             for path, (overrides, calls_by_d) in REPACK_ARMS.items()}
 
     # the probe, from the repo root as a user runs it, on phase 31's fixture
     # (made again, the same clips, where phase 31 did not run)
@@ -3586,7 +3615,70 @@ def phase_repack(dev, tmp: str, split: str) -> dict:
             and lines[1].startswith("[heads=3 d=128]") and all(map(math.isfinite, losses))
             and probe_launches["flash_attention_fwd"] and probe_launches["flash_attention_bwd"]):
         raise AssertionError(f"repack probe: {probe}")
-    return {"train_ssl_mae_repack": rec.totals, "probe_decoder_repack": probe_launches}
+    return {**paths, "probe_decoder_repack": probe_launches}
+
+
+def repack_train(split: str, save_dir: str, path: str, overrides: dict,
+                 calls_by_d: dict) -> dict:
+    """One arm of phase 32: entry.train_ssl_mae on phase 6's config and
+    split with ``overrides``, TRAIN_STEPS steps, each holding K1/K2 20/12,
+    ``calls_by_d`` of them by head dim, its calls above d = 256 on the wide
+    kernels, and a finite loss. Returns the run's launches."""
+    import torch
+
+    from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+    from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+
+    B = SSL_MAE_YAML["training"]["batch_size"]
+    cfg = merged(ssl_mae_cfg(split, save_dir), overrides)
+    calls = {}
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def fwd_by_d(q, k, v, num_heads):
+        key = f"K1_d{q.shape[2] // num_heads}"
+        calls[key] = calls.get(key, 0) + 1
+        return fwd(q, k, v, num_heads)
+
+    def bwd_by_d(q, k, v, out, lse, dout, num_heads):
+        key = f"K2_d{q.shape[2] // num_heads}"
+        calls[key] = calls.get(key, 0) + 1
+        return bwd(q, k, v, out, lse, dout, num_heads)
+
+    def by_d(metrics, state, row):
+        out = {"calls_by_d": dict(calls)}
+        calls.clear()
+        return out
+
+    rec = StepRecorder(B, f"{path}_step", extra=by_d)
+    fa.flash_attention_fwd, fa.flash_attention_bwd = fwd_by_d, bwd_by_d
+    try:
+        rec.start()
+        t0 = time.perf_counter()
+        out = train_ssl_mae.run(cfg, log=rec.lines.append, max_steps=TRAIN_STEPS,
+                                on_step=rec.on_step)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = fwd, bwd
+    rec.take_counts()
+    timed = [s["step_ms"] for s in rec.steps if not s["includes_setup"]]
+    summary = {"phase": path, "decoder_num_heads": cfg["model"]["decoder_num_heads"],
+               "steps": out["steps"], "seconds": seconds, "last_loss": out["last_loss"],
+               "step_ms_median": sorted(timed)[len(timed) // 2] if timed else None,
+               "max_memory_allocated_gb": max((s["max_memory_allocated_gb"] for s in rec.steps),
+                                              default=None),
+               "launches": rec.totals, "log": rec.lines[-2:]}
+    emit(summary)
+    wide = sum(n for key, n in calls_by_d.items() if int(key.split("_d")[1]) > 256)
+    bad = [s for s in rec.steps if (s["k1_calls"], s["k2_calls"], s["calls_by_d"])
+           != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, calls_by_d)]
+    wide_ok = (rec.totals["flash_attention_fwd_wide"] + rec.totals["flash_attention_bwd_wide"]
+               == wide * TRAIN_STEPS)
+    if out["steps"] != TRAIN_STEPS or bad or not wide_ok or not all(
+            math.isfinite(s["loss"]) for s in rec.steps):
+        raise AssertionError(f"{path}: {out['steps']} steps, wide launches "
+                             f"{rec.totals}; calls or losses off in {bad}")
+    return rec.totals
 
 
 def write_videos(root: str) -> int:
@@ -3798,6 +3890,7 @@ def main() -> None:
         return
     k1 = phase_kernel(fa, dev)
     k2 = phase_backward(fa, dev)
+    k1_wide, k2_wide = k1.pop("wide"), k2.pop("wide")
     lap("kernels")
     longclip = {shape[0]: phase_longclip_kernels(fa, dev, shape)
                 for shape in LONGCLIP_SHAPES + TP_SHAPES}
@@ -3821,6 +3914,7 @@ def main() -> None:
         phase_ssl_step(dev)
         paths["train_ssl"] = phase_ssl_train(dev, tmp)
         phase_mae_step(dev)
+        phase_mae_step(dev, overrides=MAE_H1_OVERRIDES, wide_k1_k2=MAE_H1_WIDE_CALLS)
         paths.update(phase_mae_train(dev, tmp))
         lap("pipelines A and C")
         phase_fed_client_step(dev)
@@ -3862,6 +3956,9 @@ def main() -> None:
     ms_is = ("sum over the pipeline-B shapes (tinyvit_stage1, tinyvit_stage2, "
              "mae_decoder) in bf16, one call each; library: "
              "torch.nn.functional.scaled_dot_product_attention")
+    wide_is = (f"{WIDE_SHAPE} (the one-head decoder of --set model.decoder_num_heads=1, "
+               f"d = 384) in bf16, one call; library: "
+               f"torch.nn.functional.scaled_dot_product_attention")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [
@@ -3875,6 +3972,18 @@ def main() -> None:
          "launches_by_path": by_path("flash_attention_bwd"), **k2,
          "ms_is": ms_is + " (backward, autograd.grad)",
          **{name: t["bwd"] for name, t in longclip.items()}},
+        {"name": "flash_attention_fwd_wide", "route": "cuda", "source": K1_SOURCE,
+         "replaces": K1_TPU,
+         "launches": paths["train_ssl_mae_repack_h1"]["flash_attention_fwd_wide"],
+         "launches_by_path": by_path("flash_attention_fwd_wide"), **k1_wide,
+         "ms_is": wide_is, "max_abs_err_is": "over phase 3's shapes above d = 256"},
+        {"name": "flash_attention_bwd_wide", "route": "cuda", "source": K2_SOURCE,
+         "replaces": K2_TPU,
+         "launches": paths["train_ssl_mae_repack_h1"]["flash_attention_bwd_wide"],
+         "launches_is": "calls, each launching the wide dK/dV and dQ kernels",
+         "launches_by_path": by_path("flash_attention_bwd_wide"), **k2_wide,
+         "ms_is": wide_is + " (backward, autograd.grad)",
+         "max_abs_err_is": "over phase 4's shapes above d = 256"},
         {"name": "dw3x3", "route": "cuda", "source": P1_SOURCE, "replaces": P1_TPU,
          "launches": paths["probe_dw"]["dw3x3"], "launches_by_path": by_path("dw3x3"),
          **p1, "ms_is": "bf16 [256, 56*56, 384], one call; library: cuDNN grouped "

@@ -6,9 +6,10 @@
 // (q/k/v are [B, L, H*d], head h owns columns [h*d, (h+1)*d)), writing
 // `out` [B, Lq, H*d] in the input dtype and the per-row logsumexp of the
 // scaled logits `lse` [B, Lq, H] in fp32 (the backward kernel reads it).
-// Like the JAX kernel it takes any head dim (here 1..256): each kernel is
-// built for a width DP and runs every d up to it (flash_mma.cuh,
-// kernel_width), with the scale 1/sqrt(d) of the real d from the wrapper.
+// Like the JAX kernel it takes any head dim: up to 256 each kernel is built
+// for a width DP and runs every d up to it (flash_mma.cuh, kernel_width);
+// above 256 the wide kernels below run it in chunks of 64 columns. The
+// scale 1/sqrt(d) is that of the real d, from the wrapper.
 //
 // Both kernels walk K/V in tiles with an ONLINE softmax (running max and
 // sum in fp32), so any Lk fits; the TPU kernel kept all of K/V resident in
@@ -45,6 +46,24 @@
 //   that a thread's share of q and of the output stays in 128 registers.
 //   TF32 tensor-core products would miss the 1e-4 to which the fp32
 //   training step is held against the plain path.
+//
+// Wide heads, d > 256 (flash_fwd_wide_{bf16,fp32}_kernel, one instantiation
+// each at flash_mma::kWideCols = 64): the JAX kernel runs one head per
+// matmul there. Here d is cut into nc = ceil(d / 64) chunks. A CTA owns one
+// 64-column block of `out` for its query rows. For each key tile it sums S
+// = sum_c Q_c K_c^T over the chunks c, each staged in shared memory, runs
+// the online softmax, then stages its own 64 columns of V for O += P V.
+// Nothing wider than one chunk is held in registers or shared memory, so
+// any d runs (36 KB of static shared memory in bf16, 8 KB in fp32). The
+// price: the nc CTAs of a query tile each recompute all of S, nc times the
+// QK^T work of one pass (at d = 384, 6 S products for every P V; at 1024,
+// 16). Every block computes the same row max and sum; block 0 alone writes
+// `lse`. bf16: 4 warps, 64-row query tiles, 64-key tiles; each key tile
+// takes nc + 1 steps of a 2-stage cp.async pipeline (nc Q/K chunk pairs,
+// then V), so the copy of each step overlaps the products of the one
+// before. fp32: 128 threads, 4 a query row (32 rows a CTA), 32-key tiles;
+// q's chunk goes into registers, K's chunk and then V's block through one
+// shared tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -322,6 +341,268 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// fp32 wide heads: threads, threads per query row, query rows and keys of
+// a CTA's tiles
+struct WideFp32 {
+  static constexpr int kThreads = 128;
+  static constexpr int kSplit = 4;
+  static constexpr int kRows = kThreads / kSplit;
+  static constexpr int kKeys = 32;
+};
+
+template <int W>
+__global__ void __launch_bounds__(WideFp32::kThreads)
+flash_fwd_wide_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out,
+                           float* __restrict__ lse, int Lq, int Lk, int H, int d,
+                           int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
+                           int64_t v_sb, int64_t v_sl, float scale) {
+  using C = WideFp32;
+  constexpr int kCols = W / C::kSplit;    // columns of a chunk a thread owns
+  __shared__ float ks[C::kKeys][W];       // a chunk of K, then this block's V
+
+  const int tid = threadIdx.x;
+  const int part = tid % C::kSplit;  // this thread's columns: kSplit * t + part
+  const int nc = (d + W - 1) / W;    // chunks of d, and column blocks of out
+  const GridIdx g = flash_mma::grid_idx((Lq + C::kRows - 1) / C::kRows * nc, H);
+  const int cb = g.tile % nc;
+  const int row = g.tile / nc * C::kRows + tid / C::kSplit;
+  const int h = g.h;
+  const int64_t b = g.b;
+  // rows past Lq compute on a copy of the last row and write nothing
+  const int64_t qrow = row < Lq ? row : Lq - 1;
+  const float* qp = q + b * q_sb + qrow * q_sl + h * d;
+  const float* kb = k + b * k_sb + h * d;
+  const float* vb = v + b * v_sb + h * d + cb * W;
+  const int ocols = min(W, d - cb * W);  // this block's columns of out
+
+  float acc[kCols];
+#pragma unroll
+  for (int t = 0; t < kCols; ++t) acc[t] = 0.f;
+  float m = -INFINITY;  // running max of the logits
+  float l = 0.f;        // running sum of exp(logit - m)
+
+  for (int k0 = 0; k0 < Lk; k0 += C::kKeys) {
+    // this thread's partial logits over its columns of every chunk of d
+    float s[C::kKeys];
+#pragma unroll
+    for (int j = 0; j < C::kKeys; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += W) {
+      float qr[kCols];
+#pragma unroll
+      for (int t = 0; t < kCols; ++t) {
+        const int c = c0 + C::kSplit * t + part;
+        qr[t] = c < d ? qp[c] * scale : 0.f;
+      }
+      __syncthreads();  // every thread is done with the previous tile
+      for (int e = tid; e < C::kKeys * W; e += C::kThreads) {
+        const int j = e / W;
+        const int c = e - j * W;
+        const int64_t key = k0 + j;
+        ks[j][c] = key < Lk && c0 + c < d ? kb[key * k_sl + c0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < C::kKeys; ++j)
+#pragma unroll
+        for (int t = 0; t < kCols; ++t) s[j] = fmaf(qr[t], ks[j][C::kSplit * t + part], s[j]);
+    }
+
+    // every tile holds at least one key < Lk, so tile_max is finite
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < C::kKeys; ++j) {
+      const float dot = row_sum<C::kSplit>(s[j]);
+      s[j] = (k0 + j < Lk) ? dot : -INFINITY;
+      tile_max = fmaxf(tile_max, s[j]);
+    }
+    const float m_new = fmaxf(m, tile_max);
+    const float alpha = expf(m - m_new);  // 0 on the first tile
+    l *= alpha;
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) acc[t] *= alpha;
+
+    __syncthreads();
+    for (int e = tid; e < C::kKeys * W; e += C::kThreads) {
+      const int j = e / W;
+      const int c = e - j * W;
+      const int64_t key = k0 + j;
+      ks[j][c] = key < Lk && c < ocols ? vb[key * v_sl + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < C::kKeys; ++j) {
+      const float p = expf(s[j] - m_new);  // masked keys give exp(-inf) = 0
+      l += p;
+#pragma unroll
+      for (int t = 0; t < kCols; ++t) acc[t] = fmaf(p, ks[j][C::kSplit * t + part], acc[t]);
+    }
+    m = m_new;
+  }
+
+  if (row < Lq) {
+    const float inv = 1.f / l;
+    float* op = out + (b * Lq + row) * (int64_t)H * d + h * d + cb * W;
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) {
+      const int c = C::kSplit * t + part;
+      if (c < ocols) op[c] = acc[t] * inv;
+    }
+    if (cb == 0 && part == 0) lse[(b * Lq + row) * H + h] = m + logf(l);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(flash_mma::kThreads)
+flash_fwd_wide_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse, int Lq, int Lk, int H, int d,
+                           int64_t q_sb, int64_t q_sl, int64_t k_sb, int64_t k_sl,
+                           int64_t v_sb, int64_t v_sl, float scale) {
+  using namespace flash_mma;
+  using P = Dims<W>;
+  constexpr int kKeys = kTile;   // keys per tile
+  constexpr int kN = kKeys / 8;  // n8 tiles of keys
+  // stage st: a chunk of Q in [st][0] and of K in [st][1], or V's block in [st][1]
+  __shared__ __align__(16) bf16 smem[2][2][P::kTileElems];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nc = (d + W - 1) / W;  // chunks of d, and column blocks of out
+  const GridIdx g = grid_idx((Lq + kTile - 1) / kTile * nc, H);
+  const int cb = g.tile % nc;
+  const int q0 = g.tile / nc * kTile;
+  const int h = g.h;
+  const int64_t b = g.b;
+  const bool vec = (d & 7) == 0;
+  const bf16* qb = q + b * q_sb + q0 * q_sl + h * d;
+  const bf16* kb = k + b * k_sb + h * d;
+  const bf16* vb = v + b * v_sb + h * d + cb * W;
+  const int qrows = min(kTile, Lq - q0);
+  const int ocols = min(W, d - cb * W);  // this block's columns of out
+  const int per = nc + 1;                // steps per key tile
+  const int steps = (Lk + kKeys - 1) / kKeys * per;
+
+  // issue the copies of step `i` into stage st: step c < nc of a key tile
+  // stages chunk c of Q and K, step nc V's block
+  auto issue = [&](int i, int st) {
+    const int n = i / per, c = i - n * per;
+    const int k0 = n * kKeys, rows = min(kKeys, Lk - k0);
+    if (c < nc) {
+      const int cols = min(W, d - c * W);
+      load_chunk<W, kTile>(smem[st][0], qb + c * W, q_sl, qrows, cols, vec);
+      load_chunk<W, kKeys>(smem[st][1], kb + k0 * k_sl + c * W, k_sl, rows, cols, vec);
+    } else {
+      load_chunk<W, kKeys>(smem[st][1], vb + k0 * v_sl, v_sl, rows, ocols, vec);
+    }
+  };
+
+  const float sl2 = scale * kLog2e;  // logits -> base-2 exponents
+  float o[P::kN8][4] = {};
+  float s[kN][4];
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (base 2)
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  issue(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < steps; ++i) {
+    const int st = i & 1;
+    if (i + 1 < steps) {
+      issue(i + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int n = i / per, c = i - n * per;
+    if (c < nc) {
+      // S += Q_c K_c^T for this warp's 16 rows and the tile's keys
+      if (c == 0) {
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kN / 2; ++j)
+        mma_abt_s<W>(s[2 * j], s[2 * j + 1], smem[st][0], warp * 16, smem[st][1], 16 * j);
+    } else {
+      const int kbase = n * kKeys;
+      if (kbase + kKeys > Lk) {  // the ragged last tile: keys >= Lk to -inf
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kbase + nt * 8 + 2 * (lane & 3) + (e & 1) >= Lk) s[nt][e] = -INFINITY;
+      }
+
+      // online softmax; every tile holds a key < Lk, so the max is finite
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < kN; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * sl2);
+        alpha[r] = ex2(m[r] - m_new);  // 0 on the first tile
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < P::kN8; ++nt) {
+        o[nt][0] *= alpha[0];
+        o[nt][1] *= alpha[0];
+        o[nt][2] *= alpha[1];
+        o[nt][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[nt][e], sl2, -m[e >> 1]));  // masked: ex2(-inf) = 0
+          s[nt][e] = p;
+          l[e >> 1] += p;
+        }
+
+      // O += P V over this block's columns, P rounded to bf16 from the S
+      // accumulators
+#pragma unroll
+      for (int j = 0; j < kN / 2; ++j) {
+        if (kbase + 16 * j < Lk) {
+          uint32_t a[4];
+          acc_to_a(a, s[2 * j], s[2 * j + 1]);
+          mma_at<W, P::kN8>(o, a, smem[st][1], 16 * j);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+  }
+  const int row0 = q0 + warp * 16;
+  const int64_t ld = static_cast<int64_t>(H) * d;
+  store_rows<P::kN8>(out + b * Lq * ld + h * d, ld, row0, Lq, o, inv[0], inv[1], d, cb * W);
+  if (cb == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + (lane >> 2) + 8 * r;
+      if (row < Lq) lse[(b * Lq + row) * H + h] = m[r] * kLn2 + logf(l[r]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   void* out;
@@ -332,9 +613,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-// (tiles x H x B) CTAs in grid.x, or 0 past its 2^31 - 1
-inline unsigned grid_x(int L, int rows, const Args& a) {
-  const int64_t n = static_cast<int64_t>((L + rows - 1) / rows) * a.H * a.B;
+// (tiles x split x H x B) CTAs in grid.x, or 0 past its 2^31 - 1
+inline unsigned grid_x(int L, int rows, const Args& a, int split = 1) {
+  const int64_t n = static_cast<int64_t>((L + rows - 1) / rows) * split * a.H * a.B;
   return n <= 0x7fffffff ? static_cast<unsigned>(n) : 0u;
 }
 
@@ -371,12 +652,38 @@ int launch(int dtype, const Args& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// d > 256: the wide kernels, one CTA per column block of 64 of each row tile
+int launch_wide(int dtype, const Args& a) {
+  constexpr int W = flash_mma::kWideCols;
+  const int nc = (a.d + W - 1) / W;
+  if (dtype == 0) {
+    const unsigned grid = grid_x(a.Lq, WideFp32::kRows, a, nc);
+    if (!grid) return static_cast<int>(cudaErrorInvalidConfiguration);
+    flash_fwd_wide_fp32_kernel<W><<<grid, WideFp32::kThreads, 0, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Lq, a.Lk, a.H,
+        a.d, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == 1) {
+    const unsigned grid = grid_x(a.Lq, flash_mma::kTile, a, nc);
+    if (!grid) return static_cast<int>(cudaErrorInvalidConfiguration);
+    flash_fwd_wide_bf16_kernel<W><<<grid, flash_mma::kThreads, 0, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Lq, a.Lk, a.H, a.d,
+        a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// head_dim: any d in 1..256; where d is a multiple of 8, bf16 q, k and v
-// must be 16-byte aligned with strides of whole 16-byte chunks, as the
-// wrapper checks. Strides are in elements. Returns the launch's cudaError_t.
+// head_dim: any d >= 1 (above 256 the wide kernels); where d is a multiple
+// of 8, bf16 q, k and v must be 16-byte aligned with strides of whole
+// 16-byte chunks, as the wrapper checks. Strides are in elements. Returns
+// the launch's cudaError_t.
 extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v, void* out, void* lse, int B,
                                  int Lq, int Lk, int H, int64_t q_sb, int64_t q_sl,
                                  int64_t k_sb, int64_t k_sl, int64_t v_sb, int64_t v_sl,
@@ -392,7 +699,9 @@ extern "C" int ssl_vit_flash_fwd(int dtype, int head_dim, const void* q, const v
     case 96: return launch<96>(dtype, a);
     case 128: return launch<128>(dtype, a);
     case 256: return launch<256>(dtype, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return head_dim > flash_mma::kMaxHeadDim ? launch_wide(dtype, a)
+                                               : static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

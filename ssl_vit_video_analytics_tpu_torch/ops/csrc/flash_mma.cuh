@@ -30,6 +30,13 @@
 // of 16 bytes, so the 8 rows that one `ldmatrix` 8x8 matrix reads start in
 // 8 distinct groups of 4 banks, and it reads without bank conflicts. Tiles
 // live in dynamic shared memory (above 48 KB from DP = 96 on).
+//
+// Wide heads (d > kMaxHeadDim): no width is built for them. Their kernels
+// (flash_fwd.cu, flash_bwd.cu: the *_wide_* kernels) cut d into chunks of
+// kWideCols columns, staged one at a time as tiles of width kWideCols
+// (load_chunk), and a CTA owns one such column block of its output: S and
+// dP sum over every chunk of d, the outputs O, dV, dK and dQ split by
+// column, so nothing wider than one chunk is ever held.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +49,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;  // 128
 constexpr int kTile = 64;              // rows of a staged tile, 16 per warp
 constexpr int kMaxHeadDim = 256;
+constexpr int kWideCols = 64;  // the chunk of d, and column block, of a wide head
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -58,8 +66,8 @@ struct Dims {
 };
 
 // The width a head dim d (1..256) runs at: the least that holds it; 0 for
-// a d no kernel takes. The wrapper (ops/flash_attention.py,
-// KERNEL_WIDTHS) holds the same table.
+// a d that no width takes (above 256 the wide kernels run it). The wrapper
+// (ops/flash_attention.py, KERNEL_WIDTHS) holds the same table.
 __host__ __device__ constexpr int kernel_width(int d) {
   return d < 1 ? 0 : d <= 32 ? 32 : d <= 40 ? 40 : d <= 48 ? 48 : d <= 64 ? 64
        : d <= 96 ? 96 : d <= 128 ? 128 : d <= kMaxHeadDim ? kMaxHeadDim : 0;
@@ -211,6 +219,37 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ld
       const int r = e / d;
       const int c = e - r * d;
       dst[r * P::kStride + c] = r < valid ? src[r * ld + c] : zero;
+    }
+  }
+}
+
+// Issue the copies of one chunk of a wide head into a tile of kRows rows
+// of width DP: columns 0..cols-1 of rows 0..valid-1 from `src` (row pitch
+// `ld` elements), every other element of the tile zero (the columns past d
+// in the last chunk, the rows past the sequence's end), so that a slot can
+// hold any chunk in turn. Where `vec` (d a multiple of 8: src and ld
+// 16-byte aligned, cols a multiple of 8): 16-byte cp.async chunks,
+// zero-filled, to be committed and awaited by the caller; else element by
+// element, done on return.
+template <int DP, int kRows>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int64_t ld, int valid,
+                                           int cols, bool vec) {
+  using P = Dims<DP>;
+  if (vec) {
+    constexpr int kChunks = DP / 8;
+    const uint32_t base = smem_addr(dst);
+    for (int e = threadIdx.x; e < kRows * kChunks; e += kThreads) {
+      const int r = e / kChunks;
+      const int c = e - r * kChunks;
+      const bool ok = r < valid && c * 8 < cols;
+      cp_async16(base + (r * P::kStride + c * 8) * 2, ok ? src + r * ld + c * 8 : src, ok);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int e = threadIdx.x; e < kRows * DP; e += kThreads) {
+      const int r = e / DP;
+      const int c = e - r * DP;
+      dst[r * P::kStride + c] = r < valid && c < cols ? src[r * ld + c] : zero;
     }
   }
 }

@@ -11,13 +11,16 @@ and needs no padding; K2 splits the backward into a dK/dV pass over key
 tiles and a dQ pass over query tiles, so that no two CTAs write one output.
 The dtype picks the kernel: bf16 runs on the tensor cores (``mma.sync``),
 fp32 on the CUDA cores. Like the JAX kernels, which pack heads into
-128-lane groups and scale by ``d_real``, they take any head dim, here
-1..:data:`MAX_HEAD_DIM`: each is built for the widths of
-:data:`KERNEL_WIDTHS` and runs a d at the least width that holds it, with
-the columns past d zero in shared memory and the scale ``1/sqrt(d)`` of the
-real d. bf16 tiles are staged by 16-byte ``cp.async`` copies where d is a
-multiple of 8 (hence :func:`check_alignment`), else element by element; no
-input is copied or padded in device memory.
+128-lane groups and scale by ``d_real``, they take any head dim d >= 1,
+with the scale ``1/sqrt(d)`` of the real d. Up to the largest of
+:data:`KERNEL_WIDTHS` each kernel is built for those widths and runs a d at
+the least width that holds it, with the columns past d zero in shared
+memory. Above it the wide kernels run d in chunks of :data:`WIDE_COLS`
+columns: a CTA owns one such column block of its output and sums S (and dP)
+over every chunk, so each block recomputes S. bf16 tiles are staged by
+16-byte ``cp.async`` copies where d is a multiple of 8 (hence
+:func:`check_alignment`), else element by element; no input is copied or
+padded in device memory.
 
 Layout is the JAX package's: q ``[B, Lq, H*d]``, k/v ``[B, Lk, H*d]``, head
 ``h`` owns columns ``[h*d, (h+1)*d)``. The thirds of a fused qkv projection
@@ -44,15 +47,14 @@ from . import kernel_build
 from .kernel_build import LaunchCounter
 
 # the widths the kernels are built for (csrc/flash_mma.cuh, kernel_width);
-# a head dim runs at the least one that holds it
+# a head dim up to the largest runs at the least one that holds it, a wider
+# one on the wide kernels, in chunks (and column blocks) of WIDE_COLS
+# (flash_mma.cuh, kWideCols)
 KERNEL_WIDTHS = (32, 40, 48, 64, 96, 128, 256)
-MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
+WIDE_COLS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# CTAs of one launch, all in grid.x; the most a kernel launches for a row
-# tile of (B, H) is 2 (K2's dK/dV column halves at width 256), and its
-# least row tile 16 (the fp32 kernels at width 256)
+# CTAs of one launch, all in grid.x
 _MAX_GRID_X = 2**31 - 1
-_MIN_TILE_ROWS, _MAX_CTAS_PER_TILE = 16, 2
 _ALIGN_BYTES = 16
 
 # K1 launches in this process (one per launch, added where it launches)
@@ -60,6 +62,10 @@ launches = LaunchCounter()
 # K2 calls in this process (one per call of the wrapper that launches its
 # two kernels, dK/dV and dQ, added where it launches them)
 bwd_launches = LaunchCounter()
+# of those, the launches and calls at a head dim above KERNEL_WIDTHS[-1]
+# (the wide kernels)
+wide_launches = LaunchCounter()
+wide_bwd_launches = LaunchCounter()
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,8 +138,8 @@ def _check_kernel_args(q, k, v, num_heads):
     if HD % num_heads:
         raise ValueError(f"H*d={HD} does not divide into {num_heads} heads")
     d = HD // num_heads
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} is outside the kernels' range 1..{MAX_HEAD_DIM}")
+    if d == 0:
+        raise ValueError("head dim 0: q, k and v have no columns")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -143,13 +149,26 @@ def _check_kernel_args(q, k, v, num_heads):
         if t.stride(2) != 1:
             raise ValueError(f"{name} must have a contiguous last dim (stride "
                              f"{t.stride(2)}); pass the packed view, not a transpose")
-    tiles = -(-max(Lq, k.shape[1]) // _MIN_TILE_ROWS) * _MAX_CTAS_PER_TILE
-    if B * num_heads * tiles > _MAX_GRID_X:
-        raise ValueError(f"B={B} x H={num_heads} x L={max(Lq, k.shape[1])} exceeds the "
-                         f"kernel grid")
+    if grid_ctas(B, max(Lq, k.shape[1]), num_heads, d) > _MAX_GRID_X:
+        raise ValueError(f"B={B} x H={num_heads} x L={max(Lq, k.shape[1])} at head dim {d} "
+                         f"exceeds the kernel grid ({_MAX_GRID_X} CTAs)")
     if k.shape[1] == 0:
         raise ValueError("attention over zero keys")
     return B, Lq, k.shape[1], HD, d
+
+
+def grid_ctas(B: int, L: int, H: int, d: int) -> int:
+    """The most CTAs that any launch of K1 or K2 puts in ``grid.x`` for a
+    sequence of L rows: row tiles x CTAs per row tile x H x B. Up to the
+    largest width a row tile is at least 16 rows (the fp32 kernels at width
+    256) and takes at most 2 CTAs (K2's dK/dV column halves at 256); above
+    it at least 32 rows (the fp32 wide kernels) and one CTA per column block
+    of :data:`WIDE_COLS`."""
+    if d <= KERNEL_WIDTHS[-1]:
+        rows, per_tile = 16, 2
+    else:
+        rows, per_tile = 32, -(-d // WIDE_COLS)
+    return B * H * -(-L // rows) * per_tile
 
 
 def _misalignment(t: torch.Tensor) -> tuple[int, list[int]]:
@@ -228,6 +247,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.ssl_vit_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_fwd launch failed: {msg} (cudaError {err})")
     launches.count += 1
+    if d > KERNEL_WIDTHS[-1]:
+        wide_launches.count += 1
     return out, lse
 
 
@@ -277,6 +298,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.ssl_vit_flash_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_bwd launch failed: {msg} (cudaError {err})")
     bwd_launches.count += 1
+    if d > KERNEL_WIDTHS[-1]:
+        wide_bwd_launches.count += 1
     return dq, dk, dv
 
 

@@ -93,9 +93,11 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
     B, L, H, d = 1, 8, 2, 32
     x = torch.zeros(B, L, H * d)
     assert fa._check_kernel_args(x, x, x, H) == (B, L, L, H * d, d)
-    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
-        fa._check_kernel_args(torch.zeros(B, L, 2 * 257), torch.zeros(B, L, 514),
-                              torch.zeros(B, L, 514), 2)
+    wide = torch.zeros(B, L, 2 * 257)  # above 256: the wide kernels take it
+    assert fa._check_kernel_args(wide, wide, wide, 2) == (B, L, L, 514, 257)
+    big = torch.zeros(1, 1, 2 * 257).expand(2**18, 2**16, 514)
+    with pytest.raises(ValueError, match="exceeds the kernel grid"):
+        fa._check_kernel_args(big, big, big, 2)
     with pytest.raises(ValueError, match="contiguous last dim"):
         t = torch.zeros(B, H * d, L).transpose(1, 2)
         fa._check_kernel_args(t, x, x, H)

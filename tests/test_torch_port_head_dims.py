@@ -1,10 +1,11 @@
-"""K1/K2 at every head dim the JAX kernels take (1..256 on the card), on the
-CPU: the port's plain forward and backward against the JAX package's Pallas
-kernels (interpret mode) and ``_sdpa_xla`` at head dims past the models'
-defaults, the wrapper's range and staging rules, the width table against
-the CUDA sources, one pipeline-B step with the decoder repacked to 3 heads
-of 128 against JAX's ``make_pixel_mae_step``, and the ported repack probe
-at toy widths.
+"""K1/K2 at every head dim the JAX kernels take, on the CPU: the port's
+plain forward and backward against the JAX package's Pallas kernels
+(interpret mode) and ``_sdpa_xla`` at head dims past the models' defaults,
+up to 512 (above 256 the card runs the wide kernels), the wrapper's checks
+(every d passes; only a grid overflow raises) and staging rules, the width
+table against the CUDA sources, one pipeline-B step with the decoder
+repacked to 3 heads of 128 and to 1 of 384 against JAX's
+``make_pixel_mae_step``, and the ported repack probe at toy widths.
 
 Tolerances: as tests/test_torch_port_attention.py (forward, 2e-5) and
 tests/test_torch_port_attention_bwd.py (gradients, 5e-5), fp32 sums in other
@@ -48,8 +49,10 @@ FWD_TOL = dict(atol=2e-5, rtol=2e-5)
 BWD_TOL = dict(atol=5e-5, rtol=5e-5)
 # below, between and at the widths the kernels are built for: the narrow
 # heads, a d staged element by element (20), pipeline A's temporal head at
-# embed 384 (96), the decoder repack (128) and the widest (256)
-HEAD_DIMS = (16, 20, 24, 80, 96, 128, 256)
+# embed 384 (96), the decoder repack (128) and the widest (256); then the
+# wide kernels' head dims: just past 256, one staged element by element
+# (300), and the one-head decoders of pipelines B (384) and C (512)
+HEAD_DIMS = (16, 20, 24, 80, 96, 128, 256, 257, 300, 384, 512)
 
 
 def _inputs(seed, B, Lq, Lk, H, d):
@@ -97,17 +100,20 @@ def test_plain_backward_matches_jax_vjp_and_xla(d):
 
 
 def test_wrapper_takes_every_head_dim_up_to_256():
-    """Every d in 1..256 passes the kernels' checks; 257 and more raise with
-    the range."""
-    for d in range(1, 257):
-        x = torch.zeros(1, 3, 2 * d)
-        assert fa._check_kernel_args(x, x, x, 2)[-1] == d
-    assert fa.MAX_HEAD_DIM == 256
-    for bad in (257, 300):
-        x = torch.zeros(1, 3, bad)
-        with pytest.raises(ValueError, match=f"head dim {bad} is outside the kernels' "
-                                             "range 1..256"):
-            fa._check_kernel_args(x, x, x, 1)
+    """Every d in 1..1024 passes the kernels' checks, up to 256 and past it
+    (the wide kernels), in both dtypes; at each d only a grid of 2^31 CTAs
+    or more raises: B = L = 2^16 overflows at d = 1024 (16 column blocks
+    of 32-row tiles), and B = 2^14 with L = 2^16 does not."""
+    for d in range(1, 1025):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.zeros(1, 3, 2 * d, dtype=dtype)
+            assert fa._check_kernel_args(x, x, x, 2)[-1] == d
+    assert fa.grid_ctas(2**14, 2**16, 1, 1024) < 2**31 <= fa.grid_ctas(2**16, 2**16, 1, 1024)
+    fits = torch.zeros(1, 1, 1024).expand(2**14, 2**16, 1024)
+    assert fa._check_kernel_args(fits, fits, fits, 1)[-1] == 1024
+    big = torch.zeros(1, 1, 1024).expand(2**16, 2**16, 1024)
+    with pytest.raises(ValueError, match="at head dim 1024 exceeds the kernel grid"):
+        fa._check_kernel_args(big, big, big, 1)
 
 
 def test_batches_past_65535_pass_the_grid_check():
@@ -153,20 +159,24 @@ def test_other_head_dims_stage_element_by_element(d):
 def test_kernel_widths_match_the_cuda_sources():
     """The wrapper's width table is the CUDA sources': flash_mma.cuh's
     kernel_width() (each d to the least width that holds it) and the
-    instantiations that both entry points dispatch to."""
+    instantiations that both entry points dispatch to; every wider d goes
+    to the wide kernels, whose chunk is the wrapper's WIDE_COLS."""
     header = (CSRC / "flash_mma.cuh").read_text()
     body = re.search(r"constexpr int kernel_width\(int d\) \{(.*?)\}", header, re.S).group(1)
     limit = int(re.search(r"constexpr int kMaxHeadDim = (\d+);", header).group(1))
     steps = [int(n) for n in re.findall(r"d <= (\d+) \? \1", body)]
     assert "d <= kMaxHeadDim ? kMaxHeadDim" in body
     assert tuple(steps + [limit]) == fa.KERNEL_WIDTHS
-    assert limit == fa.MAX_HEAD_DIM
+    assert int(re.search(r"constexpr int kWideCols = (\d+);", header).group(1)) == fa.WIDE_COLS
     for source in ("flash_fwd.cu", "flash_bwd.cu"):
-        cases = re.findall(r"case (\d+): return launch<\1>", (CSRC / source).read_text())
+        text = (CSRC / source).read_text()
+        cases = re.findall(r"case (\d+): return launch<\1>", text)
         assert tuple(int(c) for c in cases) == fa.KERNEL_WIDTHS, source
+        assert re.search(r"default:\s+return head_dim > flash_mma::kMaxHeadDim \? "
+                         r"launch_wide\(dtype, a\)", text), source
 
 
-# --- one pipeline-B step with the decoder repacked to 3 heads of 128 -------
+# --- one pipeline-B step with the decoder as 3 heads of 128 or 1 of 384 -----
 
 B, T, S = 2, 4, 32
 L = (S // 8) ** 2
@@ -188,14 +198,16 @@ def _perturb(v, seed):
     return unflatten_variables(flat)
 
 
-def test_pipeline_b_step_with_the_d128_decoder_matches_jax():
-    """The decoder 384 wide with 3 heads (d = 128) and one block, fp32, the
-    JAX tube mask injected: loss, gradient norm, prediction std and every
-    gradient (Adam's first moment over 1 - b1) as JAX's step gives them."""
+@pytest.mark.parametrize("heads", [3, 1])
+def test_pipeline_b_step_with_the_d128_decoder_matches_jax(heads):
+    """The decoder 384 wide with 3 heads (d = 128) or 1 (d = 384: the wide
+    kernels on the card) and one block, fp32, the JAX tube mask injected:
+    loss, gradient norm, prediction std and every gradient (Adam's first
+    moment over 1 - b1) as JAX's step gives them."""
     jax_model = JaxMAE(encoder=JaxTinyViT(embed_dims=DIMS, depths=DEPTHS, num_heads=HEADS,
                                           use_checkpoint=False, drop_path_rate=0.0),
                        clip_len=T, img_size=S, patch_size=8, decoder_embed_dim=384,
-                       decoder_depth=1, decoder_num_heads=3)
+                       decoder_depth=1, decoder_num_heads=heads)
     variables = _perturb(jax.jit(lambda k: jax_model.init(
         k, jnp.zeros((B, T, S, S, 3)), jnp.zeros((B, T, L), bool)))(jax.random.key(0)), 1)
     clip = np.random.default_rng(13).integers(0, 256, (B, T, S, S, 3), dtype=np.uint8)
@@ -216,8 +228,8 @@ def test_pipeline_b_step_with_the_d128_decoder_matches_jax():
     port = TinyVideoMAE(TinyViT(embed_dims=DIMS, depths=DEPTHS, num_heads=HEADS,
                                 drop_path_rate=0.0, use_checkpoint=True, num_stages=3),
                         clip_len=T, img_size=S, decoder_embed_dim=384, decoder_depth=1,
-                        decoder_num_heads=3)
-    assert port.decoder.blocks[0].attn.num_heads == 3
+                        decoder_num_heads=heads)
+    assert port.decoder.blocks[0].attn.num_heads == heads
     port.load_state_dict(mae_state_dict_from_flax(variables))
     tx = teng.wrap_accum_and_skip(tstate.make_optimizer(port.parameters(), 1e-3), 1)
     state = tstate.create_train_state(port, tx)
@@ -290,22 +302,32 @@ def _flat(cfg, prefix=""):
 
 def test_chip_smoke_holds_every_width_and_runs_the_repack_as_a_user_would():
     """Phases 3-4 hold K1/K2 at a shape of every head dim the acceptance
-    names and build a bf16 kernel of each width; phase 32's run is phase 6's
-    with --set model.decoder_num_heads=3 and nothing else, and its calls
-    by head dim add up to the pipeline-B step's."""
+    names, the one-head decoders of pipelines B and C among them, and
+    build a bf16 kernel of each width and the wide ones; each of phase 32's
+    runs is phase 6's with --set model.decoder_num_heads=3 or =1 and
+    nothing else, and its calls by head dim add up to the pipeline-B
+    step's; phase 14's one-head pipeline-C decoder is d = 512."""
     cs = _chip_smoke()
     dims = {shape[5] for shape in cs.KERNEL_SHAPES}
-    assert {16, 20, 24, 32, 40, 48, 64, 80, 96, 128, 256} <= dims
-    assert ("mae_decoder_h3", 4, 3136, 3136, 3, 128) in cs.KERNEL_SHAPES
-    assert ("temporal_d96", 48, 32, 32, 4, 96) in cs.KERNEL_SHAPES
-    assert cs.BF16_FLASH_KERNELS == 3 * len(fa.KERNEL_WIDTHS)
+    assert {16, 20, 24, 32, 40, 48, 64, 80, 96, 128, 256, 300, 384, 512, 1024} <= dims
+    for shape in (("mae_decoder_h3", 4, 3136, 3136, 3, 128), ("temporal_d96", 48, 32, 32, 4, 96),
+                  ("mae_decoder_h1", 4, 3136, 3136, 1, 384),
+                  ("token_mae_decoder_h1", 16, 288, 288, 1, 512)):
+        assert shape in cs.KERNEL_SHAPES, shape
+    assert cs.WIDE_SHAPE in {shape[0] for shape in cs.KERNEL_SHAPES if shape[5] > 256}
+    assert cs.BF16_FLASH_KERNELS == 3 * (len(fa.KERNEL_WIDTHS) + 1)
     base = _flat(cs.ssl_mae_cfg("train.txt", "out"))
-    repack = _flat(cs.merged(cs.ssl_mae_cfg("train.txt", "out"), cs.REPACK_OVERRIDES))
-    assert {k for k in base.keys() | repack.keys() if base.get(k) != repack.get(k)} == {
-        "model.decoder_num_heads"}
-    assert (base["model.decoder_num_heads"], repack["model.decoder_num_heads"]) == (6, 3)
-    assert base["model.decoder_embed_dim"] // 3 == 128
-    by_d = cs.REPACK_CALLS_BY_D
-    assert (by_d["K1_d128"] + by_d["K1_d32"], by_d["K2_d128"] + by_d["K2_d32"]) == (
-        cs.K1_CALLS_PER_STEP, cs.K2_CALLS_PER_STEP)
-    assert {"train_ssl_mae_repack", "probe_decoder_repack"} <= set(cs.PATHS)
+    assert base["model.decoder_num_heads"] == 6
+    for path, heads in (("train_ssl_mae_repack", 3), ("train_ssl_mae_repack_h1", 1)):
+        overrides, by_d = cs.REPACK_ARMS[path]
+        repack = _flat(cs.merged(cs.ssl_mae_cfg("train.txt", "out"), overrides))
+        assert {k for k in base.keys() | repack.keys() if base.get(k) != repack.get(k)} == {
+            "model.decoder_num_heads"}
+        assert repack["model.decoder_num_heads"] == heads
+        d = base["model.decoder_embed_dim"] // heads
+        assert (by_d[f"K1_d{d}"] + by_d["K1_d32"], by_d[f"K2_d{d}"] + by_d["K2_d32"]) == (
+            cs.K1_CALLS_PER_STEP, cs.K2_CALLS_PER_STEP)
+        assert path in cs.PATHS
+    assert "probe_decoder_repack" in cs.PATHS
+    mae = cs.merged(cs.mae_train_cfg("", ""), cs.MAE_H1_OVERRIDES)["mae"]["decoder"]
+    assert mae["dim"] // mae["num_heads"] == 512 and cs.MAE_H1_WIDE_CALLS == (2, 2)

@@ -93,13 +93,21 @@ def test_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
+def _overflowing(dev, d=1024):
+    """One row expanded to B = L = 2^16 at head dim d: 2^31 CTAs or more in
+    a wide kernel's grid, without the memory."""
+    return torch.zeros(1, 1, d, device=dev).expand(2**16, 2**16, d)
+
+
 def test_kernel_refuses_instead_of_falling_back(dev):
     q, k, v = _strided_qkv(dev, 1, 8, 8, 2, 32, torch.float32)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half(), 2)
-    wide = torch.zeros(1, 8, 257, device=dev)
-    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
-        fa.flash_attention_fwd(wide, wide, wide, 1)
+    big = _overflowing(dev)
+    before = (fa.launches.count, fa.wide_launches.count)
+    with pytest.raises(ValueError, match="exceeds the kernel grid"):
+        fa.flash_attention_fwd(big, big, big, 1)
+    assert (fa.launches.count, fa.wide_launches.count) == before
     with pytest.raises(ValueError, match="contiguous last dim"):
         t = torch.zeros(1, 64, 8, device=dev).transpose(1, 2)
         fa.flash_attention_fwd(t, k, v, 2)
@@ -161,14 +169,90 @@ def test_backward_kernel_refuses_instead_of_falling_back(dev):
     dout = torch.ones_like(out)
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half(), 2)
-    wide = torch.zeros(1, 8, 257, device=dev)
-    with pytest.raises(ValueError, match="head dim 257 is outside the kernels' range 1..256"):
-        fa.flash_attention_bwd(wide, wide, wide, wide, torch.zeros(1, 8, 1, device=dev),
-                               wide, 1)
+    big = _overflowing(dev)
+    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**16, 2**16, 1)
+    before = (fa.bwd_launches.count, fa.wide_bwd_launches.count)
+    with pytest.raises(ValueError, match="exceeds the kernel grid"):
+        fa.flash_attention_bwd(big, big, big, big, big_lse, big, 1)
+    assert (fa.bwd_launches.count, fa.wide_bwd_launches.count) == before
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd(q, k, v, out, lse.double(), dout, 2)
     with pytest.raises(ValueError, match="must match q"):
         fa.flash_attention_bwd(q, k, v, out, lse, dout[:, :4], 2)
+
+
+# head dims above the widest kernel width, 256, that the wide kernels run
+# in chunks of 64 columns: just past it, a chunk edge past it in 16-byte
+# copies (264), one staged element by element (300), the one-head decoders
+# of pipelines B (384) and C (512), and 1024
+WIDE_HEAD_DIMS = (257, 264, 300, 384, 512, 1024)
+# one row, the edges of the bf16 kernels' 64-row tiles, and more than 3 tiles
+# (the fp32 ones take 32 rows)
+WIDE_LENGTHS = (1, 63, 65, 200)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_heads_match_plain_at_tile_edges(dev, d, dtype):
+    """K1 and K2 above d = 256 against their plain versions at every Lq x
+    Lk of the edges, 2 heads of strided thirds, at the tolerances above:
+    out at every column and, apart, at the columns where two 64-column
+    blocks meet; lse (one block writes it) at every row; the gradients.
+    Each call counts one wide launch."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    meet = [h * d + c for h in range(2) for edge in range(64, d, 64) for c in (edge - 1, edge)]
+    for Lq in WIDE_LENGTHS:
+        for Lk in WIDE_LENGTHS:
+            q, k, v = _strided_qkv(dev, 2, Lq, Lk, 2, d, dtype, seed=Lq * 1000 + Lk)
+            g = torch.Generator(device=dev).manual_seed(Lk)
+            dout = torch.randn(2, Lq, 2 * d, device=dev, generator=g).to(dtype)
+            before = (fa.wide_launches.count, fa.wide_bwd_launches.count)
+            out, lse = fa.flash_attention_fwd(q, k, v, 2)
+            grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, 2)
+            torch.cuda.synchronize()
+            assert (fa.wide_launches.count, fa.wide_bwd_launches.count) == (
+                before[0] + 1, before[1] + 1)
+            ref_out, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), 2)
+            err = (out.float() - ref_out).abs()
+            assert out.dtype == dtype and torch.isfinite(out).all(), (Lq, Lk)
+            assert float(err.max()) <= tol, (Lq, Lk, float(err.max()))
+            assert float(err[..., meet].max()) <= tol, (Lq, Lk, "where blocks meet")
+            torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0,
+                                       msg=f"lse at Lq={Lq} Lk={Lk}")
+            refs = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(),
+                                                lse, dout.float(), 2)
+            scale = 1e-2 * max(float(r.abs().max()) for r in refs)
+            for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+                assert got.dtype == dtype and torch.isfinite(got).all(), (Lq, Lk, name)
+                assert _rel_err(got, ref, scale) <= tol, (Lq, Lk, name,
+                                                          _rel_err(got, ref, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_heads_take_fused_qkv_thirds(dev, dtype):
+    """The thirds of one fused qkv projection at d = 384 (row stride
+    3*H*d, offsets h*d elements: 16-byte copies in bf16) go through K1 and
+    K2 in place by the autograd Function, and the fused tensor's gradient
+    is the plain Function's."""
+    B, L, H, d = 2, 130, 2, 384
+    hd = H * d
+    g = torch.Generator(device=dev).manual_seed(7)
+    base = torch.randn(B, L, 3 * hd, device=dev, generator=g).to(dtype)
+    dout = torch.randn(B, L, hd, device=dev, generator=g).to(dtype)
+    grads = {}
+    for impl, x in (("kernel", base.clone()), ("plain", base.float())):
+        qkv = x.requires_grad_(True)
+        q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+        assert q.stride(1) == 3 * hd and q.data_ptr() == qkv.data_ptr()
+        before = (fa.wide_launches.count, fa.wide_bwd_launches.count)
+        fa.flash_attention_packed(q, k, v, H, impl=impl).backward(dout.to(qkv.dtype))
+        torch.cuda.synchronize()
+        launched = (fa.wide_launches.count - before[0], fa.wide_bwd_launches.count - before[1])
+        assert launched == ((1, 1) if impl == "kernel" else (0, 0)), (impl, launched)
+        grads[impl] = qkv.grad
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = 1e-2 * float(grads["plain"].abs().max())
+    assert _rel_err(grads["kernel"], grads["plain"], scale) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -269,9 +353,10 @@ def test_bf16_backward_at_tile_edges(dev, d, Lq):
 
 def test_bf16_flash_kernels_run_on_the_tensor_cores(dev):
     """Every bf16 flash kernel's SASS holds bf16 tensor-core products
-    (HMMA.16816.F32.BF16); the fp32 kernels hold none."""
+    (HMMA.16816.F32.BF16), the wide kernels' too; the fp32 kernels hold
+    none."""
     libs = kernel_build.build()
-    widths = len(fa.KERNEL_WIDTHS)
+    widths = len(fa.KERNEL_WIDTHS) + 1  # and the wide kernels
     for lib, kernels in (("flash_fwd", widths), ("flash_bwd", 2 * widths)):
         counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path),
                                                 "HMMA.16816.F32.BF16")
