@@ -14,17 +14,19 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 2. build: every kernel of the port, flash attention K1 (forward) and K2
    (backward), the depthwise conv P1 and the unary chain P2, built from the
    repo's sources into build/kernels/, one nvcc each, all in parallel;
-   seconds, registers and spills from ptxas, the count of bf16 tensor-core
-   products (HMMA.16816.F32.BF16, from cuobjdump) in each flash kernel, and
-   of asynchronous copies (UTMALDG, the TMA's loads; LDGSTS, cp.async) in
-   each P1 kernel: every bf16 flash kernel must have products, every P1
-   kernel copies, and no P1 or P2 kernel may spill.
+   seconds, registers, spills and static shared memory from ptxas, the
+   count of bf16 tensor-core products (mma.sync, HMMA.16816.F32.BF16, and
+   wgmma, HGMMA, from cuobjdump) in each flash kernel, the wide bf16
+   kernels' dynamic shared memory at d = 300, 384, 512 and 1024, and the
+   asynchronous copies (UTMALDG, the TMA's loads; LDGSTS, cp.async) in each
+   P1 kernel: every bf16 flash kernel must have products, K1's wide one
+   wgmma, every P1 kernel copies, and no P1 or P2 kernel may spill.
 3. K1 vs plain: the forward kernel against its plain PyTorch version on the
    card, at the serving slice's shapes, at the pipeline-B shapes and at
    every head dim past the models' own (16, 20, 24, 80, 96, 128, 256: each
    at the least width built that holds it; then 300, 384, 512 and 1024 on
-   the wide kernels, in chunks of 64 columns: the one-head decoders of
-   pipelines B and C among them), in fp32
+   the wide kernels, in chunks of 64 columns and column groups of 512: the
+   one-head decoders of pipelines B and C among them), in fp32
    (TF32 off) and in bf16 (against the plain fp32 attention of the same
    bf16-rounded inputs): out to 1e-4 (fp32) or 2e-2 (bf16) of its largest
    magnitude, lse to the same numbers absolute; the
@@ -35,7 +37,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    the bytes in and out over 3.35 TB/s. Then what the kernels do not take
    must raise in K1 and K2, with nothing launched (no fallback): fp16, q/k/v
    of mismatched shapes, a bf16 view off 16-byte alignment, and a grid of
-   2^31 CTAs or more (B = L = 2^16 at d = 1024, expanded from one row).
+   2^31 CTAs or more (B = 2^19, L = 2^16 at d = 1024, expanded from one
+   row).
 4. K2 vs plain: the backward kernel against the plain fp32 backward of the
    same inputs (and K1's out and lse), at the same shapes, in fp32 (max abs
    error of each gradient over its max magnitude, tolerance 1e-4) and bf16
@@ -284,11 +287,13 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    its CSV and ablation_index.json (exit 0) exist.
 30. export: tools.export_serving at configs/dynamic.yaml's MobileViT-S
    classifier (101 classes, embed 256, 16 x 112x112, fp32, TF32 off):
-   exported with a symbolic batch through the plain attention, saved,
-   torch.export.load'ed and served at batches 2 and 8; each batch's served
-   logits held to the live model's (K1, 6 a forward) within
-   EXPORT_TOL of the largest live logit; served and live ms per batch of 8
-   (a host sync after each call), with the card's name and power limit.
+   exported on the card with a symbolic batch through the plain attention
+   for --platforms cpu cuda (the program moved to the CPU for the cpu
+   artifact), both saved, torch.export.load'ed and served at batches 2 and
+   8, the cpu one from the CPU; each batch's served logits held to the live
+   model's (K1, 6 a forward) within EXPORT_TOL of the largest live logit;
+   served (card and CPU) and live ms per batch of 8 (a host sync after each
+   call), with the card's name and power limit.
 31. campaigns: the port's research campaign scripts at the campaign's full
    width (16 x 112x112 clips, batch 16, embed 256, bf16) on a hard fixture
    of 4 classes x 10 clips: ssl_transfer_campaign (1 SSL epoch, then
@@ -490,6 +495,9 @@ ABLATION_GROUPS = {"sampling": ("train_finetune", 4), "ssl_objective": ("train_s
 # plain (TOL_FP32), held end to end over the forward's 6 calls
 EXPORT_BATCHES = (2, 8)
 EXPORT_TOL = 1e-4
+# the export's --platforms: exported on the card, one artifact each; the
+# cpu one served from the CPU
+EXPORT_PLATFORMS = ("cpu", "cuda")
 # phase 31: the research campaigns through the port's scripts at the
 # campaign's full width (16 x 112x112 clips, batch 16, embed 256, bf16;
 # mae_evidence at configs/ssl_mae.yaml's widths), counts cut for time: a
@@ -626,9 +634,14 @@ WIDE_SHAPE = "mae_decoder_h1"
 MAE_H1_OVERRIDES = {"mae": {"decoder": {"num_heads": 1}}}
 MAE_H1_WIDE_CALLS = (2, 2)
 HMMA_BF16 = "HMMA.16816.F32.BF16"
+HGMMA = "HGMMA"
+# the wide head dims of KERNEL_SHAPES, at which phase 2 reports the bf16
+# wide kernels' dynamic shared memory
+WIDE_DIMS = (300, 384, 512, 1024)
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # K1's bf16 kernel and K2's two, for each kernel width (flash_mma.cuh:
-# 32, 40, 48, 64, 96, 128, 256) and the wide kernels
+# 32, 40, 48, 64, 96, 128, 256) and the wide kernels (K1's on wgmma, K2's
+# on mma.sync)
 BF16_FLASH_KERNELS = 3 * (7 + 1)
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
@@ -909,14 +922,15 @@ def refuses(fa, dev) -> None:
     """No fallback to the plain version: what the kernels do not take
     raises in K1 and K2 on the card (fp16, mismatched shapes, a bf16 view
     off 16-byte alignment, a grid of 2^31 CTAs or more at d = 1024), and
-    nothing is launched."""
+    nothing is launched. The grid: B = 2^19 rows of L = 2^16 at d = 1024, 2
+    column groups of 32-row tiles: 2^31 CTAs."""
     import torch
 
     x = torch.zeros(1, 8, 64, device=dev)
     lse = torch.zeros(1, 8, 1, device=dev)
     off = torch.zeros(1, 8, 65, device=dev, dtype=torch.bfloat16)[..., 1:]
-    big = torch.zeros(1, 1, 1024, device=dev).expand(2**16, 2**16, 1024)
-    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**16, 2**16, 1)
+    big = torch.zeros(1, 1, 1024, device=dev).expand(2**19, 2**16, 1024)
+    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**19, 2**16, 1)
     cases = {"dtype": (TypeError, (x.half(),) * 3, lse),
              "shape": (ValueError, (x, x[:, :4], x), lse),
              "alignment": (ValueError, (off,) * 3, lse),
@@ -946,12 +960,27 @@ def phase_build() -> dict:
         out[name] = {"nvcc_seconds": kl.build_seconds,
                      "library": os.path.relpath(kl.path, ROOT),
                      "ptxas": ptxas_summary(kl.ptxas_log)}
-    # bf16 tensor-core products in each flash kernel's SASS
-    hmma = {}
+    # bf16 tensor-core products in each flash kernel's SASS: mma.sync
+    # (HMMA) and wgmma (HGMMA)
+    hmma, hgmma = {}, {}
     for lib in ("flash_fwd", "flash_bwd"):
-        counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path), HMMA_BF16)
+        listing = kernel_build.sass(libs[lib].path)
+        counts = kernel_build.count_by_function(listing, HMMA_BF16)
         hmma.update({kernel_label(f): n for f, n in counts.items()})
+        counts = kernel_build.count_by_function(listing, HGMMA)
+        hgmma.update({kernel_label(f): n for f, n in counts.items()})
     out["hmma_16816_f32_bf16"] = hmma
+    out["hgmma"] = {k: n for k, n in hgmma.items() if n}
+    # the wide kernels: ptxas's registers, spills and static shared memory,
+    # and the dynamic shared memory of the bf16 ones at each wide head dim
+    out["wide_kernels"] = {
+        "ptxas": [row for lib in ("flash_fwd", "flash_bwd") for row in out[lib]["ptxas"]
+                  if "_wide_" in row],
+        "bf16_dynamic_smem_bytes": {
+            str(d): {"fwd": libs["flash_fwd"].lib.ssl_vit_flash_fwd_wide_smem(d),
+                     "dkdv": libs["flash_bwd"].lib.ssl_vit_flash_bwd_wide_smem(d, 1),
+                     "dq": libs["flash_bwd"].lib.ssl_vit_flash_bwd_wide_smem(d, 0)}
+            for d in WIDE_DIMS}}
     # asynchronous copies in each P1 kernel's SASS
     listing = kernel_build.sass(libs["dw3x3"].path)
     copies = {}
@@ -962,9 +991,11 @@ def phase_build() -> dict:
     emit(out)
     if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}:
         raise AssertionError(f"built {sorted(libs)}, not the four kernel sources")
-    bf16 = {k: n for k, n in hmma.items() if "_bf16_kernel" in k}
+    bf16 = {k: n + hgmma[k] for k, n in hmma.items() if "_bf16_kernel" in k}
     if len(bf16) != BF16_FLASH_KERNELS or not all(bf16.values()):
-        raise AssertionError(f"bf16 flash kernels without {HMMA_BF16}: {hmma}")
+        raise AssertionError(f"bf16 flash kernels without tensor-core products: {hmma} {hgmma}")
+    if not any("fwd_wide_bf16" in k for k in out["hgmma"]):
+        raise AssertionError(f"K1's wide bf16 kernel without wgmma: {hgmma}")
     if not copies or not all(sum(c.values()) for c in copies.values()):
         raise AssertionError(f"P1 kernels without asynchronous copies: {copies}")
     spills = [row for lib in ("dw3x3", "unary_chain") for row in out[lib]["ptxas"]
@@ -987,10 +1018,12 @@ def kernel_label(mangled: str) -> str:
         lengths = (int(m.group()[i:]) for i in range(len(m.group())))
         for name in (mangled[m.end():m.end() + n] for n in lengths):
             rest = mangled[m.end() + len(name):]
-            if name.endswith("_kernel") and rest.startswith("I"):
+            if name.endswith("_kernel"):
                 break
         else:
             continue
+        if not rest.startswith("I"):  # not a template: the wide kernels
+            return name
         args = re.match(r"I(\w*?)EE", rest)
         parts = ["bf16" if bf16 else "f32" if f else i if i else b
                  for bf16, f, i, b in _TEMPLATE_ARG.findall(args.group(1) + "E")]
@@ -999,7 +1032,8 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """One line per kernel instantiation: registers, spill stores/loads."""
+    """One line per kernel instantiation: registers, spill stores/loads,
+    static shared memory."""
     rows, kernel = [], "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1011,6 +1045,9 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and rows:
             rows[-1] += f", {m.group(1)} regs"
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                rows[-1] += f", {m.group(1)} B smem"
     return rows
 
 
@@ -3336,7 +3373,8 @@ def phase_ablations(tmp: str, cell: dict) -> None:
 
 def phase_export(dev, tmp: str, smi: str) -> dict:
     """Phase 30: tools.export_serving on configs/dynamic.yaml's classifier,
-    fp32: the served artifact against the live model (K1). Returns the live
+    fp32, exported on the card for --platforms cpu cuda: each artifact,
+    served on its platform, against the live model (K1). Returns the live
     forwards' launches."""
     import torch
 
@@ -3349,10 +3387,13 @@ def phase_export(dev, tmp: str, smi: str) -> dict:
     t0 = time.perf_counter()
     model = run_dynamic.load_classifier(cfg, torch.float32, dev, lambda m: None)
     program = export_serving.export_model(model, T, S, log=lambda m: None)
-    path = os.path.join(tmp, "classifier.pt2")
-    torch.export.save(program, path)
+    out_path = os.path.join(tmp, "classifier.pt2")
+    paths = {}
+    for platform, prog in export_serving.to_platforms(program, list(EXPORT_PLATFORMS)).items():
+        paths[platform] = export_serving.artifact_path(out_path, platform)
+        torch.export.save(prog, paths[platform])
     export_s = time.perf_counter() - t0
-    served_fn = torch.export.load(path).module()
+    served = {platform: torch.export.load(path).module() for platform, path in paths.items()}
     impls = sorted({m.attn_impl or "kernel" for m in model.modules()
                     if isinstance(m, MultiHeadAttention)})
     g = torch.Generator(device=dev).manual_seed(30)
@@ -3361,37 +3402,44 @@ def phase_export(dev, tmp: str, smi: str) -> dict:
     with torch.no_grad():
         for batch in EXPORT_BATCHES:
             clip = torch.randn(batch, T, S, S, 3, generator=g, device=dev)
-            served = served_fn(clip)
+            outs = {platform: fn(clip.to(platform)) for platform, fn in served.items()}
             reset_counts()
             live = model(clip)
             torch.cuda.synchronize()
             for name, n in read_counts().items():
                 launched[name] += n
-            rows.append({"batch": batch, "served_shape": list(served.shape),
-                         "max_abs_diff": float((served - live).abs().max()),
-                         "live_max_abs": float(live.abs().max()),
-                         "finite": bool(torch.isfinite(served).all())})
+            for platform, got in outs.items():
+                rows.append({"platform": platform, "batch": batch,
+                             "served_device": str(got.device),
+                             "served_shape": list(got.shape),
+                             "max_abs_diff": float((got.to(dev) - live).abs().max()),
+                             "live_max_abs": float(live.abs().max()),
+                             "finite": bool(torch.isfinite(got).all())})
 
-        def per_batch_ms(fn) -> float:  # a host copy after each call
+        def per_batch_ms(fn, x, calls=20) -> float:  # a host copy after each call
             for _ in range(3):
-                float(fn(clip)[0, 0])
+                float(fn(x)[0, 0])
             t = time.perf_counter()
-            for _ in range(20):
-                float(fn(clip)[0, 0])
-            return (time.perf_counter() - t) / 20 * 1e3
+            for _ in range(calls):
+                float(fn(x)[0, 0])
+            return (time.perf_counter() - t) / calls * 1e3
 
-        served_ms = per_batch_ms(served_fn)
-        live_ms = per_batch_ms(model)
+        served_ms = per_batch_ms(served["cuda"], clip)
+        cpu_ms = per_batch_ms(served["cpu"], clip.cpu(), calls=3)
+        live_ms = per_batch_ms(model, clip)
     out = {"phase": "export", "export_seconds": export_s,
-           "artifact_mb": os.path.getsize(path) / 1e6, "attn_impl_after_export": impls,
-           "batches": rows,
-           "served_ms_batch8": served_ms, "live_ms_batch8": live_ms, "nvidia_smi": smi,
+           "artifact_mb": {p: os.path.getsize(path) / 1e6 for p, path in paths.items()},
+           "attn_impl_after_export": impls, "batches": rows,
+           "served_ms_batch8": served_ms, "served_cpu_ms_batch8": cpu_ms,
+           "live_ms_batch8": live_ms, "nvidia_smi": smi,
            "k1_calls_live": launched["flash_attention_fwd"]}
     emit(out)
     bad = [r for r in rows if not (r["finite"] and r["served_shape"] == [
         r["batch"], DYNAMIC_YAML["dataset"]["num_classes"]]
+        and r["served_device"].startswith(r["platform"])
         and r["max_abs_diff"] <= EXPORT_TOL * r["live_max_abs"])]
-    if bad or impls != ["kernel"] or launched["flash_attention_fwd"] != MVIT_ATTN * len(rows):
+    if (bad or impls != ["kernel"] or len(rows) != len(EXPORT_PLATFORMS) * len(EXPORT_BATCHES)
+            or launched["flash_attention_fwd"] != MVIT_ATTN * len(EXPORT_BATCHES)):
         raise AssertionError(f"export: {out}")
     return launched
 

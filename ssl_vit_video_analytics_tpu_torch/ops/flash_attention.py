@@ -15,12 +15,13 @@ fp32 on the CUDA cores. Like the JAX kernels, which pack heads into
 with the scale ``1/sqrt(d)`` of the real d. Up to the largest of
 :data:`KERNEL_WIDTHS` each kernel is built for those widths and runs a d at
 the least width that holds it, with the columns past d zero in shared
-memory. Above it the wide kernels run d in chunks of :data:`WIDE_COLS`
-columns: a CTA owns one such column block of its output and sums S (and dP)
-over every chunk, so each block recomputes S. bf16 tiles are staged by
-16-byte ``cp.async`` copies where d is a multiple of 8 (hence
-:func:`check_alignment`), else element by element; no input is copied or
-padded in device memory.
+memory. Above it the wide kernels cut d into chunks of :data:`WIDE_COLS`
+columns and the output's columns into groups of up to :data:`WIDE_GROUP`
+columns, one CTA per (row tile, group): S (and dP) are summed over every
+chunk once per tile pair and group, so up to d = 512 exactly once. bf16
+tiles are staged by 16-byte ``cp.async`` copies (the wide kernels: by the
+TMA) where d is a multiple of 8 (hence :func:`check_alignment`), else
+element by element; no input is copied or padded in device memory.
 
 Layout is the JAX package's: q ``[B, Lq, H*d]``, k/v ``[B, Lk, H*d]``, head
 ``h`` owns columns ``[h*d, (h+1)*d)``. The thirds of a fused qkv projection
@@ -48,10 +49,14 @@ from .kernel_build import LaunchCounter
 
 # the widths the kernels are built for (csrc/flash_mma.cuh, kernel_width);
 # a head dim up to the largest runs at the least one that holds it, a wider
-# one on the wide kernels, in chunks (and column blocks) of WIDE_COLS
-# (flash_mma.cuh, kWideCols)
+# one on the wide kernels, in chunks of WIDE_COLS and column groups of
+# WIDE_GROUP (flash_mma.cuh, kWideCols and kGroupChunks)
 KERNEL_WIDTHS = (32, 40, 48, 64, 96, 128, 256)
 WIDE_COLS = 64
+WIDE_GROUP = 8 * WIDE_COLS
+# the least rows of a row tile of any wide kernel (K2's bf16 kernels and
+# fp32 dK/dV: 32; K1 and fp32 dQ: 64)
+WIDE_TILE_ROWS = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # CTAs of one launch, all in grid.x
 _MAX_GRID_X = 2**31 - 1
@@ -162,12 +167,12 @@ def grid_ctas(B: int, L: int, H: int, d: int) -> int:
     sequence of L rows: row tiles x CTAs per row tile x H x B. Up to the
     largest width a row tile is at least 16 rows (the fp32 kernels at width
     256) and takes at most 2 CTAs (K2's dK/dV column halves at 256); above
-    it at least 32 rows (the fp32 wide kernels) and one CTA per column block
-    of :data:`WIDE_COLS`."""
+    it at least :data:`WIDE_TILE_ROWS` rows, one CTA per column group of
+    :data:`WIDE_GROUP` columns."""
     if d <= KERNEL_WIDTHS[-1]:
         rows, per_tile = 16, 2
     else:
-        rows, per_tile = 32, -(-d // WIDE_COLS)
+        rows, per_tile = WIDE_TILE_ROWS, -(-d // WIDE_GROUP)
     return B * H * -(-L // rows) * per_tile
 
 

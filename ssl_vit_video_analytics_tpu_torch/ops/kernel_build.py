@@ -38,11 +38,13 @@ LIBRARIES: dict[str, tuple[str, dict[str, tuple[list, object]]]] = {
     "flash_fwd": ("flash_fwd.cu", {
         "ssl_vit_flash_fwd": ([_i32, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
                                _i32, _i64, _i64, _i64, _i64, _i64, _i64, _f32, _vp], _i32),
+        "ssl_vit_flash_fwd_wide_smem": ([_i32], _i32),
         "ssl_vit_cuda_error_string": _ERROR_STRING}),
     "flash_bwd": ("flash_bwd.cu", {
         "ssl_vit_flash_bwd": ([_i32, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                _vp, _i32, _i32, _i32, _i32, _i64, _i64, _i64, _i64, _i64,
                                _i64, _i64, _i64, _f32, _vp], _i32),
+        "ssl_vit_flash_bwd_wide_smem": ([_i32, _i32], _i32),
         "ssl_vit_flash_bwd_error_string": _ERROR_STRING}),
     "dw3x3": ("dw3x3.cu", {
         "ssl_vit_dw3x3": ([_i32, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp], _i32),

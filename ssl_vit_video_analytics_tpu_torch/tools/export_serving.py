@@ -16,13 +16,26 @@ Notes:
     The plain attention computes the same function (``chip_smoke.py`` holds
     K1 to it); the live model keeps K1. The attention is set back in a
     ``finally``.
-  - The artifact pins dtype, input rank and every size but the batch (1 to
-    65535 frames' worth of clips), and the device it was exported on.
-    Export on the device you serve on.
+  - An artifact pins dtype, input rank and every size but the batch (1 to
+    65535 frames' worth of clips), and the device it serves on. By default
+    that is the device it was exported on, and ``--out`` is its file.
+    ``--platforms`` (as the JAX tool's, which writes one artifact for every
+    listed platform) names torch device types, ``cpu`` and ``cuda``: the
+    classifier is exported once, on ``--device``, and the program is moved
+    to each listed platform (``torch.export.passes.move_to_device_pass``),
+    one file each, the platform before ``--out``'s suffix
+    (``results/classifier.cpu.pt2``, ``results/classifier.cuda.pt2``). An
+    artifact exported on a card thus serves on a host without one. Any
+    other name raises before anything is exported.
+  - ``--load PATH`` serves the artifact at PATH. Where PATH is not a file
+    but an ``--out`` of ``--platforms``, it picks the file of this host's
+    platform: ``cuda`` where torch sees a card, else ``cpu``.
 
 Usage:
   python -m ssl_vit_video_analytics_tpu_torch.tools.export_serving \\
       --config configs/dynamic.yaml --out results/classifier.pt2   # export (ckpt from cfg)
+  python -m ssl_vit_video_analytics_tpu_torch.tools.export_serving \\
+      --config configs/dynamic.yaml --platforms cpu cuda           # classifier.{cpu,cuda}.pt2
   python -m ssl_vit_video_analytics_tpu_torch.tools.export_serving \\
       --load results/classifier.pt2 --batch 8                      # smoke/bench a served fn
 """
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import os
 import time
 
@@ -48,6 +62,8 @@ EXAMPLE_BATCH = 2
 # frames of a batch (b * clip_len) to a CUDA grid dimension, and the
 # symbolic batch must declare that bound
 MAX_FRAMES = 65535
+# the platforms --platforms takes: torch device types
+PLATFORMS = ("cpu", "cuda")
 
 
 @contextlib.contextmanager
@@ -96,6 +112,56 @@ def artifact_input(program: torch.export.ExportedProgram) -> tuple[tuple, torch.
     return tuple(val.shape), val.device
 
 
+def check_platforms(platforms: list[str]) -> None:
+    """Raise on a name that is not one of :data:`PLATFORMS`."""
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown:
+        raise ValueError(f"unknown platform(s) {unknown}: --platforms takes torch device "
+                         f"types {list(PLATFORMS)}")
+
+
+def artifact_path(out: str, platform: str) -> str:
+    """The file of ``platform``'s artifact for ``--out out``: the platform
+    before the suffix (``classifier.pt2`` -> ``classifier.cpu.pt2``)."""
+    root, ext = os.path.splitext(out)
+    return f"{root}.{platform}{ext}"
+
+
+def pick_artifact(path: str) -> str:
+    """``path`` where it is a file, else the artifact of this host's platform
+    (``cuda`` where torch sees a card, else ``cpu``) written for the ``--out``
+    ``path`` by ``--platforms``."""
+    if os.path.isfile(path):
+        return path
+    return artifact_path(path, "cuda" if torch.cuda.is_available() else "cpu")
+
+
+def to_platforms(program: torch.export.ExportedProgram,
+                 platforms: list[str]) -> dict[str, torch.export.ExportedProgram]:
+    """``program`` for each of ``platforms``: itself on its own device type,
+    else a copy moved there by ``torch.export.passes.move_to_device_pass``
+    (in torch since 2.6); a torch without that pass raises."""
+    check_platforms(platforms)
+    try:
+        from torch.export.passes import move_to_device_pass
+    except ImportError as e:
+        raise RuntimeError(f"torch {torch.__version__} has no torch.export.passes."
+                           f"move_to_device_pass: --platforms needs it") from e
+    source = artifact_input(program)[1].type
+    return {platform: program if platform == source
+            else move_to_device_pass(copy.deepcopy(program), platform)
+            for platform in platforms}
+
+
+def export_platforms(cfg: dict, device: str | torch.device, platforms: list[str],
+                     dtype: torch.dtype = torch.float32,
+                     log=print) -> dict[str, torch.export.ExportedProgram]:
+    """The classifier exported once on ``device`` (:func:`export_classifier`)
+    and put on each of ``platforms`` by :func:`to_platforms`."""
+    check_platforms(platforms)
+    return to_platforms(export_classifier(cfg, device, dtype, log), platforms)
+
+
 def serve(path: str, batch: int, iters: int, log=print) -> dict:
     """Load the artifact at ``path`` and call it on a random fp32 batch:
     logits shape and finiteness, then ms per batch over ``iters`` calls, each
@@ -129,20 +195,32 @@ def main():
     p.add_argument("--device", default=None,
                    help="torch device to export on (default: device.name of the config, "
                         "else cuda)")
-    p.add_argument("--load", default=None, help="artifact to deserialize+run")
+    p.add_argument("--platforms", nargs="*", default=None,
+                   help="e.g. --platforms cpu cuda: one artifact each, OUT with the platform "
+                        "before its suffix (default: the export device's, at OUT)")
+    p.add_argument("--load", default=None,
+                   help="artifact to deserialize+run (an OUT of --platforms: this host's)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--iters", type=int, default=20)
     args = p.parse_args()
 
     if args.load:
-        serve(args.load, args.batch, args.iters)
+        serve(pick_artifact(args.load), args.batch, args.iters)
         return
 
+    if args.platforms:
+        check_platforms(args.platforms)  # before the config is read or anything exported
     cfg = load_config(args.config, base=args.base or None, overrides=args.set)
-    program = export_classifier(cfg, device_from(cfg, args.device))
+    device = device_from(cfg, args.device)
+    if args.platforms:
+        programs = {artifact_path(args.out, platform): program for platform, program
+                    in export_platforms(cfg, device, args.platforms).items()}
+    else:
+        programs = {args.out: export_classifier(cfg, device)}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    torch.export.save(program, args.out)
-    print(f"[export] wrote {args.out} ({os.path.getsize(args.out) / 1e6:.2f} MB)")
+    for path, program in programs.items():
+        torch.export.save(program, path)
+        print(f"[export] wrote {path} ({os.path.getsize(path) / 1e6:.2f} MB)")
 
 
 if __name__ == "__main__":

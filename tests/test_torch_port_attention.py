@@ -95,7 +95,7 @@ def test_kernel_arg_checks_refuse_what_the_kernel_does_not_take():
     assert fa._check_kernel_args(x, x, x, H) == (B, L, L, H * d, d)
     wide = torch.zeros(B, L, 2 * 257)  # above 256: the wide kernels take it
     assert fa._check_kernel_args(wide, wide, wide, 2) == (B, L, L, 514, 257)
-    big = torch.zeros(1, 1, 2 * 257).expand(2**18, 2**16, 514)
+    big = torch.zeros(1, 1, 2 * 257).expand(2**19, 2**16, 514)  # 2^31 CTAs of 32-row tiles
     with pytest.raises(ValueError, match="exceeds the kernel grid"):
         fa._check_kernel_args(big, big, big, 2)
     with pytest.raises(ValueError, match="contiguous last dim"):

@@ -118,3 +118,49 @@ def test_export_cli_writes_and_serves_the_artifact(exported, tmp_path, monkeypat
     served = capsys.readouterr().out.splitlines()
     assert served[0] == f"[serve] {out}: in (3, {T}, {S}, {S}, 3) -> logits (3, {C}), finite=True"
     assert served[1].startswith("[serve] ") and served[1].endswith("batch 3, 2 iters)")
+
+
+def test_export_cli_writes_an_artifact_per_platform(exported, tmp_path, monkeypatch, capsys):
+    """``--platforms cpu`` writes ``<out>.cpu.pt2``, whose logits are the
+    live model's; ``--load <out>`` picks the file of this host's platform."""
+    _, _, cfg, _ = exported
+    import yaml
+
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    out = tmp_path / "o" / "clf.pt2"
+    monkeypatch.setattr(sys, "argv", ["export_serving", "--config", str(cfg_path), "--base", "",
+                                      "--out", str(out), "--device", "cpu",
+                                      "--platforms", "cpu"])
+    export_serving.main()
+    cpu_path = tmp_path / "o" / "clf.cpu.pt2"
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1].startswith(f"[export] wrote {cpu_path} (") and not os.path.exists(out)
+    assert export_serving.pick_artifact(str(out)) == str(cpu_path)
+    program = torch.export.load(str(cpu_path))
+    assert export_serving.artifact_input(program)[1] == torch.device("cpu")
+    live = run_dynamic.load_classifier(cfg, torch.float32, torch.device("cpu"), lambda m: None)
+    clip = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, T, S, S, 3)).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_allclose(program.module()(clip).numpy(), live(clip).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(sys, "argv", ["export_serving", "--load", str(out), "--batch", "2",
+                                      "--iters", "1"])
+    export_serving.main()
+    served = capsys.readouterr().out.splitlines()
+    assert served[0] == (f"[serve] {cpu_path}: in (2, {T}, {S}, {S}, 3) -> logits "
+                         f"(2, {C}), finite=True")
+
+
+@pytest.mark.parametrize("platforms", [["tpu"], ["cpu", "gpu"]])
+def test_export_refuses_an_unknown_platform(tmp_path, monkeypatch, platforms):
+    """A name that is not a torch device type raises before any export."""
+    out = tmp_path / "clf.pt2"
+    monkeypatch.setattr(sys, "argv", ["export_serving", "--config", "unread.yaml",
+                                      "--out", str(out), "--platforms", *platforms])
+    with pytest.raises(ValueError, match="unknown platform"):
+        export_serving.main()
+    with pytest.raises(ValueError, match="unknown platform"):
+        export_serving.export_platforms({}, "cpu", platforms)
+    assert not list(tmp_path.iterdir())

@@ -102,16 +102,16 @@ def test_plain_backward_matches_jax_vjp_and_xla(d):
 def test_wrapper_takes_every_head_dim_up_to_256():
     """Every d in 1..1024 passes the kernels' checks, up to 256 and past it
     (the wide kernels), in both dtypes; at each d only a grid of 2^31 CTAs
-    or more raises: B = L = 2^16 overflows at d = 1024 (16 column blocks
-    of 32-row tiles), and B = 2^14 with L = 2^16 does not."""
+    or more raises: B = 2^19 with L = 2^16 overflows at d = 1024 (2 column
+    groups of 32-row tiles), and B = 2^14 does not."""
     for d in range(1, 1025):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.zeros(1, 3, 2 * d, dtype=dtype)
             assert fa._check_kernel_args(x, x, x, 2)[-1] == d
-    assert fa.grid_ctas(2**14, 2**16, 1, 1024) < 2**31 <= fa.grid_ctas(2**16, 2**16, 1, 1024)
+    assert fa.grid_ctas(2**14, 2**16, 1, 1024) < 2**31 <= fa.grid_ctas(2**19, 2**16, 1, 1024)
     fits = torch.zeros(1, 1, 1024).expand(2**14, 2**16, 1024)
     assert fa._check_kernel_args(fits, fits, fits, 1)[-1] == 1024
-    big = torch.zeros(1, 1, 1024).expand(2**16, 2**16, 1024)
+    big = torch.zeros(1, 1, 1024).expand(2**19, 2**16, 1024)
     with pytest.raises(ValueError, match="at head dim 1024 exceeds the kernel grid"):
         fa._check_kernel_args(big, big, big, 1)
 
@@ -174,6 +174,37 @@ def test_kernel_widths_match_the_cuda_sources():
         assert tuple(int(c) for c in cases) == fa.KERNEL_WIDTHS, source
         assert re.search(r"default:\s+return head_dim > flash_mma::kMaxHeadDim \? "
                          r"launch_wide\(dtype, a\)", text), source
+
+
+@pytest.mark.parametrize("d", [300, 384, 512, 1024])
+def test_grid_ctas_holds_the_wide_launchers_geometry(d):
+    """Above d = 256 grid_ctas is the most CTAs that any wide launch puts in
+    grid.x, read from the CUDA sources: every grid_x(L, rows, groups) of both
+    launch_wide()s, rows per tile their constants, one CTA per column group
+    of kGroupChunks chunks of kWideCols columns (wide_groups)."""
+    header = (CSRC / "flash_mma.cuh").read_text()
+    cols = int(re.search(r"constexpr int kWideCols = (\d+);", header).group(1))
+    group = int(re.search(r"constexpr int kGroupChunks = (\d+);", header).group(1))
+    assert cols * group == fa.WIDE_GROUP
+    assert re.search(r"wide_chunks\(int d\) \{ return \(d \+ kWideCols - 1\) / kWideCols; \}",
+                     header)
+    assert re.search(r"wide_groups\(int d\) \{\s*return \(wide_chunks\(d\) \+ kGroupChunks - 1\) "
+                     r"/ kGroupChunks;", header)
+    rows = []
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        text = (CSRC / source).read_text()
+        consts = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+        body = re.search(r"int launch_wide\(int dtype, const Args& a\) \{(.*?)\n\}", text,
+                         re.S).group(1)
+        assert "const int groups = wide_groups(a.d);" in body, source
+        calls = re.findall(r"grid_x\(a\.L[qk], (\w+), (?:a, groups|groups, a)\)", body)
+        assert len(calls) == body.count("grid_x("), source  # every launch by its group count
+        rows += [consts[name] for name in calls]
+    assert sorted(set(rows)) == [32, 64] and min(rows) == fa.WIDE_TILE_ROWS
+    groups = -(-(-(-d // cols)) // group)
+    assert groups == (2 if d == 1024 else 1)
+    for B, L, H in ((1, 1, 1), (4, 3136, 1), (16, 288, 2), (3, 65, 5), (2**19, 2**16, 1)):
+        assert fa.grid_ctas(B, L, H, d) == max(-(-L // r) * groups * H * B for r in rows)
 
 
 # --- one pipeline-B step with the decoder as 3 heads of 128 or 1 of 384 -----

@@ -94,9 +94,10 @@ def test_kernel_matches_plain(dev, B, Lq, Lk, H, d, dtype):
 
 
 def _overflowing(dev, d=1024):
-    """One row expanded to B = L = 2^16 at head dim d: 2^31 CTAs or more in
-    a wide kernel's grid, without the memory."""
-    return torch.zeros(1, 1, d, device=dev).expand(2**16, 2**16, d)
+    """One row expanded to B = 2^19, L = 2^16 at head dim d: 2^31 CTAs or
+    more in a wide kernel's grid (2 column groups of 32-row tiles at d =
+    1024), without the memory."""
+    return torch.zeros(1, 1, d, device=dev).expand(2**19, 2**16, d)
 
 
 def test_kernel_refuses_instead_of_falling_back(dev):
@@ -170,7 +171,7 @@ def test_backward_kernel_refuses_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         fa.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, dout.half(), 2)
     big = _overflowing(dev)
-    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**16, 2**16, 1)
+    big_lse = torch.zeros(1, 1, 1, device=dev).expand(2**19, 2**16, 1)
     before = (fa.bwd_launches.count, fa.wide_bwd_launches.count)
     with pytest.raises(ValueError, match="exceeds the kernel grid"):
         fa.flash_attention_bwd(big, big, big, big, big_lse, big, 1)
@@ -182,12 +183,16 @@ def test_backward_kernel_refuses_instead_of_falling_back(dev):
 
 
 # head dims above the widest kernel width, 256, that the wide kernels run
-# in chunks of 64 columns: just past it, a chunk edge past it in 16-byte
-# copies (264), one staged element by element (300), the one-head decoders
-# of pipelines B (384) and C (512), and 1024
-WIDE_HEAD_DIMS = (257, 264, 300, 384, 512, 1024)
-# one row, the edges of the bf16 kernels' 64-row tiles, and more than 3 tiles
-# (the fp32 ones take 32 rows)
+# in chunks of 64 columns: just past it, a chunk edge past it in TMA copies
+# (264), one staged element by element (300), the one-head decoders of
+# pipelines B (384) and C (512), just past one column group of 512 (513,
+# element by element; 520, by the TMA: two groups, d streamed in steps of 4
+# chunks), 1024 (the widest whose own rows stay resident in shared memory)
+# and past it 1088 (TMA) and 1089 (element by element), whose own rows are
+# streamed with each step's chunks
+WIDE_HEAD_DIMS = (257, 264, 300, 384, 512, 513, 520, 1024, 1088, 1089)
+# one row, the edges of the 64-row (and 32-row) tiles and of the ring's
+# 64-key (and 32-row) steps, and more than 3 tiles
 WIDE_LENGTHS = (1, 63, 65, 200)
 
 
@@ -197,8 +202,8 @@ def test_wide_heads_match_plain_at_tile_edges(dev, d, dtype):
     """K1 and K2 above d = 256 against their plain versions at every Lq x
     Lk of the edges, 2 heads of strided thirds, at the tolerances above:
     out at every column and, apart, at the columns where two 64-column
-    blocks meet; lse (one block writes it) at every row; the gradients.
-    Each call counts one wide launch."""
+    chunks meet; lse (one CTA of a row tile writes it) at every row; the
+    gradients. Each call counts one wide launch."""
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     meet = [h * d + c for h in range(2) for edge in range(64, d, 64) for c in (edge - 1, edge)]
     for Lq in WIDE_LENGTHS:
@@ -226,6 +231,23 @@ def test_wide_heads_match_plain_at_tile_edges(dev, d, dtype):
                 assert got.dtype == dtype and torch.isfinite(got).all(), (Lq, Lk, name)
                 assert _rel_err(got, ref, scale) <= tol, (Lq, Lk, name,
                                                           _rel_err(got, ref, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 1024, 1088, 1089])
+def test_wide_gradients_are_deterministic(dev, d, dtype):
+    """Two K2 calls on the same inputs give bit-equal dQ, dK and dV: every
+    gradient has one writer and sums in a fixed order (the partial S and dP
+    of a tile are added in column-warp order), no atomics."""
+    q, k, v = _strided_qkv(dev, 2, 200, 130, 2, d, dtype, seed=5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    dout = torch.randn(2, 200, 2 * d, device=dev, generator=g).to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, 2)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, 2)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, dout, 2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -352,19 +374,21 @@ def test_bf16_backward_at_tile_edges(dev, d, Lq):
 
 
 def test_bf16_flash_kernels_run_on_the_tensor_cores(dev):
-    """Every bf16 flash kernel's SASS holds bf16 tensor-core products
-    (HMMA.16816.F32.BF16), the wide kernels' too; the fp32 kernels hold
-    none."""
+    """Every bf16 flash kernel's SASS holds bf16 tensor-core products:
+    mma.sync (HMMA.16816.F32.BF16) at the seven widths and in K2's wide
+    kernels, wgmma (HGMMA) in K1's; the fp32 kernels hold neither."""
     libs = kernel_build.build()
     widths = len(fa.KERNEL_WIDTHS) + 1  # and the wide kernels
     for lib, kernels in (("flash_fwd", widths), ("flash_bwd", 2 * widths)):
-        counts = kernel_build.count_by_function(kernel_build.sass(libs[lib].path),
-                                                "HMMA.16816.F32.BF16")
-        bf16 = {f: n for f, n in counts.items() if "bf16_kernel" in f}
-        fp32 = {f: n for f, n in counts.items() if "fp32_kernel" in f}
-        assert len(bf16) == len(fp32) == kernels, (lib, counts)
-        assert all(n > 0 for n in bf16.values()), (lib, bf16)
-        assert not any(fp32.values()), (lib, fp32)
+        listing = kernel_build.sass(libs[lib].path)
+        hmma = kernel_build.count_by_function(listing, "HMMA.16816.F32.BF16")
+        hgmma = kernel_build.count_by_function(listing, "HGMMA")
+        bf16 = {f: (n, hgmma[f]) for f, n in hmma.items() if "bf16_kernel" in f}
+        fp32 = {f: (n, hgmma[f]) for f, n in hmma.items() if "fp32_kernel" in f}
+        assert len(bf16) == len(fp32) == kernels, (lib, hmma)
+        for f, (n, g) in bf16.items():
+            assert (g if "fwd_wide" in f else n) > 0, (lib, f, n, g)
+        assert not any(n or g for n, g in fp32.values()), (lib, fp32)
 
 
 def test_misaligned_bf16_view_raises_on_the_card(dev):
