@@ -16,6 +16,8 @@ Under a ``data`` or ``seq`` mesh every rank holds the whole split, as the
 JAX package replicates it over the mesh, and walks the same epoch order;
 ``epoch_batches(..., mesh=)`` gathers only this rank's rows, or its frames
 of every clip, on its own card.
+
+A batch's gather is a ``store.gather`` span (``utils/tracing.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import concurrent.futures as cf
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .loader import ClipDataset, _epoch_order, iter_batch_indices
 
 
@@ -87,11 +90,12 @@ class DeviceClipStore:
         for idxs_full, valid in iter_batch_indices(
                 len(self), batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
                 drop_last=drop_last):
-            idx = _index(idxs_full[rows], self.device)
-            batch = {"clip": _frames(self.clips.index_select(0, idx), frames),
-                     "valid": torch.from_numpy(valid[rows]).to(self.device)}
-            if self.labels is not None:
-                batch["label"] = self.labels.index_select(0, idx)
+            with tracing.span("store.gather"):
+                idx = _index(idxs_full[rows], self.device)
+                batch = {"clip": _frames(self.clips.index_select(0, idx), frames),
+                         "valid": torch.from_numpy(valid[rows]).to(self.device)}
+                if self.labels is not None:
+                    batch["label"] = self.labels.index_select(0, idx)
             yield batch
 
 
@@ -187,11 +191,12 @@ class ChunkedDeviceClipStore:
                     else:
                         valid = np.ones(batch_size, bool)
                     local, sel, valid = local[rows], sel[rows], valid[rows]
-                    batch = {"clip": _frames(arr.index_select(0, _index(local, self.device)),
-                                             frames),
-                             "valid": torch.from_numpy(valid).to(self.device)}
-                    if self.labels is not None:
-                        batch["label"] = self.labels.index_select(0, _index(sel, self.device))
+                    with tracing.span("store.gather"):
+                        clips = arr.index_select(0, _index(local, self.device))
+                        batch = {"clip": _frames(clips, frames),
+                                 "valid": torch.from_numpy(valid).to(self.device)}
+                        if self.labels is not None:
+                            batch["label"] = self.labels.index_select(0, _index(sel, self.device))
                     yield batch
                 del arr  # freed once the gathers queued on it have run
         finally:

@@ -26,6 +26,7 @@ import torch
 from ..models.dynamic import early_exit_batched, select_topk_frames, streaming_early_exit
 from ..ops.preprocess import normalize_clip
 from ..train import finetune_engine as eng
+from ..utils import tracing
 from ..utils.checkpoint import checkpoint_path, read_checkpoint
 from ..utils.io import ensure_dir, write_csv
 from ..utils.prng import set_seed
@@ -67,7 +68,7 @@ def _topk_np(logits: np.ndarray, labels: np.ndarray, ks=(1, 5)):
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    return tracing.host_read(t).numpy()
 
 
 def _valid_rows(arr: np.ndarray, valid: np.ndarray) -> np.ndarray:

@@ -10,7 +10,8 @@ H100's bf16 peak on a card) + ETA logging, encoder-only checkpoints every
 MoE decoder (``model.decoder_moe_*``, its load-balance auxiliary weighted by
 ``ssl.moe_aux_weight``, default 0.01) and the 64-frame long clip
 (``configs/ssl_mae_longclip.yaml``) run as configured;
-``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``;
+``logging.profile_dir`` traces the first 8 steps with ``torch.profiler``,
+the port's spans on (``utils/tracing.py``) so that its trace carries them;
 ``logging.tensorboard`` writes ``Train/Loss``, ``Train/Throughput`` and
 ``Train/MFU`` at every logged step through ``tensorboardX`` on rank 0
 (under ``training.save_dir``; a warning where it is missing).
@@ -51,6 +52,7 @@ from ..parallel.shard import full_state_dict
 from ..train.finetune_engine import init_model
 from ..train.mae_engine import make_pixel_mae_step, wrap_accum_and_skip
 from ..train.state import create_train_state, make_optimizer, warmup_cosine_schedule
+from ..utils import tracing
 from ..utils.checkpoint import save_checkpoint
 from ..utils.io import ensure_dir
 from ..utils.metrics import pipeline_b_mfu, pipeline_b_model_kwargs
@@ -93,17 +95,26 @@ PROFILE_STEPS = 8  # logging.profile_dir traces the first steps, as the JAX entr
 
 
 def start_profiler(device: torch.device):
-    """A started ``torch.profiler`` over the host and, on a card, the device."""
+    """A started ``torch.profiler`` over the host and, on a card, the device,
+    with the port's spans on: each is a ``ssl_vit.<name>`` range of its
+    trace."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=acts)
     profiler.start()
+    tracing.enable()
     return profiler
 
 
+def _host(x: torch.Tensor) -> float:
+    return float(tracing.host_read(x))
+
+
 def stop_profiler(profiler, profile_dir: str, log=print) -> str:
-    """Stop ``profiler`` and write its chrome trace under ``profile_dir``."""
+    """Turn the spans off, stop ``profiler`` and write its chrome trace under
+    ``profile_dir``."""
+    tracing.disable()
     profiler.stop()
     ensure_dir(profile_dir)
     path = os.path.join(profile_dir, "train_ssl_mae_trace.json")
@@ -221,29 +232,29 @@ def run(cfg: dict, log=print, max_steps: int | None = None,
             if on_step is not None:
                 on_step(global_step, state, metrics)
             if step % log_interval == 0:
-                last_loss = float(metrics["loss"])  # waits for the device
+                last_loss = _host(metrics["loss"])  # waits for the device
                 dt = time.perf_counter() - t_ep
                 ips = seen / max(dt, 1e-9)
                 eta = (steps_per_epoch - step) * (dt / step)
                 mfu = (pipeline_b_mfu(ips, T, S, cards=cards, **mfu_kwargs)
                        if device.type == "cuda" else 0.0)
-                moe = (f" moe_aux={float(metrics['moe_aux']):.3f}"
+                moe = (f" moe_aux={_host(metrics['moe_aux']):.3f}"
                        if "moe_aux" in metrics else "")
                 log(f"[INFO] ep={epoch} step={step}/{steps_per_epoch} "
-                    f"loss={last_loss:.4f} pred_std={float(metrics['pred_std']):.4f} "
-                    f"gnorm={float(metrics['grad_norm']):.2e} "
+                    f"loss={last_loss:.4f} pred_std={_host(metrics['pred_std']):.4f} "
+                    f"gnorm={_host(metrics['grad_norm']):.2e} "
                     f"clips/s={ips:.1f} mfu={mfu:.3f} eta={eta:.0f}s{moe}")
                 if tb is not None:
                     tb.add_scalar("Train/Loss", last_loss, global_step)
                     tb.add_scalar("Train/Throughput", ips, global_step)
                     tb.add_scalar("Train/MFU", mfu, global_step)
-                if float(metrics["collapse"]) > 0:
+                if _host(metrics["collapse"]) > 0:
                     log("[WARN:pred_std_low] possible representation collapse")
             if max_steps is not None and global_step >= max_steps:
                 break
         if metrics is not None:
-            last_loss = float(metrics["loss"])
-        loss_mean = (float(torch.stack(epoch_losses).mean())
+            last_loss = _host(metrics["loss"])
+        loss_mean = (_host(torch.stack(epoch_losses).mean())
                      if epoch_losses else float("nan"))
         log(f"[INFO] epoch {epoch} done in {time.perf_counter() - t_ep:.1f}s "
             f"loss={last_loss:.4f} loss_mean={loss_mean:.4f}")

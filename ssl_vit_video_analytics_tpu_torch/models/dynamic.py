@@ -5,19 +5,27 @@ Two early-exit implementations with identical statistics:
 
 - :func:`streaming_early_exit` encodes one frame of the whole batch per step
   and stops as soon as every sample has exited; each frame is encoded at most
-  once. The loop condition reads one bool back from the device per step.
+  once. The loop condition reads one bool back from the device per step
+  (``utils/tracing.host_read``, counted under ``host_syncs``).
 - :func:`early_exit_batched` encodes all visited frames in one ``[B*M]``
   batch and rebuilds the running means as prefix sums, added left to right
   in the streaming order and dtype (an explicit loop over M <= 16, not
   ``torch.cumsum``, whose summation order is not specified), so
   ``used_frames``/``final_conf``/logits are bit-identical given bit-identical
   embeddings.
+
+Either counts its calls in the ``early_exit.batches`` counter.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils import tracing
+
+# batches served by either implementation, in this process
+BATCHES = tracing.counter("early_exit.batches")
 
 
 class EarlyExitStats(NamedTuple):
@@ -88,6 +96,7 @@ def streaming_early_exit(
     frame_step = max(int(frame_step), 1)
     min_frames = max(int(min_frames), 1)
     dev = clip.device
+    BATCHES.count += 1
 
     sum_emb = embed_fn(clip[:, 0])
     cnt = torch.ones((B,), dtype=torch.int32, device=dev)
@@ -110,7 +119,7 @@ def streaming_early_exit(
     decided, final_logits, used = check_and_update(sum_emb, cnt, decided,
                                                    final_logits, used)
     t = 1
-    while t < T and not bool(decided.all()):
+    while t < T and not tracing.host_read(decided.all()):
         emb = embed_fn(clip[:, t])
         active = ~decided
         sum_emb = sum_emb + torch.where(active[:, None], emb, torch.zeros_like(emb))
@@ -144,6 +153,7 @@ def early_exit_batched(
         clip = clip[:, :T]
     frame_step = max(int(frame_step), 1)
     min_frames = max(int(min_frames), 1)
+    BATCHES.count += 1
 
     # visited-frame schedule of the streaming loop: 0 first, then 1, 1+s, ...
     visit = [0] + list(range(1, T, frame_step))

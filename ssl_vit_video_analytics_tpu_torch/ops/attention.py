@@ -16,12 +16,21 @@ both go through the autograd Function ``flash_attention.FlashAttention``:
 
 Layouts are the JAX package's: ``[B, L, H, Dh]`` for :func:`sdpa`, packed
 ``[B, L, H*Dh]`` for :func:`attention_packed`.
+
+While tracing is on (``utils/tracing.py``), each call is an ``attn.fwd``
+span, whatever the implementation, and its backward an ``attn.bwd`` span,
+both with the attrs of :func:`attention_attrs`. The backward's range is
+opened and closed from outside the call's autograd nodes, by identity
+functions on its output and inputs, so that it holds the kernels those
+nodes launch (K2's ctypes launches hang off the node itself).
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.profiler import record_function
 
 from ..parallel.sp import sp_attention_packed
+from ..utils import tracing
 from .flash_attention import flash_attention_packed
 
 # The sequence-parallel group registered by the training entry
@@ -40,15 +49,67 @@ def get_sp_group():
     return _SP_GROUP
 
 
-def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     num_heads: int, impl: str | None = None) -> torch.Tensor:
-    """softmax(q k^T / sqrt(Dh)) v over packed ``[B, L, H*Dh]`` inputs;
-    ``impl`` None is ``"kernel"``."""
+def attention_attrs(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> dict:
+    """The attrs of an ``attn.fwd`` or ``attn.bwd`` span: the call's shape
+    over packed q/k and its dtype."""
+    B, Lq, HD = q.shape
+    return {"B": B, "Lq": Lq, "Lk": k.shape[1], "H": num_heads, "d": HD // num_heads,
+            "dtype": q.dtype}
+
+
+class _BwdOpen(torch.autograd.Function):
+    """Identity on a call's output; its backward, the first of the call's,
+    opens the call's ``attn.bwd`` range."""
+
+    @staticmethod
+    def forward(ctx, box, out):
+        ctx.box = box
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.box["range"] = record_function(ctx.box["name"])
+        ctx.box["range"].__enter__()
+        return None, g
+
+
+class _BwdClose(torch.autograd.Function):
+    """Identity on a call's q, k, v; its backward, the last of the call's,
+    closes the range :class:`_BwdOpen` opened."""
+
+    @staticmethod
+    def forward(ctx, box, q, k, v):
+        ctx.box = box
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        ctx.box.pop("range").__exit__(None, None, None)
+        return None, gq, gk, gv
+
+
+def _attention(q, k, v, num_heads, impl):
     if impl == "sp":
         if _SP_GROUP is not None:
             return sp_attention_packed(q, k, v, num_heads, _SP_GROUP)
         impl = None
     return flash_attention_packed(q, k, v, num_heads, impl or "kernel")
+
+
+def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     num_heads: int, impl: str | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh)) v over packed ``[B, L, H*Dh]`` inputs;
+    ``impl`` None is ``"kernel"``."""
+    if not tracing.enabled():
+        return _attention(q, k, v, num_heads, impl)
+    attrs = attention_attrs(q, k, num_heads)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if grad:
+        box = {"name": tracing.range_name("attn.bwd", attrs)}
+        q, k, v = _BwdClose.apply(box, q, k, v)
+    with tracing.span("attn.fwd", attrs):
+        out = _attention(q, k, v, num_heads, impl)
+    return _BwdOpen.apply(box, out) if grad else out
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

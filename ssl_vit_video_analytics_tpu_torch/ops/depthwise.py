@@ -20,14 +20,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import kernel_build
-from .kernel_build import LaunchCounter
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VECTOR_BYTES = 16  # one thread loads 16 bytes of channels
 
 # P1 launches in this process (one per launch, added where it launches)
-launches = LaunchCounter()
+launches = tracing.counter("dw3x3.launches")
 
 
 def dw3x3_plain(x: torch.Tensor, w: torch.Tensor, H: int, W: int) -> torch.Tensor:

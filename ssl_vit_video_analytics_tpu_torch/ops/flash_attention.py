@@ -44,8 +44,8 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import tracing
 from . import kernel_build
-from .kernel_build import LaunchCounter
 
 # the widths the kernels are built for (csrc/flash_mma.cuh, kernel_width);
 # a head dim up to the largest runs at the least one that holds it, a wider
@@ -63,14 +63,14 @@ _MAX_GRID_X = 2**31 - 1
 _ALIGN_BYTES = 16
 
 # K1 launches in this process (one per launch, added where it launches)
-launches = LaunchCounter()
+launches = tracing.counter("flash_fwd.launches")
 # K2 calls in this process (one per call of the wrapper that launches its
 # two kernels, dK/dV and dQ, added where it launches them)
-bwd_launches = LaunchCounter()
+bwd_launches = tracing.counter("flash_bwd.launches")
 # of those, the launches and calls at a head dim above KERNEL_WIDTHS[-1]
 # (the wide kernels)
-wide_launches = LaunchCounter()
-wide_bwd_launches = LaunchCounter()
+wide_launches = tracing.counter("flash_fwd_wide.launches")
+wide_bwd_launches = tracing.counter("flash_bwd_wide.launches")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

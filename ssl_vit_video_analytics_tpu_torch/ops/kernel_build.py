@@ -55,16 +55,6 @@ LIBRARIES: dict[str, tuple[str, dict[str, tuple[list, object]]]] = {
 }
 
 
-class LaunchCounter:
-    """Counts kernel launches; ``count`` is a plain int."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
-
 @dataclass
 class KernelLibrary:
     lib: ctypes.CDLL

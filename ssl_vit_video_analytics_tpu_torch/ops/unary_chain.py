@@ -19,15 +19,15 @@ import math
 
 import torch
 
+from ..utils import tracing
 from . import kernel_build
-from .kernel_build import LaunchCounter
 
 OPS = ("exp", "tanh", "gelu", "fma")
 DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # P2 launches in this process (one per launch, added where it launches)
-launches = LaunchCounter()
+launches = tracing.counter("unary_chain.launches")
 
 
 # the JAX probe's constants, each taken in the working type

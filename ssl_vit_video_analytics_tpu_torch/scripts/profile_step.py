@@ -1,8 +1,8 @@
 """Where the pretraining step's device time goes: ``torch.profiler`` over a
-few steps (2, after 3 warm-up steps) of the port's ``entry.train_ssl_mae.run`` on
-``configs/ssl_mae.yaml`` (or another pipeline-B config: ``--config``; over
-``configs/base.yaml``) as it stands, on a synthetic 40-clip split of
-64-frame 112x112 videos with random weights.
+few steps (2, after 3 warm-up steps and 4 updates' timed ones) of the port's
+``entry.train_ssl_mae.run`` on ``configs/ssl_mae.yaml`` (or another
+pipeline-B config: ``--config``; over ``configs/base.yaml``) as it stands,
+on a synthetic 40-clip split of 64-frame 112x112 videos with random weights.
 
     python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step
     python -m ssl_vit_video_analytics_tpu_torch.scripts.profile_step \
@@ -18,7 +18,13 @@ under ``aten::einsum``: no other op of the step is an einsum; their
 backward runs as batched matmuls among the expert bank's and is not told
 apart), the kernels with the most device time per step, and the device time
 of every 3x3 depthwise conv (cuDNN's, forward and backward, by input shape,
-with the kernels each launched).
+with the kernels each launched). The port's spans are on while it profiles
+(``utils/tracing.py``): it also prints each span's calls and the device time
+of the kernels launched inside it a step (``train.update``: the optimizer;
+``attn.bwd``: K2 and what the backward launches around it), the
+``host_syncs`` reads a step, and the host-clock ms of the unprofiled
+steps before, taken in turns with the spans on and off a whole update at
+a time, so that each side holds as many updates (their on cost).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
 from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
+from ssl_vit_video_analytics_tpu_torch.utils import tracing
 from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -85,7 +92,28 @@ def depthwise_3x3(events, steps: int) -> list[dict]:
             for r in sorted(rows.values(), key=lambda r: -r["us"])]
 
 
-def run(warm: int = 3, steps: int = 2, top: int = 25,
+def spans(events, steps: int) -> dict[str, dict]:
+    """Calls and device ms per step of each of the port's spans, by name
+    (the host's ``ssl_vit.<name>`` ranges, attrs left out): the kernels
+    launched inside a range, those of the spans inside it included, and of
+    them K1's and K2's."""
+    rows: dict[str, dict] = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.name.startswith(tracing.PREFIX):
+            continue
+        name = e.name[len(tracing.PREFIX):].split("(", 1)[0]
+        row = rows.setdefault(name, {"calls_per_step": 0.0, "device_ms_per_step": 0.0,
+                                     **{g: 0.0 for g in GROUPS}})
+        row["calls_per_step"] += 1 / steps
+        for kernel, us in _kernels(e).items():
+            row["device_ms_per_step"] += us / 1e3 / steps
+            for g, prefixes in GROUPS.items():
+                if any(p in kernel for p in prefixes):
+                    row[g] += us / 1e3 / steps
+    return dict(sorted(rows.items()))
+
+
+def run(warm: int = 3, steps: int = 2, top: int = 25, timed: int = 2,
         config: str = os.path.join(REPO, "configs", "ssl_mae.yaml"),
         overrides: tuple[str, ...] = ()) -> dict:
     if not torch.cuda.is_available():
@@ -102,19 +130,30 @@ def run(warm: int = 3, steps: int = 2, top: int = 25,
         cfg.setdefault("logging", {})["tensorboard"] = False
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                        record_shapes=True)
-        marks = {}
+        marks, syncs = {}, {}
+        accum = int(cfg["training"].get("accumulation_steps", 1))
+        start = warm + 2 * timed * accum  # the first profiled step follows this one
+
+        def spans_on(i):  # whether timed step i + 1 runs with the spans on
+            return (i - warm) // accum % 2 == 0
 
         def on_step(i, state, metrics):
             torch.cuda.synchronize()
             marks[i] = time.perf_counter()
-            if i == warm:
+            syncs[i] = tracing.HOST_SYNCS.count
+            if warm <= i < start:  # the timed steps: an update on, one off, ...
+                (tracing.enable if spans_on(i) else tracing.disable)()
+            elif i == start:
                 prof.start()
-            elif i == warm + steps:
+                tracing.enable()
+            elif i == start + steps:
+                tracing.disable()
                 prof.stop()
 
-        train_ssl_mae.run(cfg, log=lambda m: None, max_steps=warm + steps, on_step=on_step,
+        train_ssl_mae.run(cfg, log=lambda m: None, max_steps=start + steps, on_step=on_step,
                           device="cuda")
-    wall_ms = 1e3 * (marks[warm + steps] - marks[warm])
+    timed_ms = {i: 1e3 * (marks[i + 1] - marks[i]) for i in range(warm, start)}
+    wall_ms = 1e3 * (marks[start + steps] - marks[start])
     # device events, less the ranges that annotate the timeline (the
     # optimizer step's) and would count their kernels twice
     kernels = [e for e in prof.key_averages()
@@ -130,7 +169,7 @@ def run(warm: int = 3, steps: int = 2, top: int = 25,
         "device": torch.cuda.get_device_name(0),
         "config": os.path.relpath(config, REPO), "overrides": list(overrides),
         "steps": steps,
-        "step_ms": [1e3 * (marks[i + 1] - marks[i]) for i in range(warm, warm + steps)],
+        "step_ms": [1e3 * (marks[i + 1] - marks[i]) for i in range(start, start + steps)],
         "device_ms_per_step": device_ms / steps,
         "idle_share": 1.0 - device_ms / wall_ms,
         "groups_ms_per_step": groups,
@@ -138,6 +177,10 @@ def run(warm: int = 3, steps: int = 2, top: int = 25,
             {"name": e.key[:120], "ms": _device_us(e) / 1e3 / steps, "calls": e.count // steps}
             for e in by_name[:top]],
         "depthwise_3x3_ms_per_step": depthwise_3x3(prof.events(), steps),
+        "spans_per_step": spans(prof.events(), steps),
+        "host_syncs_per_step": (syncs[start + steps] - syncs[start]) / steps,
+        "spans_on_step_ms": [ms for i, ms in timed_ms.items() if spans_on(i)],
+        "spans_off_step_ms": [ms for i, ms in timed_ms.items() if not spans_on(i)],
     }
 
 

@@ -27,8 +27,16 @@ global norm and the finite check see every shard once
 (``train/state.Shards``). Pipeline B's decoder can instead run pipeline
 parallel over a ``pipe`` mesh (``pp_mesh``, ``parallel/pp.py``): the batch
 is whole on every stage, and the loss and metrics come from the last.
+
+Each call of a step is a ``train.step`` span (``utils/tracing.py``; the
+``train.steps`` counter counts the calls) over ``train.forward`` (the model and the loss),
+``train.backward`` (the gradients) and ``train.update`` (the optimizer);
+a pipelined decoder's forward and backward interleave, and are left as
+part of the step.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -40,11 +48,27 @@ from ..ops.preprocess import normalize_clip
 from ..parallel.collectives import all_reduce
 from ..parallel.mesh import global_clip_shape, local_draws, local_part
 from ..parallel.pp import Pipeline
+from ..utils import tracing
 from .losses import build_mae_loss, global_std, mae_loss_l2, reconstruction_error_stats
 from .state import (ApplyIfFinite, MultiSteps, TrainState, apply_updates, global_norm,
                     shards_of)
 
 COLLAPSE_STD_THRESHOLD = 0.05  # ref: src/mae/engine.py:143-145
+
+# calls of a train step (of either pipeline) in this process
+STEPS = tracing.counter("train.steps")
+
+
+def _traced(step):
+    """``step`` as one ``train.step`` span a call, counted in ``STEPS``."""
+
+    @functools.wraps(step)
+    def traced(state: TrainState, *args, **kwargs):
+        STEPS.count += 1
+        with tracing.span("train.step"):
+            return step(state, *args, **kwargs)
+
+    return traced
 
 
 def _total(x: torch.Tensor, group) -> torch.Tensor:
@@ -160,25 +184,29 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
                 model, state.params, clip, mask, drop,
                 lambda p: mae_loss_l2(p, target, flat_mask, normalize_target=norm_pix_loss),
                 pp_mesh, n_micro)
-            apply_updates(state, grads, None, shards)
+            with tracing.span("train.update"):
+                apply_updates(state, grads, None, shards)
             # the last stage's loss and prediction statistics, on every stage
             shared = (clip.new_zeros(2, dtype=torch.float32) if loss is None
                       else torch.stack([loss.detach(), global_std(pred.detach())]))
             loss, pred_std = all_reduce(shared, pp_mesh.group("pipe"))
         else:
             with global_batch(model, group, _split(mesh)):
-                if moe_aux_on:
-                    pred, auxes = model(clip, mask, drop, with_aux=True, frame_offset=t0)
-                    aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
-                    loss = (mae_loss_l2(pred, target, flat_mask,
-                                        normalize_target=norm_pix_loss, group=group)
-                            + moe_aux_weight * aux)
-                else:
-                    pred = model(clip, mask, drop, frame_offset=t0)
-                    loss = mae_loss_l2(pred, target, flat_mask, normalize_target=norm_pix_loss,
-                                       group=group)
-                grads = torch.autograd.grad(loss, state.params)
-            apply_updates(state, grads, group, shards)
+                with tracing.span("train.forward"):
+                    if moe_aux_on:
+                        pred, auxes = model(clip, mask, drop, with_aux=True, frame_offset=t0)
+                        aux = torch.stack(auxes).mean()  # over the decoder's MoE blocks
+                        loss = (mae_loss_l2(pred, target, flat_mask,
+                                            normalize_target=norm_pix_loss, group=group)
+                                + moe_aux_weight * aux)
+                    else:
+                        pred = model(clip, mask, drop, frame_offset=t0)
+                        loss = mae_loss_l2(pred, target, flat_mask,
+                                           normalize_target=norm_pix_loss, group=group)
+                with tracing.span("train.backward"):
+                    grads = torch.autograd.grad(loss, state.params)
+            with tracing.span("train.update"):
+                apply_updates(state, grads, group, shards)
             pred_std = global_std(pred.detach(), group)
             loss = _total(loss.detach(), group)
         metrics = {"loss": loss, "pred_std": pred_std,
@@ -188,7 +216,7 @@ def make_pixel_mae_step(model, mask_ratio: float, patch_size: int = 8,
             metrics["moe_aux"] = _total(aux.detach(), group)
         return state, metrics
 
-    return step
+    return _traced(step)
 
 
 def traced_mask_count(n: int, mask_ratio: float) -> int:
@@ -205,9 +233,11 @@ def token_mae_loss_and_grads(model, params, clip, token_mask, drop, loss_fn, gro
     statistics). Returns ``(loss, rec, target, grads)``."""
     model.train()
     with global_batch(model, group, split):
-        rec, target = model(clip, token_mask, drop)
-        loss = loss_fn(rec, target, token_mask)
-        grads = torch.autograd.grad(loss, params)
+        with tracing.span("train.forward"):
+            rec, target = model(clip, token_mask, drop)
+            loss = loss_fn(rec, target, token_mask)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
     return loss.detach(), rec.detach(), target, grads
 
 
@@ -264,14 +294,15 @@ def make_token_mae_step(model, tokens_per_frame: int, mask_mode: str = "random",
                                                             token_mask, drop, loss_fn, group,
                                                             _split(mesh))
         shards = shards_of(state.params, mesh)
-        apply_updates(state, grads, group, shards)
+        with tracing.span("train.update"):
+            apply_updates(state, grads, group, shards)
         loss = _total(loss, group)
         stats = reconstruction_error_stats(rec, target, token_mask, group)
         metrics = {"loss": loss, **stats, "grad_norm": global_norm(grads, shards),
                    "collapse": (stats["pred_std"] < COLLAPSE_STD_THRESHOLD).float()}
         return state, metrics
 
-    return step
+    return _traced(step)
 
 
 def wrap_accum_and_skip(tx, accum_steps: int = 1, skip_nonfinite: bool = True):

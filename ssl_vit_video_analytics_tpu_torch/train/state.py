@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from ..parallel.collectives import all_reduce, all_reduce_grads
+from ..utils import tracing
 
 
 def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
@@ -116,11 +117,12 @@ def global_norm(tensors: Sequence[torch.Tensor], shards: Shards | None = None) -
 
 def all_finite(tensors: Sequence[torch.Tensor], shards: Shards | None = None) -> bool:
     """Whether every entry is finite; with ``shards`` over the model axis's
-    ranks, so that all take the same decision."""
+    ranks, so that all take the same decision. The host waits for the
+    device here (a ``host_syncs`` read, once an update)."""
     bad = (~torch.stack([torch.isfinite(t).all() for t in tensors]).all()).float()
     if shards is not None:
         bad = all_reduce(bad, shards.group, op="max")
-    return not bool(bad)
+    return not bool(tracing.host_read(bad))
 
 
 class AdamW:

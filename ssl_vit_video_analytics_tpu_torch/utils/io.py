@@ -79,15 +79,3 @@ class Logger:
         if self._fh is not None:
             self._fh.close()
             self._fh = None
-
-
-class Timer:
-    """Context-managed wall-clock timer for throughput accounting."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.t0
-        return False

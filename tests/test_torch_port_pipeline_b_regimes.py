@@ -18,6 +18,7 @@ from ssl_vit_video_analytics_tpu.utils import metrics as jmetrics
 from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
 from ssl_vit_video_analytics_tpu_torch.entry import common, train_finetune, train_ssl_mae
 from ssl_vit_video_analytics_tpu_torch.utils import metrics as tmetrics
+from ssl_vit_video_analytics_tpu_torch.utils import tracing
 from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
 
 torch.set_num_threads(2)  # six test workers share the host
@@ -168,6 +169,11 @@ def test_entry_runs_the_moe_yaml_with_a_profiler_trace(split, tmp_path):
     with open(tmp_path / "prof" / "train_ssl_mae_trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::bmm" for e in events)  # the expert bank
+    # the port's spans, on while it profiled and off after
+    names = {str(e.get("name")).split("(", 1)[0] for e in events}
+    assert {"ssl_vit.train.step", "ssl_vit.train.update", "ssl_vit.attn.fwd",
+            "ssl_vit.attn.bwd"} <= names
+    assert not tracing.enabled()
 
 
 def test_finetune_entry_logs_and_runs_its_augmentation(tmp_path):
