@@ -80,9 +80,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    width (configs/dynamic.yaml: 101 classes, embed 256, batch 8, 16 frames,
    112x112, bf16) on a synthetic split, with random weights from a seeded
    generator, once streaming and once batched. K1's launch count in these
-   runs must be a positive multiple of 6 (3 MobileViT blocks x depth 2). One
-   batch is checked against the same weights run in fp32 through the plain
-   path on the CPU.
+   runs must be a positive multiple of 6 (3 MobileViT blocks x depth 2; a
+   CUDA graph's replay adds the launches its capture took back), and the
+   streaming run must step frames by replays (early_exit.graph_replays > 0).
+   One batch is checked against the same weights run in fp32 through the
+   plain path on the CPU.
 8. P1 vs plain, and the probe_dw entry: the depthwise kernel against its
    plain version in fp32 at [2, 56*56, 384] (TF32 off, 1e-5 abs) and in
    bf16 at 8 images and on the 256 images that the probe's bench times
@@ -1550,6 +1552,7 @@ def phase_slice(fa, dev) -> dict:
     from ssl_vit_video_analytics_tpu_torch.data.loader import iterate_batches
     from ssl_vit_video_analytics_tpu_torch.entry import common, run_dynamic
     from ssl_vit_video_analytics_tpu_torch.ops.preprocess import normalize_clip
+    from ssl_vit_video_analytics_tpu_torch.utils import tracing
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1558,20 +1561,26 @@ def phase_slice(fa, dev) -> dict:
         for impl in ("streaming", "batched"):
             cfg = slice_cfg(splits["val"], os.path.join(tmp, f"out_{impl}"), impl)
             reset_counts()
+            replays = tracing.counter("early_exit.graph_replays").count
+            capture_us = tracing.counter("early_exit.graph_capture_us").count
             t0 = time.perf_counter()
             out = run_dynamic.run(cfg, mode="early_exit", log=lambda m: None)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches[impl] = read_counts()
+            replays = tracing.counter("early_exit.graph_replays").count - replays
+            capture_us = tracing.counter("early_exit.graph_capture_us").count - capture_us
             k1 = launches[impl]["flash_attention_fwd"]
             rows = out["rows"]
             check_rows(rows, impl)
             if k1 <= 0 or k1 % 6:
                 raise AssertionError(f"{impl}: K1 launched {k1} times, "
                                      "not a positive multiple of 6")
+            if impl == "streaming" and replays <= 0:
+                raise AssertionError("streaming: no frame stepped by a CUDA graph's replay")
             rows_by_impl[impl] = rows
-            emit({"phase": "slice", "impl": impl, "k1_launches": k1,
-                  "seconds": seconds,
+            emit({"phase": "slice", "impl": impl, "k1_launches": k1, "graph_replays": replays,
+                  "graph_capture_s": capture_us / 1e6, "seconds": seconds,
                   "avg_latency_ms": {r["threshold"]: float(r["avg_latency_ms"]) for r in rows},
                   "avg_frames": {r["threshold"]: float(r["avg_frames"]) for r in rows},
                   "top1": {r["threshold"]: float(r["top1"]) for r in rows}})

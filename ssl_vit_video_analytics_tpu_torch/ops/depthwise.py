@@ -27,7 +27,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VECTOR_BYTES = 16  # one thread loads 16 bytes of channels
 
 # P1 launches in this process (one per launch, added where it launches)
-launches = tracing.counter("dw3x3.launches")
+launches = tracing.counter("dw3x3.launches", launches=True)
 
 
 def dw3x3_plain(x: torch.Tensor, w: torch.Tensor, H: int, W: int) -> torch.Tensor:

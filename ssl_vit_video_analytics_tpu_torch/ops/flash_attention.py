@@ -63,14 +63,14 @@ _MAX_GRID_X = 2**31 - 1
 _ALIGN_BYTES = 16
 
 # K1 launches in this process (one per launch, added where it launches)
-launches = tracing.counter("flash_fwd.launches")
+launches = tracing.counter("flash_fwd.launches", launches=True)
 # K2 calls in this process (one per call of the wrapper that launches its
 # two kernels, dK/dV and dQ, added where it launches them)
-bwd_launches = tracing.counter("flash_bwd.launches")
+bwd_launches = tracing.counter("flash_bwd.launches", launches=True)
 # of those, the launches and calls at a head dim above KERNEL_WIDTHS[-1]
 # (the wide kernels)
-wide_launches = tracing.counter("flash_fwd_wide.launches")
-wide_bwd_launches = tracing.counter("flash_bwd_wide.launches")
+wide_launches = tracing.counter("flash_fwd_wide.launches", launches=True)
+wide_bwd_launches = tracing.counter("flash_bwd_wide.launches", launches=True)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -27,7 +27,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # P2 launches in this process (one per launch, added where it launches)
-launches = tracing.counter("unary_chain.launches")
+launches = tracing.counter("unary_chain.launches", launches=True)
 
 
 # the JAX probe's constants, each taken in the working type

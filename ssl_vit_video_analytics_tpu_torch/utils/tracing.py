@@ -10,7 +10,11 @@ inside it. Nothing is kept in memory; the profiler's trace is the record
 
 Counters count whether spans are on or off: a :class:`Counter` is
 registered by name (:func:`counter`) and counts with a plain int add. The
-kernels' launch counters are counters of this kind, and every blocking
+kernels' launch counters are counters of this kind, marked as launch
+counters: a CUDA graph's capture takes what it added to them back off
+(:func:`uncounted_launches`), since nothing launches while a stream
+captures, and each replay adds it on again (:func:`count_launches`), so
+they count the kernels that ran. Every blocking
 device-to-host read on the serving and pipeline-B training paths goes
 through :func:`host_read`, which counts ``host_syncs``.
 
@@ -24,8 +28,10 @@ What the port records:
 - ``attn.fwd``, ``attn.bwd`` (attrs ``B``, ``Lq``, ``Lk``, ``H``, ``d``,
   ``dtype``; ``ops/attention.py``);
 - ``store.gather`` (a batch gathered from a device-resident store);
-- counters ``host_syncs``, ``train.steps``, ``early_exit.batches`` and the
-  kernels' ``*.launches``.
+- counters ``host_syncs``, ``train.steps``, ``early_exit.batches``,
+  ``early_exit.frames``, ``early_exit.graph_replays``,
+  ``early_exit.graph_captures``, ``early_exit.graph_capture_us`` and the
+  kernels' ``*.launches`` (launch counters).
 """
 from __future__ import annotations
 
@@ -38,13 +44,15 @@ PREFIX = "ssl_vit."
 
 
 class Counter:
-    """A count under a name; ``count`` is a plain int."""
+    """A count under a name; ``count`` is a plain int. ``launches``: it
+    counts a kernel's launches."""
 
-    __slots__ = ("name", "count")
+    __slots__ = ("name", "count", "launches")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, launches: bool = False) -> None:
         self.name = name
         self.count = 0
+        self.launches = launches
 
     def reset(self) -> None:
         self.count = 0
@@ -53,17 +61,39 @@ class Counter:
 _counters: dict[str, Counter] = {}
 
 
-def counter(name: str) -> Counter:
-    """The counter registered under ``name`` (registered on first use)."""
+def counter(name: str, launches: bool = False) -> Counter:
+    """The counter registered under ``name`` (registered on first use);
+    ``launches`` marks it as a launch counter."""
     c = _counters.get(name)
     if c is None:
         c = _counters[name] = Counter(name)
+    c.launches = c.launches or launches
     return c
 
 
 def counters() -> dict[str, int]:
     """Every registered counter's count, by name."""
     return {name: c.count for name, c in _counters.items()}
+
+
+def uncounted_launches(fn) -> tuple:
+    """Runs ``fn()``, a CUDA graph's capture, and takes what it added to the
+    launch counters back off: the kernel wrappers ran, but no kernel did.
+    Returns those additions, ``((counter, n), ...)``, a replay's launches."""
+    before = [(c, c.count) for c in _counters.values() if c.launches]
+    fn()
+    launched = []
+    for c, n in before:
+        if c.count != n:
+            launched.append((c, c.count - n))
+            c.count = n
+    return tuple(launched)
+
+
+def count_launches(launched: tuple) -> None:
+    """Adds a replay's launches (:func:`uncounted_launches`) to their counters."""
+    for c, n in launched:
+        c.count += n
 
 
 HOST_SYNCS = counter("host_syncs")
