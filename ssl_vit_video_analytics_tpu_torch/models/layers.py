@@ -43,6 +43,7 @@ from torch import nn
 from ..ops.attention import attention_packed
 from ..parallel.collectives import (all_gather_cat, all_gather_own, all_reduce,
                                     copy_to_group, reduce_from_group)
+from ..utils import tracing
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: input, kernel and bias cast to ``dtype``."""
@@ -279,6 +280,13 @@ def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, group) -
     return y + layer.bias.to(dtype)
 
 
+# MoeMlp's counters (see its docstring)
+MOE_CALLS = tracing.counter("moe.calls")
+MOE_TOKENS = tracing.counter("moe.tokens")
+MOE_SLOTS = tracing.counter("moe.slots")
+MOE_KEPT = tracing.device_counter("moe.kept")
+
+
 class MoeMlp(nn.Module):
     """Top-1-routed mixture-of-experts MLP (the JAX package's opt-in
     ``MoeMlp``, GShard-style static-shape dispatch).
@@ -313,6 +321,14 @@ class MoeMlp(nn.Module):
     Cut over an ``expert`` line (``parallel/ep.py``: ``expert_group`` set)
     the rank holds experts ``expert_lo ..`` of the bank, feeds them their
     slots and gathers every expert's output over the line for the combine.
+
+    Traced (``utils/tracing.py``): spans ``moe.route``, ``moe.dispatch``,
+    ``moe.experts``, ``moe.combine`` in the forward and ``moe.bwd`` around
+    the layer's backward. Counters, each a call's routing once (not again
+    where activation checkpointing recomputes the call): ``moe.calls``,
+    ``moe.tokens`` (B*L), ``moe.slots`` (E*G*C, every expert's buffer) and
+    the device counter ``moe.kept``, the tokens that fit their expert's
+    buffer.
     """
 
     def __init__(self, dim: int, hidden: int, num_experts: int,
@@ -389,11 +405,9 @@ class MoeMlp(nn.Module):
         expert = onehot.argmax(-1).flatten()
         return torch.where(keep.sum(-1).flatten() > 0, expert, -1)
 
-    def _experts(self, dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
-        """Every expert's outputs ``[E, G, C, D]`` for the slots
-        ``dispatch [G, S, E, C]`` gives it from ``xt [G, S, D]``: this
-        rank's experts run here, the rest arrive over the expert line."""
-        dt = self.dtype
+    def _dispatch(self, dispatch: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+        """The slots ``dispatch [G, S, E, C]`` gives this rank's experts
+        from ``xt [G, S, D]``: ``[n, G*C, D]``."""
         G, C, D = dispatch.shape[0], dispatch.shape[-1], xt.shape[-1]
         n = self.w1.shape[0]
         if self.expert_group is not None:
@@ -401,35 +415,58 @@ class MoeMlp(nn.Module):
             # them is a part that the line sums
             dispatch = dispatch[:, :, self.expert_lo:self.expert_lo + n]
             xt = copy_to_group(xt, self.expert_group)
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xt).reshape(n, G * C, D)
+        return torch.einsum("gsec,gsd->egcd", dispatch, xt).reshape(n, G * C, D)
+
+    def _experts(self, expert_in: torch.Tensor, G: int, C: int) -> torch.Tensor:
+        """Every expert's outputs ``[E, G, C, D]`` for this rank's experts'
+        slots ``expert_in``: this rank's experts run here, the rest arrive
+        over the expert line."""
+        dt = self.dtype
         h = gelu(torch.bmm(expert_in, self.w1.to(dt)) + self.b1.to(dt)[:, None])
         out = torch.bmm(h, self.w2.to(dt)) + self.b2.to(dt)[:, None]
         if self.expert_group is not None:
             out = all_gather_own(out, 0, self.expert_group)
-        return out.reshape(self.num_experts, G, C, D)
+        return out.reshape(self.num_experts, G, C, -1)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         B, L, D = x.shape
         E, dt = self.num_experts, self.dtype
         group = getattr(self, "stat_group", None)
-        probs, onehot, pos, keep, (G, S, C) = self._route(x)
-        gate = probs.amax(-1)                                     # top-1 prob
-        onehot = onehot.reshape(B * L, E)
-        if group is None:
-            aux = E * (onehot.mean(0) * probs.mean(0)).sum()
-        else:
-            # this rank's share of the global auxiliary: the global one-hot
-            # mean times this rank's probability sum over the global count
-            counts = all_reduce(torch.cat([onehot.sum(0), probs.new_full((1,), B * L)]),
-                                group)
-            n = counts[-1]
-            aux = E * (counts[:E] / n * probs.sum(0) / n).sum()
-        slots = torch.arange(C, device=x.device, dtype=pos.dtype)
-        dispatch = (keep[..., None] * (pos[..., None] == slots)).to(dt)  # [G, S, E, C]
-        out = self._experts(dispatch, x.reshape(G, S, D).to(dt))
-        combine = dispatch * gate.reshape(G, S, 1, 1).to(dt)
-        y = torch.einsum("gsec,egcd->gsd", combine, out)
-        return y.reshape(B, L, D).to(dt), aux
+        bwd = None
+        if tracing.enabled() and torch.is_grad_enabled() and x.requires_grad:
+            bwd = tracing.BackwardRange("moe.bwd")
+            x, = bwd.inputs(x)
+        with tracing.span("moe.route"):
+            probs, onehot, pos, keep, (G, S, C) = self._route(x)
+            gate = probs.amax(-1)                                 # top-1 prob
+            onehot = onehot.reshape(B * L, E)
+            if group is None:
+                aux = E * (onehot.mean(0) * probs.mean(0)).sum()
+            else:
+                # this rank's share of the global auxiliary: the global
+                # one-hot mean times this rank's probability sum over the
+                # global count
+                counts = all_reduce(torch.cat([onehot.sum(0), probs.new_full((1,), B * L)]),
+                                    group)
+                n = counts[-1]
+                aux = E * (counts[:E] / n * probs.sum(0) / n).sum()
+        if not tracing.recomputing():
+            MOE_CALLS.count += 1
+            MOE_TOKENS.count += B * L
+            MOE_SLOTS.count += E * G * C
+            MOE_KEPT.add(torch.count_nonzero(keep))
+        with tracing.span("moe.dispatch"):
+            slots = torch.arange(C, device=x.device, dtype=pos.dtype)
+            dispatch = (keep[..., None] * (pos[..., None] == slots)).to(dt)  # [G, S, E, C]
+            expert_in = self._dispatch(dispatch, x.reshape(G, S, D).to(dt))
+        with tracing.span("moe.experts"):
+            out = self._experts(expert_in, G, C)
+        with tracing.span("moe.combine"):
+            combine = dispatch * gate.reshape(G, S, 1, 1).to(dt)
+            y = torch.einsum("gsec,egcd->gsd", combine, out).reshape(B, L, D).to(dt)
+        if bwd is not None:
+            y, aux = bwd.outputs(y, aux)
+        return y, aux
 
 
 class SELayer(nn.Module):

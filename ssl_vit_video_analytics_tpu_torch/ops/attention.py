@@ -22,12 +22,12 @@ span, whatever the implementation, and its backward an ``attn.bwd`` span,
 both with the attrs of :func:`attention_attrs`. The backward's range is
 opened and closed from outside the call's autograd nodes, by identity
 functions on its output and inputs, so that it holds the kernels those
-nodes launch (K2's ctypes launches hang off the node itself).
+nodes launch (K2's ctypes launches hang off the node itself):
+``tracing.BackwardRange``.
 """
 from __future__ import annotations
 
 import torch
-from torch.autograd.profiler import record_function
 
 from ..parallel.sp import sp_attention_packed
 from ..utils import tracing
@@ -57,37 +57,6 @@ def attention_attrs(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> dict:
             "dtype": q.dtype}
 
 
-class _BwdOpen(torch.autograd.Function):
-    """Identity on a call's output; its backward, the first of the call's,
-    opens the call's ``attn.bwd`` range."""
-
-    @staticmethod
-    def forward(ctx, box, out):
-        ctx.box = box
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, g):
-        ctx.box["range"] = record_function(ctx.box["name"])
-        ctx.box["range"].__enter__()
-        return None, g
-
-
-class _BwdClose(torch.autograd.Function):
-    """Identity on a call's q, k, v; its backward, the last of the call's,
-    closes the range :class:`_BwdOpen` opened."""
-
-    @staticmethod
-    def forward(ctx, box, q, k, v):
-        ctx.box = box
-        return q.view_as(q), k.view_as(k), v.view_as(v)
-
-    @staticmethod
-    def backward(ctx, gq, gk, gv):
-        ctx.box.pop("range").__exit__(None, None, None)
-        return None, gq, gk, gv
-
-
 def _attention(q, k, v, num_heads, impl):
     if impl == "sp":
         if _SP_GROUP is not None:
@@ -105,11 +74,11 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attrs = attention_attrs(q, k, num_heads)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     if grad:
-        box = {"name": tracing.range_name("attn.bwd", attrs)}
-        q, k, v = _BwdClose.apply(box, q, k, v)
+        bwd = tracing.BackwardRange("attn.bwd", attrs)
+        q, k, v = bwd.inputs(q, k, v)
     with tracing.span("attn.fwd", attrs):
         out = _attention(q, k, v, num_heads, impl)
-    return _BwdOpen.apply(box, out) if grad else out
+    return bwd.outputs(out)[0] if grad else out
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

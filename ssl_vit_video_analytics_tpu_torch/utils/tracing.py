@@ -16,7 +16,10 @@ counters: a CUDA graph's capture takes what it added to them back off
 captures, and each replay adds it on again (:func:`count_launches`), so
 they count the kernels that ran. Every blocking
 device-to-host read on the serving and pipeline-B training paths goes
-through :func:`host_read`, which counts ``host_syncs``.
+through :func:`host_read`, which counts ``host_syncs``. A
+:class:`DeviceCounter` (:func:`device_counter`) counts a value the device
+computed: it adds it to an int64 accumulator on that device, with no host
+read, and :func:`counters` reads it.
 
 What the port records:
 
@@ -28,10 +31,14 @@ What the port records:
 - ``attn.fwd``, ``attn.bwd`` (attrs ``B``, ``Lq``, ``Lk``, ``H``, ``d``,
   ``dtype``; ``ops/attention.py``);
 - ``store.gather`` (a batch gathered from a device-resident store);
+- ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and
+  ``moe.bwd`` (``models/layers.MoeMlp``; the backward's range as
+  ``attn.bwd``'s, by :class:`BackwardRange`);
 - counters ``host_syncs``, ``train.steps``, ``early_exit.batches``,
   ``early_exit.frames``, ``early_exit.graph_replays``,
-  ``early_exit.graph_captures``, ``early_exit.graph_capture_us`` and the
-  kernels' ``*.launches`` (launch counters).
+  ``early_exit.graph_captures``, ``early_exit.graph_capture_us``,
+  ``moe.calls``, ``moe.tokens``, ``moe.slots``, the device counter
+  ``moe.kept`` and the kernels' ``*.launches`` (launch counters).
 """
 from __future__ import annotations
 
@@ -67,13 +74,58 @@ def counter(name: str, launches: bool = False) -> Counter:
     c = _counters.get(name)
     if c is None:
         c = _counters[name] = Counter(name)
+    if not isinstance(c, Counter):
+        raise TypeError(f"counter {name!r} counts on the device")
     c.launches = c.launches or launches
+    return c
+
+
+class DeviceCounter:
+    """A count the device keeps: :meth:`add` adds an integer tensor to an
+    int64 accumulator on its device, with no host read; ``count`` reads the
+    accumulators, one blocking read a device. That read is the tracer's,
+    made once after the work, and is not counted under ``host_syncs``."""
+
+    __slots__ = ("name", "_acc")
+    launches = False
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._acc: dict[torch.device, torch.Tensor] = {}
+
+    def add(self, t: torch.Tensor) -> None:
+        acc = self._acc.get(t.device)
+        if acc is None:
+            acc = self._acc[t.device] = torch.zeros((), dtype=torch.int64, device=t.device)
+        acc.add_(t)
+
+    @property
+    def count(self) -> int:
+        return sum(int(a) for a in self._acc.values())
+
+    def reset(self) -> None:
+        self._acc = {}
+
+
+def device_counter(name: str) -> DeviceCounter:
+    """The device counter registered under ``name`` (registered on first use)."""
+    c = _counters.get(name)
+    if c is None:
+        c = _counters[name] = DeviceCounter(name)
+    if not isinstance(c, DeviceCounter):
+        raise TypeError(f"counter {name!r} counts on the host")
     return c
 
 
 def counters() -> dict[str, int]:
     """Every registered counter's count, by name."""
     return {name: c.count for name, c in _counters.items()}
+
+
+def recomputing() -> bool:
+    """Whether the running forward is a recomputation inside a backward pass
+    (an activation-checkpointed region's): counters count the first pass."""
+    return torch._C._current_graph_task_id() != -1
 
 
 def uncounted_launches(fn) -> tuple:
@@ -142,3 +194,53 @@ def disable() -> None:
 
 def enabled() -> bool:
     return _on
+
+
+class _RangeOpen(torch.autograd.Function):
+    """Identity on a call's outputs; its backward, the first of the call's,
+    opens the range named in ``box``."""
+
+    @staticmethod
+    def forward(ctx, box, *ts):
+        ctx.box = box
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.box["range"] = record_function(ctx.box["name"])
+        ctx.box["range"].__enter__()
+        return (None, *gs)
+
+
+class _RangeClose(torch.autograd.Function):
+    """Identity on a call's inputs; its backward, the last of the call's,
+    closes the range :class:`_RangeOpen` opened."""
+
+    @staticmethod
+    def forward(ctx, box, *ts):
+        ctx.box = box
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        rf = ctx.box.pop("range", None)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        return (None, *gs)
+
+
+class BackwardRange:
+    """The range of span ``name`` around one call's backward. The call's
+    inputs pass through :meth:`inputs` before it and its outputs through
+    :meth:`outputs` after it: identity autograd functions whose backwards,
+    the first and the last of the call's, open and close the range, so that
+    it holds the kernels the call's own autograd nodes launch."""
+
+    def __init__(self, name: str, attrs: dict | None = None) -> None:
+        self.box = {"name": range_name(name, attrs)}
+
+    def inputs(self, *ts: torch.Tensor) -> tuple:
+        return _RangeClose.apply(self.box, *ts)
+
+    def outputs(self, *ts: torch.Tensor) -> tuple:
+        return _RangeOpen.apply(self.box, *ts)
