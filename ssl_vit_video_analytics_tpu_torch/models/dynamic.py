@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..utils import tracing
+from .layers import refresh_prepared
 
 # batches served by either implementation, in this process
 BATCHES = tracing.counter("early_exit.batches")
@@ -266,7 +267,11 @@ def streaming_early_exit(
     Where :func:`eager_reason` finds none, the frames replay a CUDA graph
     (:class:`_FrameGraph`), one for each module, frame shape, dtype, device
     and inference mode; the first call for a key runs eagerly and captures
-    it after it, and parameters moved to new storage are captured anew. The loop reads ``decided.all()`` once a frame either way.
+    it after it, and parameters moved to new storage are captured anew.
+    Before it keys a graph it brings the module's prepared weights
+    (``layers.refresh_prepared``) up to its parameters' versions, so a
+    replay after a change in place serves the new weights. The loop reads
+    ``decided.all()`` once a frame either way.
     """
     T = clip.shape[1]
     if max_frames is not None:
@@ -279,6 +284,7 @@ def streaming_early_exit(
     graphs = key = None
     module = None if eager_reason(embed_fn, classify_fn, clip) else embed_fn.__self__
     if module is not None:
+        refresh_prepared(module)  # a replay reads the prepared weights where they lie
         key = (clip.shape[:1] + clip.shape[2:], clip.dtype, clip.device,
                torch.is_inference_mode_enabled(), embed_fn.__func__, classify_fn.__func__)
         storage = _storage(module)

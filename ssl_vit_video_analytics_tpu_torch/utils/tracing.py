@@ -38,7 +38,11 @@ What the port records:
   ``early_exit.frames``, ``early_exit.graph_replays``,
   ``early_exit.graph_captures``, ``early_exit.graph_capture_us``,
   ``moe.calls``, ``moe.tokens``, ``moe.slots``, the device counter
-  ``moe.kept`` and the kernels' ``*.launches`` (launch counters).
+  ``moe.kept``, the kernels' ``*.launches`` (launch counters), and
+  ``models/layers``' ``weights.prepared_calls`` and ``weights.cast_calls``
+  (launch counters: a conv or linear call on prepared weights or on the
+  per-call casts) and ``weights.prepares`` (a module's prepared weights
+  made or remade).
 """
 from __future__ import annotations
 

@@ -11,12 +11,13 @@ Then the graphed loop, each test twice. On the card (``[cuda]``, marked
 (``h100_bench/configs/mobilevit_s_ee.json``: embed 256, 101 classes, bf16,
 batches of 8 clips x 16 frames at 112^2) under ``torch.inference_mode``: the
 graphed loop against the eager one (forced by a recording profiler) bit for
-bit and K1 launch for launch, the tensors it returns, the new weights it
-reads, the clips it shares graphs with and the captures it makes. On the CPU (``[cpu]``), the same at 4
-clips x 8 frames at 32^2 through stand-ins: the CPU clip counts as a card's
-and a graph's replay runs its step's Python again on the same buffers, so
-the loop's bookkeeping (buffers, keys, counters, fresh outputs) is held here
-and the CUDA mechanics on the card. This file imports torch and the port
+bit, K1 launch for launch and call for call on prepared weights (59 a
+frame, no weight cast), the tensors it returns, the new weights it reads,
+the clips it shares graphs with and the captures it makes. On the CPU
+(``[cpu]``), the same at 4 clips x 8 frames at 32^2 through stand-ins: the
+CPU clip counts as a card's and a graph's replay runs its step's Python
+again on the same buffers, so the loop's bookkeeping (buffers, keys,
+counters, fresh outputs) is held here and the CUDA mechanics on the card. This file imports torch and the port
 only, so on the card run it as
 
     python -m pytest tests/test_torch_port_frame_graph.py --noconftest -q -p no:cacheprovider
@@ -41,7 +42,8 @@ torch.set_num_threads(2)  # six test workers share the host
 
 S, B, T, D, K = 4, 3, 8, 6, 5
 COUNTERS = ("early_exit.frames", "early_exit.graph_replays", "early_exit.graph_captures",
-            "host_syncs", "flash_fwd.launches")
+            "host_syncs", "flash_fwd.launches", "weights.prepared_calls",
+            "weights.cast_calls")
 
 
 def _counted(fn) -> tuple:
@@ -117,7 +119,8 @@ def test_the_loop_runs_eagerly_and_counts_its_frames(case, threshold, frames):
     assert (stats.used_frames == frames).all()
     assert counted == {"early_exit.frames": frames, "early_exit.graph_replays": 0,
                        "early_exit.graph_captures": 0, "host_syncs": min(frames, T - 1),
-                       "flash_fwd.launches": 0}
+                       "flash_fwd.launches": 0, "weights.prepared_calls": 0,
+                       "weights.cast_calls": 0}
 
 
 def test_device_scalars_compare_as_the_numbers_do():
@@ -260,11 +263,15 @@ def test_graphed_loop_matches_the_eager_loop_bit_for_bit(where, threshold):
     # launches, the capture itself does not
     on_card = where.dev.type == "cuda"
     assert first["flash_fwd.launches"] == (6 * (first["early_exit.frames"] + 1) if on_card else 0)
+    # prepared weights a frame: 35 ConvBNActs and 24 linears, no cast
+    assert first["weights.prepared_calls"] == 59 * (first["early_exit.frames"] + on_card)
+    assert first["weights.cast_calls"] == 0
     frames = counted["early_exit.frames"]
     k1 = 6 * frames if on_card else 0
     assert counted == {"early_exit.frames": frames, "early_exit.graph_replays": frames,
                        "early_exit.graph_captures": 0,
-                       "host_syncs": min(frames, where.frames - 1), "flash_fwd.launches": k1}
+                       "host_syncs": min(frames, where.frames - 1), "flash_fwd.launches": k1,
+                       "weights.prepared_calls": 59 * frames, "weights.cast_calls": 0}
     assert counted_eager == {**counted, "early_exit.graph_replays": 0}
     used = graphed[1].used_frames
     if threshold == 0.0:
