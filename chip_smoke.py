@@ -77,9 +77,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    run has logging.tensorboard on (a phase departure only): its event files
    under the save dir, or the entry's tensorboardX warning, are reported.
 7. serving slice: the port's run_dynamic early-exit sweep at full MobileViT-S
-   width (configs/dynamic.yaml: 101 classes, embed 256, batch 8, 16 frames,
-   112x112, bf16) on a synthetic split, with random weights from a seeded
-   generator, once streaming and once batched. K1's launch count in these
+   width (configs/dynamic.yaml: 101 classes, embed 256, batch 8, clips of 32
+   frames of which the sweep reads up to 16, 112x112, bf16) on a synthetic
+   split, with random weights from a seeded generator (its one departure),
+   once streaming and once batched. K1's launch count in these
    runs must be a positive multiple of 6 (3 MobileViT blocks x depth 2; a
    CUDA graph's replay adds the launches its capture took back), and the
    streaming run must step frames by replays (early_exit.graph_replays > 0).
@@ -288,7 +289,7 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    their launches are those processes' and are not counted here) exits 0,
    its CSV and ablation_index.json (exit 0) exist.
 30. export: tools.export_serving at configs/dynamic.yaml's MobileViT-S
-   classifier (101 classes, embed 256, 16 x 112x112, fp32, TF32 off):
+   classifier (101 classes, embed 256, 32 x 112x112, fp32, TF32 off):
    exported on the card with a symbolic batch through the plain attention
    for --platforms cpu cuda (the program moved to the CPU for the cpu
    artifact), both saved, torch.export.load'ed and served at batches 2 and
@@ -329,6 +330,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    evaluate on the test split read the packed store (K1/K2 8/8 a step, K1 8
    an eval batch), and the batches of the packed store, host and
    device-resident, equal those read from the JPEG frames.
+
+Each phase's config is configs/<name>.yaml over configs/base.yaml, as an
+entry's --config loads it, with the departures the phase names
+(*_SMOKE_OVERRIDES, CAMPAIGN_B, LAUNCH_OVERRIDES, REPACK_ARMS) and its own
+splits, output directories and device.
 
 Every kernel launch count is set to 0 just before each path (train,
 serving, each probe, finetune, evaluate, the pipeline-A and -C entries, the
@@ -382,60 +388,19 @@ PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe
          "train_ssl_mae_repack_h1", "probe_decoder_repack", "train_finetune_packed",
          "evaluate_packed")
 
-# configs/dynamic.yaml, spelled out: the card's machine may lack yaml
-# (a CPU test holds these to the file)
-DYNAMIC_YAML = {
-    "dataset": {"num_classes": 101},
-    "model": {"embed_dim": 256},
-    "dynamic": {"confidence_thresholds": [0.55, 0.65, 0.70, 0.75, 0.80, 0.85],
-                "min_frames": 4, "max_frames": 16, "frame_step": 1},
-    "runtime": {"batch_size": 8, "num_warmup": 10, "num_measure": 50},
-}
-
-# configs/ssl_mae.yaml (with configs/base.yaml's seed, dtype and backend),
-# spelled out likewise and held to the files by a CPU test
-SSL_MAE_YAML = {
-    "dataset": {"clip_len": 16, "stride": 4, "image_size": 112},
-    "model": {"type": "tiny_vit_21m_variant", "embed_dims": [96, 192, 384, 576],
-              "decoder_embed_dim": 384, "decoder_depth": 4, "decoder_num_heads": 6},
-    "ssl": {"mask_ratio": 0.9, "mask_strategy": "tube", "norm_pix_loss": True},
-    "training": {"epochs": 200, "batch_size": 40, "accumulation_steps": 2, "lr": 0.0005,
-                 "min_lr": 0.000001, "warmup_epochs": 40, "weight_decay": 0.05,
-                 "save_every": 10, "log_interval": 20},
-}
-BASE_YAML = {"seed": 42, "device": {"compute_dtype": "bfloat16"},
-             "dataset": {"backend": "packed"}}
+CONFIGS = os.path.join(ROOT, "configs")
+# every phase's own keys: the card, and splits given as paths
+ON_CARD = {"device": {"name": "cuda"}, "paths": {"split_root": ""}}
+# phase 7's one departure from configs/dynamic.yaml: no trained checkpoint
+# is in a checkout, so random weights from a seeded generator
+SLICE_SMOKE_OVERRIDES = {"model": {"finetune_ckpt": None}}
 # the smoke's one departure from configs/ssl_mae.yaml: an encoder checkpoint
 # every epoch, so that the 4 steps leave one for phase 11
 SSL_MAE_SMOKE_OVERRIDES = {"training": {"save_every": 1}}
 TRAIN_STEPS = 4
 
-# configs/ssl_mae_moe.yaml and configs/ssl_mae_longclip.yaml, spelled out
-# likewise and held to the files by a CPU test
-SSL_MAE_MOE_YAML = {
-    "dataset": {"clip_len": 16, "stride": 4, "image_size": 112},
-    "model": {"type": "tiny_vit_21m_variant", "embed_dims": [96, 192, 384, 576],
-              "decoder_embed_dim": 384, "decoder_depth": 4, "decoder_num_heads": 6,
-              "decoder_moe_experts": 8, "decoder_moe_capacity_factor": 1.25,
-              "decoder_moe_group_size": 392},
-    "ssl": {"mask_ratio": 0.9, "mask_strategy": "tube", "norm_pix_loss": True,
-            "moe_aux_weight": 0.01},
-    "training": {"epochs": 200, "batch_size": 40, "accumulation_steps": 2, "lr": 0.0005,
-                 "min_lr": 0.000001, "warmup_epochs": 40, "weight_decay": 0.05,
-                 "save_every": 10, "log_interval": 20},
-    "device": {"expert_parallel": 4, "data_parallel": "auto"},
-}
-SSL_MAE_LONGCLIP_YAML = {
-    "dataset": {"clip_len": 64, "stride": 1, "image_size": 112},
-    "model": {"type": "tiny_vit_21m_variant", "embed_dims": [96, 192, 384, 576],
-              "decoder_embed_dim": 384, "decoder_depth": 4, "decoder_num_heads": 6,
-              "sequence_parallel": True},
-    "ssl": {"mask_ratio": 0.9, "mask_strategy": "tube", "norm_pix_loss": True},
-    "training": {"epochs": 200, "batch_size": 8, "accumulation_steps": 2, "lr": 0.0005,
-                 "min_lr": 0.000001, "warmup_epochs": 40, "weight_decay": 0.05,
-                 "save_every": 10, "log_interval": 20},
-}
-OPT_IN_YAML = {"moe": SSL_MAE_MOE_YAML, "longclip": SSL_MAE_LONGCLIP_YAML}
+# phases 20-23's pipeline-B yamls, by regime
+OPT_IN_CONFIGS = {"moe": "ssl_mae_moe", "longclip": "ssl_mae_longclip"}
 OPT_IN_STEPS = 4  # each opt-in entry run: 2 optimizer updates at accumulation 2
 # the warning each opt-in run logs where the JAX entry logs it on one device
 OPT_IN_WARNING = {
@@ -543,21 +508,10 @@ FRONT_END_MODE = "ft_ssl"
 LAUNCH_OVERRIDES = {"training": {"epochs": 1, "batch_size": 20, "save_every": 1,
                                  "log_interval": 1}}
 
-# configs/finetune.yaml, spelled out likewise (its split and checkpoint
-# paths are the smoke's own) ...
-FINETUNE_YAML = {
-    "experiment": {"mode": "ft_ssl"},
-    "dataset": {"name": "UCF101", "num_classes": 101},
-    "training": {"epochs": 30, "batch_size": 64, "learning_rate": 0.0001,
-                 "weight_decay": 0.01, "log_interval": 20, "stage1_epochs": 10,
-                 "head_lr": 0.001, "backbone_lr": 0.0001},
-    "model": {"backbone": "mobilevit_s", "embed_dim": 256, "freeze_backbone": False},
-    "optimizer": {"type": "adamw"},
-    "evaluation": {"topk": [1, 5]},
-}
-# ... under the pipeline-B transfer campaign's overrides
-# (scripts/ssl_transfer_campaign.py --backbone tinyvit --device_resident true:
-# T=16, stride 1, 112x112, batch 16, bf16), cut to two epochs of two_stage
+# phase 11's departures from configs/finetune.yaml: the pipeline-B transfer
+# campaign's overrides (scripts/ssl_transfer_campaign.py --backbone tinyvit
+# --device_resident true: T=16, stride 1, 112x112, batch 16, bf16), cut to
+# two epochs of two_stage
 CAMPAIGN_B = {"model": {"backbone": "tinyvit"},
               "dataset": {"clip_len": 16, "stride": 1, "image_size": 112,
                           "device_resident": True},
@@ -645,31 +599,17 @@ ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # 32, 40, 48, 64, 96, 128, 256) and the wide kernels (K1's on wgmma, K2's
 # on mma.sync)
 BF16_FLASH_KERNELS = 3 * (7 + 1)
+# what bounds an attention call (h100_bench/yardstick.attention_bound), as
+# the line of kernels names it
+BOUND_BY = {"bytes": "bytes", "ops": "operations"}
 TOL_FP32, TOL_BF16 = 1e-4, 2e-2
 TOL_STEP_LOSS, TOL_STEP_GRAD = 1e-4, 1e-3
 # bf16 attention outputs of two implementations differ by up to ~7e-3 of
 # their magnitude (the port's plain version against the JAX kernels); the
 # step's loss moves by about 1e-4 of itself
 TOL_STEP_LOSS_BF16, TOL_STEP_GRAD_BF16 = 1e-3, 5e-2
-# configs/ssl_train.yaml, spelled out likewise (its save_dir and
-# train_split are the smoke's own); configs/base.yaml gives its clip shape
-SSL_TRAIN_YAML = {
-    "dataset": {"name": "UCF101", "val_split": "UCF101_val.txt"},
-    "training": {"epochs": 200, "batch_size": 48, "learning_rate": 0.0005,
-                 "weight_decay": 0.05, "save_every": 10, "clip_grad_norm": 1.0,
-                 "log_interval": 20,
-                 "scheduler": {"enable": True, "warmup_epochs": 5, "eta_min_ratio": 0.05}},
-    "model": {"backbone": "mobilevit_s", "embed_dim": 256, "temporal_layers": 4,
-              "temporal_heads": 4},
-    "ssl_objectives": {"mask_ratio": 0.75, "mfm_weight": 1.0, "ema_momentum": 0.996,
-                       "var_weight": 25.0, "var_eps": 0.0001, "var_target_std": 1.0,
-                       "top_weight": 1.0, "top_start_epoch": 6, "top_every": 2,
-                       "top_subsample": 0.5, "top_detach_backbone": False},
-    "optimizer": {"type": "adamw"},
-}
-BASE_CLIP = {"dataset": {"clip_len": 32, "stride": 2, "image_size": 112}}
-# the smoke's departures: TOP from the first epoch (steps with and without
-# it alternate) and a checkpoint every epoch
+# phases 12-13's departures from configs/ssl_train.yaml: TOP from the first
+# epoch (steps with and without it alternate) and a checkpoint every epoch
 SSL_TRAIN_SMOKE_OVERRIDES = {"ssl_objectives": {"top_start_epoch": 1},
                              "training": {"save_every": 1}}
 SSL_TRAIN_STEPS = 6
@@ -678,25 +618,9 @@ SSL_TRAIN_STEPS = 6
 # branch one more forward and backward
 SSL_K1_K2 = {False: (20, 10), True: (30, 20)}
 
-# configs/mae_train.yaml, spelled out likewise (its train_split and
-# output dir are the smoke's own)
-MAE_TRAIN_YAML = {
-    "seed": 42,
-    "dataset": {"image_size": 112, "clip_len": 32, "stride": 4, "channels": 3},
-    "training": {"epochs": 200, "batch_size": 256, "grad_accum": 1, "clip_grad_norm": 1.0,
-                 "lr": 0.0003, "min_lr": 0.000001, "weight_decay": 0.05,
-                 "betas": [0.9, 0.95], "lr_schedule": "cosine", "warmup_epochs": 10,
-                 "save_every": 5, "keep_last": 5, "log_interval": 20},
-    "mae": {"stage4_pool": 3, "mask_mode": "tube", "mask_ratio": 0.8,
-            "mask_ratio_schedule": [{"start": 1, "end": 21, "value": 0.7},
-                                    {"start": 21, "end": 81, "value": 0.8},
-                                    {"start": 81, "end": 100000, "value": 0.9}],
-            "loss": {"type": "l2", "normalize_target": True},
-            "decoder": {"dim": 512, "depth": 2, "num_heads": 8, "mlp_ratio": 4.0},
-            "vis_every": 10},
-}
-# the smoke's departures: 16 clips a batch (256 x 32 frames through the full
-# TinyViT do not fit one card) and a checkpoint every epoch
+# phases 14-16's departures from configs/mae_train.yaml: 16 clips a batch
+# (256 x 32 frames through the full TinyViT do not fit one card) and a
+# checkpoint every epoch
 MAE_TRAIN_SMOKE_OVERRIDES = {"training": {"batch_size": 16, "save_every": 1}}
 MAE_TRAIN_STEPS, MAE_RESUME_STEPS = 4, 2
 # 10 TinyViT attention layers (2 + 6 + 2), each run again when its
@@ -704,41 +628,13 @@ MAE_TRAIN_STEPS, MAE_RESUME_STEPS = 4, 2
 MAE_K1_CALLS, MAE_K2_CALLS = 22, 12
 # the sanity check: an eval forward, then a forward and backward (no remat)
 SANITY_K1_CALLS, SANITY_K2_CALLS = 24, 12
-# configs/privacy.yaml, spelled out likewise (its split, frame root and
-# save dir are the smoke's own; no finetune checkpoint is at the yaml's
-# path in a checkout, so the entry warns and embeds with random weights)
-PRIVACY_YAML = {
-    "dataset": {"name": "UCF101", "num_classes": 101},
-    "model": {"embed_dim": 256, "finetune_ckpt": "results/finetune/two_stage/best"},
-    "visual_privacy": {"enabled": True, "max_images": 2000, "save_examples": 8,
-                       "detector": "yunet", "yunet_model": "assets/yunet.onnx",
-                       "conf_threshold": 0.6, "nms_threshold": 0.3, "method": "face_blur",
-                       "blur_kernel": 31},
-    "feature_privacy": {"enabled": True,
-                        "noise_sigmas": [0.0, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 4.0],
-                        "mask_ratios": [0.0, 0.2, 0.4], "attacker_epochs": 10,
-                        "attacker_lr": "1e-3"},  # a string to YAML 1.1, as loaded
-    "runtime": {"batch_size": 8},
-}
-# the smoke's one departure: a 2 x 2 corner of the feature grid
+# phase 18's one departure from configs/privacy.yaml: a 2 x 2 corner of the
+# feature grid
 PRIVACY_SMOKE_OVERRIDES = {"feature_privacy": {"noise_sigmas": [0.0, 0.5],
                                                "mask_ratios": [0.0, 0.2]}}
-# configs/federated.yaml, spelled out likewise (its splits, split root and
-# save dir are the smoke's own)
-FEDERATED_YAML = {
-    "dataset": {"name": "UCF101", "num_classes": 101},
-    "model": {"embed_dim": 256, "init_ckpt": None},
-    "federated": {"num_clients": 5, "rounds": 10, "client_fraction": 1.0, "local_epochs": 1,
-                  "batch_size": 16, "step_chunk": None, "lr": 0.0003, "weight_decay": 0.01,
-                  "non_iid": {"enabled": True, "strategy": "class_shard",
-                              "shards_per_client": 6, "min_samples_per_client": 200}},
-    "centralized": {"enabled": True, "epochs": None, "batch_size": 16, "lr": 0.0003,
-                    "weight_decay": 0.01},
-    "output": {"split_prefix": "fed"},
-    "system_privacy": {"estimate_raw_upload": True, "raw_dtype_bytes": 1},
-}
-# the smoke's departures: 2 rounds, clients of 32 clips from a 160-clip
-# split, and the centralized baseline at 1 epoch (rounds x local_epochs = 2)
+# phases 17 and 19's departures from configs/federated.yaml: 2 rounds,
+# clients of 32 clips from a 160-clip split, and the centralized baseline at
+# 1 epoch (rounds x local_epochs = 2)
 FEDERATED_SMOKE_OVERRIDES = {"federated": {"rounds": 2,
                                            "non_iid": {"min_samples_per_client": 32}},
                              "centralized": {"epochs": 1}}
@@ -822,27 +718,6 @@ def sdpa_backend(q, k, v) -> str:
     return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
 
 
-def attention_bound(B, Lq, Lk, H, d, dtype, backward: bool) -> tuple[float, str]:
-    """Least time of one attention call on an H100: 4*B*H*Lq*Lk*d flops
-    forward, 10*... backward, at the bf16 tensor-core or the fp32 peak, or
-    every input read and output written once at 3.35 TB/s (forward: q, k, v
-    in, out and lse out; backward: q, k, v, out, dout and lse in, dq, dk, dv
-    out), whichever is longer."""
-    import torch
-
-    from ssl_vit_video_analytics_tpu_torch.scripts import (
-        BF16_TENSOR_FLOP_PER_S, FP32_FLOP_PER_S, bound_ms)
-
-    # bytes of one sequence position of a packed tensor, over the batch
-    row = B * H * d * (2 if dtype == torch.bfloat16 else 4)
-    if backward:
-        flops, moved = 10 * B * H * Lq * Lk * d, (4 * Lq + 4 * Lk) * row
-    else:
-        flops, moved = 4 * B * H * Lq * Lk * d, (2 * Lq + 2 * Lk) * row
-    peak = BF16_TENSOR_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    return bound_ms(moved + B * Lq * H * 4, flops, peak)
-
-
 def summed(rows: list[dict]) -> dict:
     """Times summed over the pipeline-B shapes; bound_by is that of the
     largest bound."""
@@ -862,6 +737,8 @@ def shape_lap(kernel: str, shape: str, t0: float) -> None:
 def phase_kernel(fa, dev) -> dict:
     import torch
     import torch.nn.functional as F
+
+    from h100_bench import yardstick
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -893,7 +770,8 @@ def phase_kernel(fa, dev) -> dict:
             lib_out = F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
             lib_err = (lib_out.float().flatten(2) - ref_out).abs().max().item()
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=False)
+            seconds, by = yardstick.attention_bound(B, Lq, Lk, H, d, dtype, backward=False)
+            bound = (1e3 * seconds, BOUND_BY[by])
             emit({"phase": "kernel_vs_plain", "shape": name, "B": B, "Lq": Lq, "Lk": Lk,
                   "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
                   "err_out": err_out, "rel_err_out": rel_out, "err_lse": err_lse,
@@ -1057,6 +935,8 @@ def phase_backward(fa, dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from h100_bench import yardstick
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1092,7 +972,8 @@ def phase_backward(fa, dev) -> dict:
             library_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_h,
                                                              retain_graph=True))
             backend = sdpa_backend(*views)
-            bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=True)
+            seconds, by = yardstick.attention_bound(B, Lq, Lk, H, d, dtype, backward=True)
+            bound = (1e3 * seconds, BOUND_BY[by])
             emit({"phase": "k2_vs_plain", "shape": name, "B": B, "Lq": Lq, "Lk": Lk,
                   "H": H, "d": d, "dtype": str(dtype).replace("torch.", ""),
                   "rel_err": errs, "max_abs_err": abs_err, "tol": tol,
@@ -1130,6 +1011,8 @@ def phase_longclip_kernels(fa, dev, shape: tuple) -> dict:
     row."""
     import torch
     import torch.nn.functional as F
+
+    from h100_bench import yardstick
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1182,8 +1065,8 @@ def phase_longclip_kernels(fa, dev, shape: tuple) -> dict:
                         "library_ms": time_ms(lambda: torch.autograd.grad(
                             lib_out, leaves, dout_h, retain_graph=True))}}
             for key, backward in (("fwd", False), ("bwd", True)):
-                bound = attention_bound(B, Lq, Lk, H, d, dtype, backward=backward)
-                times[key].update(bound_ms=bound[0], bound_by=bound[1])
+                seconds, by = yardstick.attention_bound(B, Lq, Lk, H, d, dtype, backward)
+                times[key].update(bound_ms=1e3 * seconds, bound_by=BOUND_BY[by])
             row["sdpa_backend"] = sdpa_backend(*views)
             row.update(times)
             timed = times
@@ -1196,107 +1079,71 @@ def phase_longclip_kernels(fa, dev, shape: tuple) -> dict:
     return timed
 
 
-def merged(*cfgs: dict) -> dict:
-    """Recursive merge, later configs winning (as configs/base.yaml under a
-    task config)."""
-    def into(out: dict, cfg: dict) -> dict:
-        for key, value in cfg.items():
-            if isinstance(value, dict) and isinstance(out.get(key), dict):
-                into(out[key], value)
-            else:
-                out[key] = value
-        return out
+def yaml_cfg(name: str, *over: dict) -> dict:
+    """configs/<name>.yaml over configs/base.yaml, as an entry's --config
+    loads it, on the card (ON_CARD), with ``over`` merged on in order: the
+    phase's named departures, then its own keys."""
+    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config, merge_configs
 
-    out: dict = {}
-    for cfg in cfgs:
-        into(out, json.loads(json.dumps(cfg)))
-    return out
+    cfg = load_config(os.path.join(CONFIGS, f"{name}.yaml"),
+                      base=os.path.join(CONFIGS, "base.yaml"))
+    return merge_configs(cfg, ON_CARD, *over)
 
 
 def ssl_mae_cfg(split: str, save_dir: str) -> dict:
-    cfg = merged(BASE_YAML, SSL_MAE_YAML, SSL_MAE_SMOKE_OVERRIDES)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"]["train_split"] = split
-    cfg["training"]["save_dir"] = save_dir
-    cfg["paths"] = {"split_root": ""}
-    return cfg
+    """Phase 6's config, which phases 5, 25-27 and 32 build on."""
+    return yaml_cfg("ssl_mae", SSL_MAE_SMOKE_OVERRIDES,
+                    {"dataset": {"train_split": split}, "training": {"save_dir": save_dir}})
 
 
 def opt_in_cfg(name: str, split: str, save_dir: str, profile_dir: str) -> dict:
-    """Phases 20-23's config: ``OPT_IN_YAML[name]`` (the MoE or long-clip
-    pipeline-B yaml) over configs/base.yaml with the smoke's split and save
-    dir; the MoE run with phase 6's departure (an encoder checkpoint every
-    epoch) and a profiler trace under ``profile_dir``, the long clip as the
-    yaml stands."""
-    cfg = merged(BASE_YAML, OPT_IN_YAML[name])
-    if name == "moe":
-        cfg = merged(cfg, SSL_MAE_SMOKE_OVERRIDES, {"logging": {"profile_dir": profile_dir}})
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"]["train_split"] = split
-    cfg["training"]["save_dir"] = save_dir
-    cfg["paths"] = {"split_root": ""}
-    return cfg
+    """Phases 20-23's config: ``OPT_IN_CONFIGS[name]`` (the MoE or long-clip
+    pipeline-B yaml) with the smoke's split and save dir; the MoE run with
+    phase 6's departure (an encoder checkpoint every epoch) and a profiler
+    trace under ``profile_dir``, the long clip as the yaml stands."""
+    over = ([SSL_MAE_SMOKE_OVERRIDES, {"logging": {"profile_dir": profile_dir}}]
+            if name == "moe" else [])
+    return yaml_cfg(OPT_IN_CONFIGS[name], *over,
+                    {"dataset": {"train_split": split}, "training": {"save_dir": save_dir}})
 
 
 def ssl_train_cfg(split: str, save_dir: str) -> dict:
-    """Phases 12-13's config: configs/ssl_train.yaml over configs/base.yaml
-    with the smoke's departures, split and save dir."""
-    cfg = merged(BASE_YAML, BASE_CLIP, SSL_TRAIN_YAML, SSL_TRAIN_SMOKE_OVERRIDES)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"]["train_split"] = split
-    cfg["training"]["save_dir"] = save_dir
-    cfg["paths"] = {"split_root": ""}
-    return cfg
+    """Phases 12-13's config: configs/ssl_train.yaml with its departures."""
+    return yaml_cfg("ssl_train", SSL_TRAIN_SMOKE_OVERRIDES,
+                    {"dataset": {"train_split": split}, "training": {"save_dir": save_dir}})
 
 
 def mae_train_cfg(split: str, out_dir: str) -> dict:
-    """Phases 14-16's config: configs/mae_train.yaml over configs/base.yaml
-    with the smoke's departures, split and output dir."""
-    cfg = merged(BASE_YAML, MAE_TRAIN_YAML, MAE_TRAIN_SMOKE_OVERRIDES)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"]["train_split"] = split
-    cfg["output"] = {"dir": out_dir}
-    cfg["paths"] = {"split_root": ""}
-    return cfg
+    """Phases 14-16's config: configs/mae_train.yaml with its departures."""
+    return yaml_cfg("mae_train", MAE_TRAIN_SMOKE_OVERRIDES,
+                    {"dataset": {"train_split": split}, "output": {"dir": out_dir}})
 
 
 def finetune_cfg(train_split: str, val_split: str, pretrained_ssl: str, out: str) -> dict:
-    """Phase 11's config: configs/finetune.yaml over configs/base.yaml, the
-    campaign's pipeline-B overrides, and the smoke's split, class count,
-    encoder checkpoint and output directories."""
-    cfg = merged(BASE_YAML, FINETUNE_YAML, CAMPAIGN_B)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"].update(train_split=train_split, val_split=val_split,
-                          num_classes=FT_CLASSES)
-    cfg["model"]["pretrained_ssl"] = pretrained_ssl
-    cfg["paths"] = {"split_root": "", "save_dir": os.path.join(out, "finetune"),
-                    "result_dir": os.path.join(out, "results"),
-                    "log_dir": os.path.join(out, "logs")}
-    return cfg
+    """Phase 11's config: configs/finetune.yaml under the campaign's
+    pipeline-B overrides, with the smoke's splits, class count, encoder
+    checkpoint and output directories."""
+    return yaml_cfg("finetune", CAMPAIGN_B, {
+        "dataset": {"train_split": train_split, "val_split": val_split,
+                    "num_classes": FT_CLASSES},
+        "model": {"pretrained_ssl": pretrained_ssl},
+        "paths": {"save_dir": os.path.join(out, "finetune"),
+                  "result_dir": os.path.join(out, "results"),
+                  "log_dir": os.path.join(out, "logs")}})
 
 
 def privacy_cfg(split: str, frame_root: str, out: str) -> dict:
-    """Phase 18's config: configs/privacy.yaml over configs/base.yaml with
-    the smoke's departure, split, frame root, checkpoint and save dir."""
-    cfg = merged(BASE_YAML, BASE_CLIP, PRIVACY_YAML, PRIVACY_SMOKE_OVERRIDES)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"]["split"] = split
-    cfg["visual_privacy"]["frame_root"] = frame_root
-    cfg["output"] = {"save_dir": out}
-    cfg["paths"] = {"split_root": ""}
-    return cfg
+    """Phase 18's config: configs/privacy.yaml with its departure."""
+    return yaml_cfg("privacy", PRIVACY_SMOKE_OVERRIDES, {
+        "dataset": {"split": split}, "visual_privacy": {"frame_root": frame_root},
+        "output": {"save_dir": out}})
 
 
 def federated_cfg(train_split: str, val_split: str, split_root: str, out: str) -> dict:
-    """Phases 17 and 19's config: configs/federated.yaml over
-    configs/base.yaml with the smoke's departures, splits, split root and
-    save dir."""
-    cfg = merged(BASE_YAML, BASE_CLIP, FEDERATED_YAML, FEDERATED_SMOKE_OVERRIDES)
-    cfg["device"]["name"] = "cuda"
-    cfg["dataset"].update(train_split=train_split, val_split=val_split)
-    cfg["output"]["save_dir"] = out
-    cfg["paths"] = {"split_root": split_root}
-    return cfg
+    """Phases 17 and 19's config: configs/federated.yaml with its departures."""
+    return yaml_cfg("federated", FEDERATED_SMOKE_OVERRIDES, {
+        "dataset": {"train_split": train_split, "val_split": val_split},
+        "output": {"save_dir": out}, "paths": {"split_root": split_root}})
 
 
 def rel_l2_by_leaf(grads, ref) -> tuple[list[float], list[float]]:
@@ -1420,21 +1267,22 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
     from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
     from ssl_vit_video_analytics_tpu_torch.train.state import adamw_of
     from ssl_vit_video_analytics_tpu_torch.utils.checkpoint import find_latest_checkpoint
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
     from ssl_vit_video_analytics_tpu_torch.utils.metrics import (
         pipeline_b_flops_per_clip, pipeline_b_model_kwargs)
 
-    B = SSL_MAE_YAML["training"]["batch_size"]
-    k = SSL_MAE_YAML["training"]["accumulation_steps"]
-    d = SSL_MAE_YAML["dataset"]
-    # model FLOPs (forward + backward, no recompute) per clip, analytic
-    flops_per_clip = pipeline_b_flops_per_clip(d["clip_len"], d["image_size"],
-                                               **pipeline_b_model_kwargs(SSL_MAE_YAML))
     # 8 classes x 5 train videos = 40 clips of 64 frames (16 frames at
     # stride 4), 112x112
     splits = make_synthetic_dataset(os.path.join(tmp, "ssl_data"), num_classes=8,
                                     videos_per_class=6, num_frames=64, image_size=112, seed=0)
-    cfg = merged(ssl_mae_cfg(splits["train"], os.path.join(tmp, "ssl_out")),
-                 SSL_MAE_TENSORBOARD)
+    cfg = merge_configs(ssl_mae_cfg(splits["train"], os.path.join(tmp, "ssl_out")),
+                        SSL_MAE_TENSORBOARD)
+    B = cfg["training"]["batch_size"]
+    k = cfg["training"]["accumulation_steps"]
+    d = cfg["dataset"]
+    # model FLOPs (forward + backward, no recompute) per clip, analytic
+    flops_per_clip = pipeline_b_flops_per_clip(d["clip_len"], d["image_size"],
+                                               **pipeline_b_model_kwargs(cfg))
     steps, last = [], {"t": 0.0, "count": 0}
     final = {}
 
@@ -1506,22 +1354,18 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
 
 
 def slice_cfg(split: str, save_dir: str, impl: str) -> dict:
-    cfg = json.loads(json.dumps(DYNAMIC_YAML))
-    cfg["seed"] = 42
-    cfg["device"] = {"name": "cuda", "compute_dtype": "bfloat16"}
-    cfg["dataset"].update({"split": split, "backend": "packed", "clip_len": 16,
-                           "stride": 2, "image_size": 112})
-    cfg["model"]["finetune_ckpt"] = None  # random weights, seeded generator
-    cfg["dynamic"].update({"mode": "early_exit", "early_exit_impl": impl})
-    cfg["paths"] = {"split_root": ""}
-    cfg["output"] = {"save_dir": save_dir, "save_csv": True}
-    return cfg
+    """Phase 7's config (and phases 29-30's): configs/dynamic.yaml with its
+    departure, the split, save dir and early-exit impl under test."""
+    return yaml_cfg("dynamic", SLICE_SMOKE_OVERRIDES, {
+        "dataset": {"split": split}, "dynamic": {"early_exit_impl": impl},
+        "output": {"save_dir": save_dir}})
 
 
-def check_rows(rows: list[dict], impl: str) -> None:
+def check_rows(rows: list[dict], impl: str, dyn: dict) -> None:
+    """The early-exit sweep's rows against the config's ``dynamic`` keys."""
     from ssl_vit_video_analytics_tpu_torch.entry.run_dynamic import EARLY_EXIT_FIELDS
 
-    thresholds = DYNAMIC_YAML["dynamic"]["confidence_thresholds"]
+    thresholds = dyn["confidence_thresholds"]
     if len(rows) != len(thresholds):
         raise AssertionError(f"{impl}: {len(rows)} rows for {len(thresholds)} thresholds")
     for row, thr in zip(rows, thresholds):
@@ -1531,8 +1375,7 @@ def check_rows(rows: list[dict], impl: str) -> None:
         if not all(math.isfinite(x) for x in values.values()):
             raise AssertionError(f"{impl}: non-finite row {row}")
         if not (0 <= values["top1"] <= values["top5"] <= 1
-                and DYNAMIC_YAML["dynamic"]["min_frames"] <= values["avg_frames"]
-                <= DYNAMIC_YAML["dynamic"]["max_frames"]
+                and dyn["min_frames"] <= values["avg_frames"] <= dyn["max_frames"]
                 and 0 < values["avg_conf"] <= 1 and values["avg_latency_ms"] > 0):
             raise AssertionError(f"{impl}: row out of range {row}")
 
@@ -1572,7 +1415,7 @@ def phase_slice(fa, dev) -> dict:
             capture_us = tracing.counter("early_exit.graph_capture_us").count - capture_us
             k1 = launches[impl]["flash_attention_fwd"]
             rows = out["rows"]
-            check_rows(rows, impl)
+            check_rows(rows, impl, cfg["dynamic"])
             if k1 <= 0 or k1 % 6:
                 raise AssertionError(f"{impl}: K1 launched {k1} times, "
                                      "not a positive multiple of 6")
@@ -1597,8 +1440,8 @@ def phase_slice(fa, dev) -> dict:
         gpu = run_dynamic.load_classifier(cfg, torch.bfloat16, dev, lambda m: None)
         cpu = run_dynamic.load_classifier(cfg, torch.float32, torch.device("cpu"),
                                           lambda m: None)
-        T = DYNAMIC_YAML["dynamic"]["max_frames"]
-        B = DYNAMIC_YAML["runtime"]["batch_size"]
+        T = cfg["dynamic"]["max_frames"]
+        B = cfg["runtime"]["batch_size"]
         lg, lc, clip_lg, clip_lc = [], [], [], []
         fa.launches.reset()
         with torch.inference_mode():
@@ -1874,8 +1717,9 @@ def phase_finetune_step(dev) -> list[dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    B, T, S = 2, CAMPAIGN_B["dataset"]["clip_len"], CAMPAIGN_B["dataset"]["image_size"]
-    training = merged(FINETUNE_YAML, CAMPAIGN_B)["training"]
+    cfg = finetune_cfg("", "", "", "")
+    B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    training = cfg["training"]
     g = torch.Generator(device=dev).manual_seed(3)
     clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
     labels = torch.randint(0, FT_CLASSES, (B,), dtype=torch.int32, device=dev, generator=g)
@@ -1952,7 +1796,7 @@ def phase_transfer(fa, dev, tmp: str, ssl_ckpt: str) -> dict:
     # an epoch (3 after the first unfrozen one); the fixture keeps one video
     # a class for val (8 clips), too few to be sure of a top-1 above 0 at
     # chance, so validation runs on the training split
-    d = CAMPAIGN_B["dataset"]
+    d = finetune_cfg("", "", "", "")["dataset"]
     splits = make_synthetic_dataset(os.path.join(tmp, "ft_data"), num_classes=FT_CLASSES,
                                     videos_per_class=9, num_frames=d["clip_len"],
                                     image_size=d["image_size"], seed=1)
@@ -2019,13 +1863,13 @@ def phase_transfer(fa, dev, tmp: str, ssl_ckpt: str) -> dict:
                "device_resident": sum("device-resident store" in m for m in lines),
                "launches": launches, "log": [m for m in lines if "val top1" in m]}
     emit(summary)
-    want_k2 = [0 if s["epoch"] <= CAMPAIGN_B["training"]["stage1_epochs"] else FT_K2_CALLS
+    want_k2 = [0 if s["epoch"] <= cfg["training"]["stage1_epochs"] else FT_K2_CALLS
                for s in steps]
     bad = [s for s, k2 in zip(steps, want_k2) if (s["k1_calls"], s["k2_calls"])
            != (FT_K1_CALLS, k2)]
     bad += [e for e in evals if (e["k1_calls"], e["k2_calls"]) != (FT_K1_CALLS * val_batches,
                                                                       0)]
-    if len(steps) != steps_per_epoch * CAMPAIGN_B["training"]["epochs"] or bad:
+    if len(steps) != steps_per_epoch * cfg["training"]["epochs"] or bad:
         raise AssertionError(f"finetune: {len(steps)} steps; kernel calls off in {bad}")
     if not (finite and summary["loaded_ssl"] and summary["device_resident"] == 2
             and all(math.isfinite(s["loss"]) for s in steps)):
@@ -2182,15 +2026,15 @@ def phase_ssl_train(dev, tmp: str) -> dict:
     from ssl_vit_video_analytics_tpu_torch.train import finetune_engine as eng
     from ssl_vit_video_analytics_tpu_torch.utils.checkpoint import read_checkpoint
 
-    B = SSL_TRAIN_YAML["training"]["batch_size"]
-    d = BASE_CLIP["dataset"]
+    d = ssl_train_cfg("", "")["dataset"]
     # 8 classes x 12 train videos = 96 clips (2 steps an epoch) of 64 frames
     # (32 at stride 2), 112x112
     splits = make_synthetic_dataset(os.path.join(tmp, "ssl_a_data"), num_classes=8,
                                     videos_per_class=13, num_frames=d["clip_len"] * d["stride"],
                                     image_size=d["image_size"], seed=2)
     cfg = ssl_train_cfg(splits["train"], os.path.join(tmp, "ssl_a_out"))
-    rec = StepRecorder(B, "ssl_train_step", extra=lambda m, *_: {"top": "top" in m})
+    rec = StepRecorder(cfg["training"]["batch_size"], "ssl_train_step",
+                       extra=lambda m, *_: {"top": "top" in m})
     rec.start()
     t0 = time.perf_counter()
     out = train_ssl.run(cfg, log=rec.on_log, max_steps=SSL_TRAIN_STEPS, on_step=rec.on_step)
@@ -2200,7 +2044,7 @@ def phase_ssl_train(dev, tmp: str) -> dict:
     steps, lines = rec.steps, rec.lines
     ckpt = os.path.join(cfg["training"]["save_dir"],
                         f"ssl_epoch_{SSL_TRAIN_STEPS // 2}")
-    clf = eng.build_model(8, SSL_TRAIN_YAML["model"]["embed_dim"], backbone="mobilevit_s")
+    clf = eng.build_model(8, cfg["model"]["embed_dim"], backbone="mobilevit_s")
     eng.load_pretrained_ssl(clf, read_checkpoint(ckpt))  # raises on a missing or extra key
     summary = {"phase": "ssl_train", "steps": out["steps"], "seconds": seconds,
                "device_resident": any("device-resident store" in m for m in lines),
@@ -2231,10 +2075,11 @@ def phase_mae_step(dev, seed: int = 7, overrides: dict | None = None,
     from ssl_vit_video_analytics_tpu_torch.train.finetune_engine import init_model
     from ssl_vit_video_analytics_tpu_torch.train.losses import build_mae_loss
     from ssl_vit_video_analytics_tpu_torch.train.mae_engine import token_mae_loss_and_grads
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = merged(mae_train_cfg("", ""), overrides or {})
+    cfg = merge_configs(mae_train_cfg("", ""), overrides or {})
     mae = cfg["mae"]
     B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
     P = mae["stage4_pool"] ** 2
@@ -2275,16 +2120,17 @@ def phase_mae_train(dev, tmp: str) -> dict:
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
     from ssl_vit_video_analytics_tpu_torch.entry import sanity_check_mae, train_mae
     from ssl_vit_video_analytics_tpu_torch.reporting import visualize
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
 
-    B = MAE_TRAIN_SMOKE_OVERRIDES["training"]["batch_size"]
-    d = MAE_TRAIN_YAML["dataset"]
+    d = mae_train_cfg("", "")["dataset"]
     # 8 classes x 4 train videos = 32 clips (2 steps an epoch) of 128
     # frames (32 at stride 4), 112x112
     splits = make_synthetic_dataset(os.path.join(tmp, "mae_c_data"), num_classes=8,
                                     videos_per_class=5, num_frames=d["clip_len"] * d["stride"],
                                     image_size=d["image_size"], seed=3)
-    cfg = merged(mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out")),
-                 {"mae": {"vis_every": MAE_VIS_EVERY}})
+    cfg = merge_configs(mae_train_cfg(splits["train"], os.path.join(tmp, "mae_c_out")),
+                        {"mae": {"vis_every": MAE_VIS_EVERY}})
+    B = cfg["training"]["batch_size"]
     rec = StepRecorder(B, "mae_train_step", extra=lambda m, *_: {
         "pred_std": float(m["pred_std"]), "grad_norm": float(m["grad_norm"])})
     vis = []
@@ -2490,7 +2336,7 @@ def fed_data(tmp: str) -> dict:
     64 frames at 112x112 (8 classes)."""
     from ssl_vit_video_analytics_tpu_torch.data.fixtures import make_synthetic_dataset
 
-    d = BASE_CLIP["dataset"]
+    d = federated_cfg("", "", "", "")["dataset"]
     return make_synthetic_dataset(os.path.join(tmp, "fed_data"), seed=5,
                                   num_frames=d["clip_len"] * d["stride"],
                                   image_size=d["image_size"], **FED_DATA)
@@ -2863,9 +2709,9 @@ def phase_finetune_augment(dev, tmp: str, ssl_ckpt: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    d = CAMPAIGN_B["dataset"]
-    B, T, S = 2, d["clip_len"], d["image_size"]
-    training = merged(FINETUNE_YAML, CAMPAIGN_B)["training"]
+    cfg = finetune_cfg("", "", "", "")
+    B, T, S = 2, cfg["dataset"]["clip_len"], cfg["dataset"]["image_size"]
+    training = cfg["training"]
     g = torch.Generator(device=dev).manual_seed(9)
     clip_u8 = torch.randint(0, 256, (B, T, S, S, 3), dtype=torch.uint8, device=dev, generator=g)
     labels = torch.randint(0, FT_CLASSES, (B,), dtype=torch.int32, device=dev, generator=g)
@@ -2884,7 +2730,7 @@ def phase_finetune_augment(dev, tmp: str, ssl_ckpt: str) -> dict:
     state = create_train_state(model, eng.build_finetune_tx(training, "ft_ssl", model, False))
     reset_counts()
     state, metrics = eng.make_train_step(model, torch.float32, augment=recorded,
-                                         seed=BASE_YAML["seed"])(
+                                         seed=cfg["seed"])(
         state, {"clip": clip_u8, "label": labels}, g)
     torch.cuda.synchronize()
     step_calls = read_counts()
@@ -2922,7 +2768,7 @@ def phase_finetune_augment(dev, tmp: str, ssl_ckpt: str) -> dict:
     torch.cuda.synchronize()
     rec.take_counts()
     steps, lines = rec.steps, rec.lines
-    per_epoch = len(steps) // CAMPAIGN_B["training"]["epochs"]
+    per_epoch = len(steps) // cfg["training"]["epochs"]
     enabled = "[INFO] on-device augmentation enabled (training.augment)" in lines
     emit({"phase": "finetune_augment", "steps": len(steps), "best_top1": out["best_top1"],
           "augmentation_line": enabled, "launches": rec.totals})
@@ -3164,9 +3010,11 @@ def phase_launch(tmp: str, split: str) -> dict:
     entry's process-group line, logged after a barrier), rank 0's log with
     its 2 steps and its checkpoint. The config goes as JSON, which the YAML
     loader reads."""
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
+
     out_dir = os.path.join(tmp, "launch")
-    cfg = merged(ssl_mae_cfg(split, os.path.join(out_dir, "ckpt")), LAUNCH_OVERRIDES,
-                 {"paths": {"split_root": "", "log_dir": os.path.join(out_dir, "logs")}})
+    cfg = merge_configs(ssl_mae_cfg(split, os.path.join(out_dir, "ckpt")), LAUNCH_OVERRIDES,
+                        {"paths": {"log_dir": os.path.join(out_dir, "logs")}})
     os.makedirs(out_dir, exist_ok=True)
     cfg_path = os.path.join(out_dir, "config.yaml")
     with open(cfg_path, "w") as f:
@@ -3444,7 +3292,7 @@ def phase_export(dev, tmp: str, smi: str) -> dict:
            "k1_calls_live": launched["flash_attention_fwd"]}
     emit(out)
     bad = [r for r in rows if not (r["finite"] and r["served_shape"] == [
-        r["batch"], DYNAMIC_YAML["dataset"]["num_classes"]]
+        r["batch"], cfg["dataset"]["num_classes"]]
         and r["served_device"].startswith(r["platform"])
         and r["max_abs_diff"] <= EXPORT_TOL * r["live_max_abs"])]
     if (bad or impls != ["kernel"] or len(rows) != len(EXPORT_PLATFORMS) * len(EXPORT_BATCHES)
@@ -3685,9 +3533,10 @@ def repack_train(split: str, save_dir: str, path: str, overrides: dict,
 
     from ssl_vit_video_analytics_tpu_torch.entry import train_ssl_mae
     from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
 
-    B = SSL_MAE_YAML["training"]["batch_size"]
-    cfg = merged(ssl_mae_cfg(split, save_dir), overrides)
+    cfg = merge_configs(ssl_mae_cfg(split, save_dir), overrides)
+    B = cfg["training"]["batch_size"]
     calls = {}
     fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
 
@@ -3775,6 +3624,7 @@ def phase_front_end(dev, tmp: str, ssl_ckpt: str) -> dict:
 
     from ssl_vit_video_analytics_tpu_torch.data.loader import iterate_batches
     from ssl_vit_video_analytics_tpu_torch.entry import common, evaluate, train_finetune
+    from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
 
     videos, frames, run_dir = (os.path.join(tmp, f"fe_{d}") for d in ("videos", "frames",
                                                                        "run"))
@@ -3824,10 +3674,10 @@ def phase_front_end(dev, tmp: str, ssl_ckpt: str) -> dict:
 
     # one finetune epoch and evaluate on the packed store (device-resident)
     split = {n: os.path.join(splits, f"UCF101_{n}.txt") for n in ("train", "val", "test")}
-    cfg = merged(finetune_cfg(split["train"], split["val"], ssl_ckpt[:-len(".pt")],
-                              os.path.join(tmp, "fe_out")),
-                 {"dataset": {"num_classes": len(FRONT_END["classes"])},
-                  "training": {"epochs": 1}})
+    cfg = merge_configs(finetune_cfg(split["train"], split["val"], ssl_ckpt[:-len(".pt")],
+                                     os.path.join(tmp, "fe_out")),
+                        {"dataset": {"num_classes": len(FRONT_END["classes"])},
+                         "training": {"epochs": 1}})
     B = cfg["training"]["batch_size"]
     rec = StepRecorder(B, "front_end_finetune_step")
     rec.start()
@@ -3852,7 +3702,7 @@ def phase_front_end(dev, tmp: str, ssl_ckpt: str) -> dict:
     # JPEG frames'
     same = {}
     for name in ("train", "test"):
-        jpeg = common.dataset_from_cfg(merged(cfg, {"dataset": {"backend": "jpeg"}}),
+        jpeg = common.dataset_from_cfg(merge_configs(cfg, {"dataset": {"backend": "jpeg"}}),
                                        split[name], "supervised", seed=cfg["seed"])
         ds = common.dataset_from_cfg(cfg, split[name], "supervised", seed=cfg["seed"])
         kw = dict(shuffle=True, seed=cfg["seed"], epoch=0, drop_last=False)
@@ -3979,7 +3829,7 @@ def main() -> None:
         paths["run_privacy"] = phase_privacy(dev, tmp, splits)
         paths.update(phase_federated(dev, tmp, splits))
         lap("privacy and federated")
-        for regime in OPT_IN_YAML:
+        for regime in OPT_IN_CONFIGS:
             phase_opt_in_step(dev, regime)
             paths[f"train_ssl_mae_{regime}"] = phase_opt_in_train(dev, tmp, regime, ssl_split)
         paths["train_finetune_augment"] = phase_finetune_augment(dev, tmp, ssl_ckpt)

@@ -39,6 +39,7 @@ from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
 from ssl_vit_video_analytics_tpu_torch.scripts import probe_decoder_repack as probe
 from ssl_vit_video_analytics_tpu_torch.train import mae_engine as teng
 from ssl_vit_video_analytics_tpu_torch.train import state as tstate
+from ssl_vit_video_analytics_tpu_torch.utils.config import merge_configs
 from ssl_vit_video_analytics_tpu_torch.utils.convert import (
     flatten_variables, mae_state_dict_from_flax, unflatten_variables)
 
@@ -351,7 +352,7 @@ def test_chip_smoke_holds_every_width_and_runs_the_repack_as_a_user_would():
     assert base["model.decoder_num_heads"] == 6
     for path, heads in (("train_ssl_mae_repack", 3), ("train_ssl_mae_repack_h1", 1)):
         overrides, by_d = cs.REPACK_ARMS[path]
-        repack = _flat(cs.merged(cs.ssl_mae_cfg("train.txt", "out"), overrides))
+        repack = _flat(merge_configs(cs.ssl_mae_cfg("train.txt", "out"), overrides))
         assert {k for k in base.keys() | repack.keys() if base.get(k) != repack.get(k)} == {
             "model.decoder_num_heads"}
         assert repack["model.decoder_num_heads"] == heads
@@ -360,5 +361,5 @@ def test_chip_smoke_holds_every_width_and_runs_the_repack_as_a_user_would():
             cs.K1_CALLS_PER_STEP, cs.K2_CALLS_PER_STEP)
         assert path in cs.PATHS
     assert "probe_decoder_repack" in cs.PATHS
-    mae = cs.merged(cs.mae_train_cfg("", ""), cs.MAE_H1_OVERRIDES)["mae"]["decoder"]
+    mae = merge_configs(cs.mae_train_cfg("", ""), cs.MAE_H1_OVERRIDES)["mae"]["decoder"]
     assert mae["dim"] // mae["num_heads"] == 512 and cs.MAE_H1_WIDE_CALLS == (2, 2)

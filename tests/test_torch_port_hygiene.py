@@ -15,7 +15,7 @@ import torch
 
 from ssl_vit_video_analytics_tpu_torch.ops import depthwise, kernel_build, unary_chain
 from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
-from ssl_vit_video_analytics_tpu_torch.utils.config import load_yaml
+from ssl_vit_video_analytics_tpu_torch.utils.config import load_config, load_yaml, merge_configs
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "ssl_vit_video_analytics_tpu_torch"
@@ -145,37 +145,6 @@ def test_kernel_build_registers_every_kernel_source():
     assert kernel_build.BUILD_DIR == REPO / "build" / "kernels"
 
 
-def test_chip_smoke_slice_config_is_configs_dynamic_yaml():
-    """chip_smoke.py spells the serving config out (the card's machine may
-    lack yaml); it must stay what configs/dynamic.yaml says."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    yml = load_yaml(os.path.join(REPO, "configs", "dynamic.yaml"))
-    for section, values in chip_smoke.DYNAMIC_YAML.items():
-        for key, value in values.items():
-            assert yml[section][key] == value, (section, key)
-
-
-def test_chip_smoke_pipeline_b_config_is_configs_ssl_mae_yaml():
-    """chip_smoke.py's spelled-out pipeline-B config must stay what
-    configs/ssl_mae.yaml (over configs/base.yaml) says."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    yml = load_yaml(os.path.join(REPO, "configs", "ssl_mae.yaml"))
-    base = load_yaml(os.path.join(REPO, "configs", "base.yaml"))
-    for section, values in chip_smoke.SSL_MAE_YAML.items():
-        assert set(values) == set(yml[section]) - {"train_split", "save_dir"}, section
-        for key, value in values.items():
-            assert yml[section][key] == value, (section, key)
-    assert chip_smoke.BASE_YAML["seed"] == base["seed"]
-    for section in ("device", "dataset"):
-        for key, value in chip_smoke.BASE_YAML[section].items():
-            assert base[section][key] == value, (section, key)
-            assert key not in yml.get(section, {}), (section, key)
-
-
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
@@ -193,107 +162,109 @@ def _flat(cfg, prefix=""):
     return out
 
 
-def test_chip_smoke_pretraining_run_departs_from_ssl_mae_yaml_in_save_every_only():
-    """Phase 6 runs configs/ssl_mae.yaml over configs/base.yaml with one
-    departure, an encoder checkpoint every epoch (for phase 11)."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
+ABSENT = object()  # a departure's key that the yaml does not have
+ON_CARD = {"device.name": "cuda", "paths.split_root": ""}
+# each phase config of chip_smoke.py: its yaml, how the phase builds it, its
+# named departures (flat key: (the yaml's value, the phase's)), its own keys
+# and spot checks of what it runs
+PHASE_CONFIGS = {
+    "slice_7": ("dynamic", lambda cs: cs.slice_cfg("v.txt", "out", "streaming"),
+                {"model.finetune_ckpt": ("results/finetune/two_stage/best", None)},
+                {"dataset.split": "v.txt", "output.save_dir": "out",
+                 "dynamic.early_exit_impl": "streaming"},
+                {"runtime.batch_size": 8, "dataset.clip_len": 32, "dataset.stride": 2,
+                 "dynamic.max_frames": 16, "dataset.num_classes": 101, "model.embed_dim": 256}),
+    "pipeline_b_6": ("ssl_mae", lambda cs: cs.ssl_mae_cfg("train.txt", "out"),
+                     {"training.save_every": (10, 1)},
+                     {"dataset.train_split": "train.txt", "training.save_dir": "out"},
+                     {"training.batch_size": 40, "training.accumulation_steps": 2,
+                      "dataset.clip_len": 16, "model.decoder_num_heads": 6}),
+    # as phase_launch layers it
+    "launch_26": ("ssl_mae", lambda cs: merge_configs(
+                      cs.ssl_mae_cfg("train.txt", "ckpt"), cs.LAUNCH_OVERRIDES,
+                      {"paths": {"log_dir": "logs_26"}}),
+                  {"training.save_every": (10, 1), "training.epochs": (200, 1),
+                   "training.batch_size": (40, 20), "training.log_interval": (20, 1)},
+                  {"dataset.train_split": "train.txt", "training.save_dir": "ckpt",
+                   "paths.log_dir": "logs_26"},
+                  {"dataset.clip_len": 16, "training.accumulation_steps": 2}),
+    "moe_20_21": ("ssl_mae_moe", lambda cs: cs.opt_in_cfg("moe", "train.txt", "out", "prof"),
+                  {"training.save_every": (10, 1), "logging.profile_dir": (ABSENT, "prof")},
+                  {"dataset.train_split": "train.txt", "training.save_dir": "out"},
+                  {"training.batch_size": 40, "model.decoder_moe_group_size": 392,
+                   "model.decoder_moe_experts": 8}),
+    "longclip_22_23": ("ssl_mae_longclip",
+                       lambda cs: cs.opt_in_cfg("longclip", "train.txt", "out", "prof"),
+                       {},
+                       {"dataset.train_split": "train.txt", "training.save_dir": "out"},
+                       {"training.batch_size": 8, "dataset.clip_len": 64, "dataset.stride": 1}),
+    "pipeline_a_12_13": ("ssl_train", lambda cs: cs.ssl_train_cfg("train.txt", "out"),
+                         {"ssl_objectives.top_start_epoch": (6, 1),
+                          "training.save_every": (10, 1)},
+                         {"dataset.train_split": "train.txt", "training.save_dir": "out"},
+                         {"training.batch_size": 48, "dataset.clip_len": 32,
+                          "model.temporal_heads": 4}),
+    "pipeline_c_14_16": ("mae_train", lambda cs: cs.mae_train_cfg("train.txt", "out"),
+                         {"training.batch_size": (256, 16), "training.save_every": (5, 1)},
+                         {"dataset.train_split": "train.txt", "output.dir": "out"},
+                         {"dataset.clip_len": 32, "mae.decoder.num_heads": 8,
+                          "mae.stage4_pool": 3}),
+    "transfer_11": ("finetune", lambda cs: cs.finetune_cfg("t.txt", "v.txt", "ckpt", "out"),
+                    {"model.backbone": ("mobilevit_s", "tinyvit"), "dataset.clip_len": (32, 16),
+                     "dataset.stride": (2, 1), "dataset.device_resident": (ABSENT, True),
+                     "training.batch_size": (64, 16), "training.epochs": (30, 2),
+                     "training.stage1_epochs": (10, 1)},
+                    {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
+                     "dataset.num_classes": 8, "model.pretrained_ssl": "ckpt",
+                     "paths.save_dir": os.path.join("out", "finetune"),
+                     "paths.result_dir": os.path.join("out", "results"),
+                     "paths.log_dir": os.path.join("out", "logs")},
+                    {"dataset.image_size": 112, "device.compute_dtype": "bfloat16"}),
+    "privacy_18": ("privacy", lambda cs: cs.privacy_cfg("s.txt", "faces", "out"),
+                   {"feature_privacy.noise_sigmas": ([0.0, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 4.0],
+                                                     [0.0, 0.5]),
+                    "feature_privacy.mask_ratios": ([0.0, 0.2, 0.4], [0.0, 0.2])},
+                   {"dataset.split": "s.txt", "visual_privacy.frame_root": "faces",
+                    "output.save_dir": "out"},
+                   {"runtime.batch_size": 8, "dataset.clip_len": 32, "model.embed_dim": 256,
+                    "feature_privacy.attacker_epochs": 10}),
+    "federated_17_19": ("federated",
+                        lambda cs: cs.federated_cfg("t.txt", "v.txt", "splits", "out"),
+                        {"federated.rounds": (10, 2),
+                         "federated.non_iid.min_samples_per_client": (200, 32),
+                         "centralized.epochs": (None, 1)},
+                        {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
+                         "output.save_dir": "out", "paths.split_root": "splits"},
+                        {"federated.batch_size": 16, "federated.num_clients": 5,
+                         "federated.lr": 3e-4, "federated.weight_decay": 0.01,
+                         "dataset.clip_len": 32}),
+}
 
-    yml = _flat(load_config(str(REPO / "configs" / "ssl_mae.yaml"),
+
+@pytest.mark.parametrize("case", list(PHASE_CONFIGS))
+def test_chip_smoke_phase_config_is_its_yaml_with_named_departures(case):
+    """Each phase of chip_smoke.py runs configs/<yaml>.yaml over
+    configs/base.yaml, as an entry's --config loads it, with exactly its
+    named departures and its own keys (splits, output directories, the
+    card) on top; nothing else departs."""
+    chip_smoke = _chip_smoke()
+    name, build, departures, own, spot = PHASE_CONFIGS[case]
+    yml = _flat(load_config(str(REPO / "configs" / f"{name}.yaml"),
                             base=str(REPO / "configs" / "base.yaml")))
-    cfg = _flat(chip_smoke.ssl_mae_cfg("train.txt", "out"))
-    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
-           "device.name": "cuda", "paths.split_root": ""}
-    assert chip_smoke.SSL_MAE_SMOKE_OVERRIDES == {"training": {"save_every": 1}}
-    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
-    assert differ == {"training.save_every"} and yml["training.save_every"] == 10
-    assert cfg["training.save_every"] == 1
-    assert {k: cfg[k] for k in own} == own
-    # every key the pipeline-B entry reads from the yaml is in the smoke's copy
-    assert {k for k in yml if k.split(".")[0] in ("model", "ssl", "training")} <= set(cfg)
-
-
-def test_chip_smoke_transfer_config_is_finetune_yaml_under_the_campaign_b_overrides():
-    """Phase 11 runs configs/finetune.yaml (over configs/base.yaml) with the
-    pipeline-B transfer campaign's overrides (scripts/ssl_transfer_campaign.py
-    with --backbone tinyvit --device_resident true), two_stage for 2 epochs."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
-
-    yml = load_yaml(os.path.join(REPO, "configs", "finetune.yaml"))
-    for section, values in chip_smoke.FINETUNE_YAML.items():
-        assert set(values) == set(yml[section]) - {"train_split", "val_split",
-                                                   "pretrained_ssl", "save_dir"}, section
-        for key, value in values.items():
-            assert yml[section][key] == value, (section, key)
-    assert chip_smoke.CAMPAIGN_B == {
-        "model": {"backbone": "tinyvit"},
-        "dataset": {"clip_len": 16, "stride": 1, "image_size": 112, "device_resident": True},
-        "training": {"batch_size": 16, "epochs": 2, "stage1_epochs": 1},
-        "device": {"compute_dtype": "bfloat16"}}
-    assert chip_smoke.FINETUNE_MODE == "two_stage" and chip_smoke.FT_CLASSES == 8
-
-    merged = _flat(load_config(str(REPO / "configs" / "finetune.yaml"),
-                               base=str(REPO / "configs" / "base.yaml")))
-    merged.update(_flat(chip_smoke.CAMPAIGN_B))
-    cfg = _flat(chip_smoke.finetune_cfg("t.txt", "v.txt", "ckpt", "out"))
-    own = {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
-           "dataset.num_classes": 8, "model.pretrained_ssl": "ckpt", "device.name": "cuda",
-           "paths.split_root": "", "paths.save_dir": os.path.join("out", "finetune"),
-           "paths.result_dir": os.path.join("out", "results"),
-           "paths.log_dir": os.path.join("out", "logs")}
-    assert {k: cfg[k] for k in own} == own
-    assert {k: v for k, v in cfg.items() if k not in own} == {
-        k: v for k, v in merged.items()
-        if k not in own and k.split(".")[0] != "paths" and k != "device.prefetch"}
-
-
-def test_chip_smoke_pipeline_a_run_departs_from_ssl_train_yaml_in_top_and_saves_only():
-    """Phases 12-13 run configs/ssl_train.yaml over configs/base.yaml with
-    two departures: TOP from epoch 1 (steps with and without it alternate)
-    and a checkpoint every epoch."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
-
-    yml = _flat(load_config(str(REPO / "configs" / "ssl_train.yaml"),
-                            base=str(REPO / "configs" / "base.yaml")))
-    cfg = _flat(chip_smoke.ssl_train_cfg("train.txt", "out"))
-    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
-           "device.name": "cuda", "paths.split_root": ""}
-    assert chip_smoke.SSL_TRAIN_SMOKE_OVERRIDES == {"ssl_objectives": {"top_start_epoch": 1},
-                                                    "training": {"save_every": 1}}
-    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
-    assert differ == {"ssl_objectives.top_start_epoch", "training.save_every"}
-    assert (yml["ssl_objectives.top_start_epoch"], yml["training.save_every"]) == (6, 10)
-    assert {k: cfg[k] for k in own} == own
-    # every key the pipeline-A entry reads from the yaml is in the smoke's copy
-    assert {k for k in yml if k.split(".")[0] in ("model", "ssl_objectives", "training",
-                                                  "dataset", "seed")} - {
-        "dataset.train_split", "training.save_dir"} <= set(cfg)
-    assert (cfg["training.batch_size"], cfg["dataset.clip_len"]) == (48, 32)
-
-
-def test_chip_smoke_pipeline_c_run_departs_from_mae_train_yaml_in_batch_and_saves_only():
-    """Phases 14-16 run configs/mae_train.yaml over configs/base.yaml with
-    two departures: 16 clips a batch (the published 256 x 32 frames do not
-    fit one card) and a checkpoint every epoch."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
-
-    yml = _flat(load_config(str(REPO / "configs" / "mae_train.yaml"),
-                            base=str(REPO / "configs" / "base.yaml")))
-    cfg = _flat(chip_smoke.mae_train_cfg("train.txt", "out"))
-    own = {"dataset.train_split": "train.txt", "output.dir": "out",
-           "device.name": "cuda", "paths.split_root": ""}
-    assert chip_smoke.MAE_TRAIN_SMOKE_OVERRIDES == {"training": {"batch_size": 16,
-                                                                 "save_every": 1}}
-    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
-    assert differ == {"training.batch_size", "training.save_every"}
-    assert (yml["training.batch_size"], yml["training.save_every"]) == (256, 5)
-    assert {k: cfg[k] for k in own} == own
-    assert {k for k in yml if k.split(".")[0] in ("mae", "training", "dataset", "seed")} - {
-        "dataset.train_split"} <= set(cfg)
-    assert cfg["dataset.clip_len"] == 32 and cfg["mae.decoder.num_heads"] == 8
+    cfg = _flat(build(chip_smoke))
+    assert {k: yml.get(k, ABSENT) for k in departures} == {
+        k: was for k, (was, _) in departures.items()}
+    want = {**yml, **{k: now for k, (_, now) in departures.items()}, **ON_CARD, **own}
+    assert cfg == want
+    assert {k: cfg[k] for k in spot} == spot
+    if case == "transfer_11":
+        assert chip_smoke.CAMPAIGN_B == {
+            "model": {"backbone": "tinyvit"},
+            "dataset": {"clip_len": 16, "stride": 1, "image_size": 112,
+                        "device_resident": True},
+            "training": {"batch_size": 16, "epochs": 2, "stage1_epochs": 1},
+            "device": {"compute_dtype": "bfloat16"}}
+        assert chip_smoke.FINETUNE_MODE == "two_stage" and chip_smoke.FT_CLASSES == 8
 
 
 PTXAS_LOG = """\
@@ -347,87 +318,6 @@ print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)))
             "privacy/feature.py", "privacy/attacker.py", "privacy/visual.py",
             "privacy/metrics.py", "privacy/system_federated.py", "federated/__init__.py",
             "federated/core.py", "federated/comm_cost.py", "data/transforms.py"} <= walked
-
-
-def test_chip_smoke_privacy_and_federated_runs_depart_from_their_yamls_as_listed():
-    """Phase 18 runs configs/privacy.yaml over configs/base.yaml with one
-    departure (the feature grid cut to sigma {0, 0.5} x r {0, 0.2}); phases
-    17 and 19 run configs/federated.yaml with three (2 rounds, 32 samples a
-    client, the centralized baseline at 1 epoch)."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
-
-    base = str(REPO / "configs" / "base.yaml")
-    for name, spelled in (("privacy", chip_smoke.PRIVACY_YAML),
-                          ("federated", chip_smoke.FEDERATED_YAML)):
-        yml = load_yaml(str(REPO / "configs" / f"{name}.yaml"))
-        for section, values in spelled.items():
-            assert _flat(values) == {k: v for k, v in _flat(yml[section]).items()
-                                     if k not in ("split", "train_split", "val_split",
-                                                  "frame_root", "save_dir")}, section
-
-    yml = _flat(load_config(str(REPO / "configs" / "privacy.yaml"), base=base))
-    cfg = _flat(chip_smoke.privacy_cfg("s.txt", "faces", "out"))
-    own = {"dataset.split": "s.txt", "visual_privacy.frame_root": "faces",
-           "output.save_dir": "out", "device.name": "cuda", "paths.split_root": ""}
-    assert {k: cfg[k] for k in own} == own
-    differ = {k for k in cfg if k not in own and cfg[k] != yml.get(k)}
-    assert differ == {"feature_privacy.noise_sigmas", "feature_privacy.mask_ratios"}
-    assert (cfg["feature_privacy.noise_sigmas"], cfg["feature_privacy.mask_ratios"]) == (
-        [0.0, 0.5], [0.0, 0.2])
-    assert {k for k in yml if k.split(".")[0] not in ("paths", "device")} - set(own) <= set(cfg)
-    assert (cfg["runtime.batch_size"], cfg["dataset.clip_len"], cfg["model.embed_dim"],
-            cfg["feature_privacy.attacker_epochs"]) == (8, 32, 256, 10)
-
-    yml = _flat(load_config(str(REPO / "configs" / "federated.yaml"), base=base))
-    cfg = _flat(chip_smoke.federated_cfg("t.txt", "v.txt", "splits", "out"))
-    own = {"dataset.train_split": "t.txt", "dataset.val_split": "v.txt",
-           "paths.split_root": "splits", "output.save_dir": "out", "device.name": "cuda"}
-    assert {k: cfg[k] for k in own} == own
-    differ = {k: (yml.get(k), cfg[k]) for k in cfg if k not in own and cfg[k] != yml.get(k)}
-    assert differ == {"federated.rounds": (10, 2),
-                      "federated.non_iid.min_samples_per_client": (200, 32),
-                      "centralized.epochs": (None, 1)}
-    assert {k for k in yml if k.split(".")[0] not in ("paths", "device")} - set(own) <= set(cfg)
-    assert (cfg["federated.batch_size"], cfg["federated.num_clients"], cfg["federated.lr"],
-            cfg["federated.weight_decay"], cfg["dataset.clip_len"]) == (16, 5, 3e-4, 0.01, 32)
-
-
-@pytest.mark.parametrize("name,short,constant", [
-    ("ssl_mae_moe", "moe", "SSL_MAE_MOE_YAML"),
-    ("ssl_mae_longclip", "longclip", "SSL_MAE_LONGCLIP_YAML")])
-def test_chip_smoke_opt_in_pipeline_b_configs_are_their_yamls(name, short, constant):
-    """chip_smoke.py's spelled-out MoE and long-clip configs must stay what
-    configs/ssl_mae_moe.yaml and configs/ssl_mae_longclip.yaml say, and its
-    runs of them depart from the yamls (over configs/base.yaml) as listed:
-    the MoE run saves every epoch and traces its steps, the long-clip run
-    not at all."""
-    chip_smoke = _chip_smoke()
-    from ssl_vit_video_analytics_tpu_torch.utils.config import load_config
-
-    spelled = getattr(chip_smoke, constant)
-    assert chip_smoke.OPT_IN_YAML[short] is spelled
-    yml = load_yaml(str(REPO / "configs" / f"{name}.yaml"))
-    assert set(spelled) == set(yml)
-    for section, values in spelled.items():
-        assert values == {k: v for k, v in yml[section].items()
-                          if k not in ("train_split", "save_dir")}, section
-    merged = _flat(load_config(str(REPO / "configs" / f"{name}.yaml"),
-                               base=str(REPO / "configs" / "base.yaml")))
-    cfg = _flat(chip_smoke.opt_in_cfg(short, "train.txt", "out", "prof"))
-    own = {"dataset.train_split": "train.txt", "training.save_dir": "out",
-           "device.name": "cuda", "paths.split_root": ""}
-    assert {k: cfg[k] for k in own} == own
-    differ = {k: (merged.get(k), cfg[k]) for k in cfg if k not in own and cfg[k] != merged.get(k)}
-    if name == "ssl_mae_moe":
-        assert differ == {"training.save_every": (10, 1), "logging.profile_dir": (None, "prof")}
-        assert (cfg["training.batch_size"], cfg["model.decoder_moe_group_size"]) == (40, 392)
-    else:
-        assert differ == {}
-        assert (cfg["training.batch_size"], cfg["dataset.clip_len"]) == (8, 64)
-    assert {k for k in merged if k.split(".")[0] in ("model", "ssl", "training", "dataset",
-                                                     "device", "seed")} - {
-        "dataset.train_split", "training.save_dir", "device.prefetch"} <= set(cfg)
 
 
 def test_chip_smoke_campaigns_run_the_scripts_at_full_width_with_counts_cut(tmp_path,
