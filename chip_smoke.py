@@ -12,8 +12,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. device: the card's name, and its name and power limit from nvidia-smi.
 2. build: every kernel of the port, flash attention K1 (forward) and K2
-   (backward), the depthwise conv P1 and the unary chain P2, built from the
-   repo's sources into build/kernels/, one nvcc each, all in parallel;
+   (backward), the depthwise conv P1, the unary chain P2 and the LayerNorm
+   kernels, built from the repo's sources into build/kernels/, one nvcc each, all in parallel;
    seconds, registers, spills and static shared memory from ptxas, the
    count of bf16 tensor-core products (mma.sync, HMMA.16816.F32.BF16, and
    wgmma, HGMMA, from cuobjdump) in each flash kernel, the wide bf16
@@ -331,6 +331,20 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    an eval batch), and the batches of the packed store, host and
    device-resident, equal those read from the JPEG frames.
 
+34. LayerNorm kernels vs plain (run after phase 9): the forward and
+   backward kernels (csrc/layer_norm.cu) against their plain version, bf16
+   in and out with fp32 weight, bias and statistics, at each LN_SHAPES row:
+   pipeline B's two widths at a micro-step's rows (forward and backward)
+   and serving's MobileViT-S blocks at a frame step of 8 clips (forward);
+   y and dx to 1e-5 (1e-4 for dx) of their largest magnitude plus one bf16
+   step, the weight and bias gradients to 1e-4; the time per call of each
+   (queued behind a spin, so that the host's launch cost is not counted),
+   of torch's fp32 layer_norm on the fp32 copy (its backward by
+   autograd.grad) and the bound by bytes (each input read and output
+   written once). Phase 6 holds the pipeline-B step to 41 forward and 25
+   backward launches (LN_FWD_PER_STEP, LN_BWD_PER_STEP) and phase 7 the
+   streaming path to two LayerNorms an attention call (12 a frame).
+
 Each phase's config is configs/<name>.yaml over configs/base.yaml, as an
 entry's --config loads it, with the departures the phase names
 (*_SMOKE_OVERRIDES, CAMPAIGN_B, LAUNCH_OVERRIDES, REPACK_ARMS) and its own
@@ -375,6 +389,9 @@ P1_TPU = "scripts/probe_dw.py:31"
 P1_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/dw3x3.cu"
 P2_TPU = "scripts/probe_exp.py:35"
 P2_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/unary_chain.cu"
+LN_SOURCE = "ssl_vit_video_analytics_tpu_torch/ops/csrc/layer_norm.cu"
+LN_REPLACES = ("none: added for the port's fp32 round trip around torch's LayerNorm "
+               "(the JAX package leaves LayerNorm to XLA, which fuses the casts)")
 PATHS = ("train_ssl_mae", "run_dynamic_streaming", "run_dynamic_batched", "probe_dw",
          "probe_exp", "train_finetune", "evaluate", "train_ssl", "train_mae",
          "sanity_check_mae", "run_privacy", "fed_centralized", "fed_client_steps", "fed_eval",
@@ -528,6 +545,18 @@ FT_K1_CALLS, FT_K2_CALLS = 8, 8
 # 8 encoder layers run K1 once more when their checkpointed stage is
 # recomputed in the backward pass (the decoder is not checkpointed).
 K1_CALLS_PER_STEP, K2_CALLS_PER_STEP = 12 + 8, 12
+# LayerNorms of the pipeline-B step: 2 a transformer block (4 in TinyViT
+# stage 1, 12 in stage 2, 8 in the decoder) and the decoder's final one.
+# The 16 encoder ones run forward once more in their stage's recompute.
+LN_FWD_PER_STEP, LN_BWD_PER_STEP = 25 + 16, 25
+# (name, rows, width, backward): pipeline B's micro-step of 40 clips x 16
+# frames (TinyViT stage 1: 640 frames of 28x28 tokens at 192; stage 2 and
+# the decoder: 125,440 tokens at 384), forward and backward; serving's
+# MobileViT-S blocks at a streamed frame of 8 clips (14x14, 8x8 padded and
+# 4x4 tokens at 128, 160 and 192), forward only
+LN_SHAPES = (("tinyvit_stage1", 501760, 192, True), ("tinyvit_stage2", 125440, 384, True),
+             ("mvit1", 8 * 196, 128, False), ("mvit2", 8 * 64, 160, False),
+             ("mvit3", 8 * 16, 192, False))
 
 # (B, Lq, Lk, H, d): the slice's MobileViT blocks at 8 clips x 16 frames,
 # then pipeline-B's TinyViT stages, its decoder, and a sequence-parallel
@@ -656,13 +685,14 @@ def emit(obj: dict) -> None:
 
 def counters() -> dict:
     """Every kernel's launch counter, by the kernel's name in the last line."""
-    from ssl_vit_video_analytics_tpu_torch.ops import depthwise, unary_chain
+    from ssl_vit_video_analytics_tpu_torch.ops import depthwise, layer_norm, unary_chain
     from ssl_vit_video_analytics_tpu_torch.ops import flash_attention as fa
 
     return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
             "flash_attention_fwd_wide": fa.wide_launches,
             "flash_attention_bwd_wide": fa.wide_bwd_launches,
-            "dw3x3": depthwise.launches, "unary_chain": unary_chain.launches}
+            "dw3x3": depthwise.launches, "unary_chain": unary_chain.launches,
+            "layer_norm_fwd": layer_norm.launches, "layer_norm_bwd": layer_norm.bwd_launches}
 
 
 def reset_counts() -> None:
@@ -869,8 +899,8 @@ def phase_build() -> dict:
             copies.setdefault(kernel_label(f), {})[opcode] = n
     out["p1_async_copies"] = copies
     emit(out)
-    if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}:
-        raise AssertionError(f"built {sorted(libs)}, not the four kernel sources")
+    if set(libs) != {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain", "layer_norm"}:
+        raise AssertionError(f"built {sorted(libs)}, not the five kernel sources")
     bf16 = {k: n + hgmma[k] for k, n in hmma.items() if "_bf16_kernel" in k}
     if len(bf16) != BF16_FLASH_KERNELS or not all(bf16.values()):
         raise AssertionError(f"bf16 flash kernels without tensor-core products: {hmma} {hgmma}")
@@ -1304,6 +1334,8 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
                       "model_tflop_per_s": flops_per_clip * B / (now - last["t"]) / 1e12,
                       "k1_calls": launched["flash_attention_fwd"],
                       "k2_calls": launched["flash_attention_bwd"],
+                      "layer_norm_launches": launched["layer_norm_fwd"],
+                      "layer_norm_bwd_launches": launched["layer_norm_bwd"],
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
         emit({"phase": "train_step", **steps[-1]})
         final["model"], final["count"] = state.model, count
@@ -1342,8 +1374,9 @@ def phase_train(fa, dev, tmp: str) -> tuple[dict, str, str]:
     if bool(events) == bool(tb_warning):
         raise AssertionError(f"train: logging.tensorboard gave event files {events} and "
                              f"warnings {tb_warning}; want exactly one of them")
-    bad = [s for s in steps if (s["k1_calls"], s["k2_calls"])
-           != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP)]
+    bad = [s for s in steps if (s["k1_calls"], s["k2_calls"], s["layer_norm_launches"],
+                                s["layer_norm_bwd_launches"])
+           != (K1_CALLS_PER_STEP, K2_CALLS_PER_STEP, LN_FWD_PER_STEP, LN_BWD_PER_STEP)]
     if out["steps"] != TRAIN_STEPS or bad:
         raise AssertionError(f"train: {out['steps']} steps; kernel calls off in {bad}")
     if not (finite and final["count"] >= 1 and all(math.isfinite(s["loss"]) for s in steps)):
@@ -1421,8 +1454,12 @@ def phase_slice(fa, dev) -> dict:
                                      "not a positive multiple of 6")
             if impl == "streaming" and replays <= 0:
                 raise AssertionError("streaming: no frame stepped by a CUDA graph's replay")
+            ln = launches[impl]["layer_norm_fwd"]
+            if ln != 2 * k1:  # each transformer block: one attention, two LayerNorms
+                raise AssertionError(f"{impl}: {ln} LayerNorm launches for {k1} K1 launches")
             rows_by_impl[impl] = rows
-            emit({"phase": "slice", "impl": impl, "k1_launches": k1, "graph_replays": replays,
+            emit({"phase": "slice", "impl": impl, "k1_launches": k1,
+                  "layer_norm_launches": ln, "graph_replays": replays,
                   "graph_capture_s": capture_us / 1e6, "seconds": seconds,
                   "avg_latency_ms": {r["threshold"]: float(r["avg_latency_ms"]) for r in rows},
                   "avg_frames": {r["threshold"]: float(r["avg_frames"]) for r in rows},
@@ -1540,6 +1577,81 @@ def phase_dw(dev) -> dict:
             "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
             "bwd_dx_ms": by["dw3x3 bwd(dx)"]["ms"],
             "library_bwd_dx_ms": by["cudnn grouped conv bwd(dx)"]["ms"]}
+
+
+def phase_layer_norm(dev) -> dict:
+    """The LayerNorm kernels against their plain version at each LN_SHAPES
+    row, with the times of each, of torch's fp32 layer_norm and the bound
+    (phase 34). Returns the line of kernels' rows, forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from h100_bench import yardstick
+    from ssl_vit_video_analytics_tpu_torch.ops import layer_norm as lnk
+    from ssl_vit_video_analytics_tpu_torch.scripts import time_ms as card_time_ms
+
+    def timed(fn) -> float:
+        return card_time_ms(fn, dev, iters=20, repeats=3, queued=True)
+
+    def within(got, ref, share: float, bf16: bool) -> float:
+        """The largest excess over ``share`` of ref's largest magnitude (and
+        one bf16 step of each element in bf16); <= 0 passes."""
+        got, ref = got.float(), ref.float()
+        step = ref.abs() * 2.0 ** -7 if bf16 else 0.0
+        return float(((got - ref).abs() - step - share * ref.abs().max()).max())
+
+    eps, bf16 = 1e-5, torch.bfloat16
+    out = {"fwd": {"max_excess": -math.inf}, "bwd": {"max_excess": -math.inf}}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, R, D, backward in LN_SHAPES:
+        x = (torch.randn(R, D, device=dev, generator=g) * 3 + 0.5).to(bf16)
+        w = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
+        b = 0.1 * torch.randn(D, device=dev, generator=g)
+        xf = x.float()
+        y, mean, rstd = lnk.layer_norm_fwd(x, w, b, eps, bf16)
+        excess = within(y, lnk.layer_norm_plain(x, w, b, eps, bf16), 1e-5, True)
+        seconds, by = yardstick.bound_s(R * D * (2 + 2) + 2 * D * 4 + 2 * R * 4, 8 * R * D,
+                                        yardstick.FP32_FLOP_PER_S)
+        row = {"ms": timed(lambda: lnk.layer_norm_fwd(x, w, b, eps, bf16)),
+               "bound_ms": 1e3 * seconds, "bound_by": BOUND_BY[by],
+               "plain_ms": timed(lambda: lnk.layer_norm_plain(x, w, b, eps, bf16)),
+               "library_ms": timed(lambda: F.layer_norm(xf, (D,), w, b, eps))}
+        rows = {"fwd": (row, excess)}
+        if backward:
+            dy = torch.randn(R, D, device=dev, generator=g).to(bf16)
+            dx, dw, db = lnk.layer_norm_bwd(x, dy, w, mean, rstd)
+            leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+            y0 = lnk.layer_norm_plain(*leaves, eps, bf16)
+            ref = torch.autograd.grad(y0, leaves, dy, retain_graph=True)
+            excess = max(within(dx, ref[0], 1e-4, True), within(dw, ref[1], 1e-4, False),
+                         within(db, ref[2], 1e-4, False))
+            lib = [xf.clone().requires_grad_(), w.clone().requires_grad_(),
+                   b.clone().requires_grad_()]
+            y1, dyf = F.layer_norm(lib[0], (D,), lib[1], lib[2], eps), dy.float()
+            seconds, by = yardstick.bound_s(
+                R * D * (2 + 2 + 2) + 2 * R * 4 + 3 * D * 4, 14 * R * D,
+                yardstick.FP32_FLOP_PER_S)
+            row = {"ms": timed(lambda: lnk.layer_norm_bwd(x, dy, w, mean, rstd)),
+                   "bound_ms": 1e3 * seconds, "bound_by": BOUND_BY[by],
+                   "plain_ms": timed(lambda: torch.autograd.grad(y0, leaves, dy,
+                                                                 retain_graph=True)),
+                   "library_ms": timed(lambda: torch.autograd.grad(y1, lib, dyf,
+                                                                   retain_graph=True))}
+            rows["bwd"] = (row, excess)
+            del dy, dx, dw, db, leaves, y0, ref, lib, y1, dyf
+        for way, (row, excess) in rows.items():
+            row["share"] = row["bound_ms"] / row["ms"]
+            emit({"phase": "layer_norm_vs_plain", "shape": name, "rows": R, "D": D,
+                  "way": way, "dtype": "bfloat16", "max_excess": excess, **row,
+                  "ok": excess <= 0})
+            if excess > 0:
+                raise AssertionError(f"LayerNorm {way} kernel disagrees with the plain "
+                                     f"version at {name}: excess {excess}")
+            out[way][name] = row
+            out[way]["max_excess"] = max(out[way]["max_excess"], excess)
+        del x, xf, y, mean, rstd
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_chain(dev) -> dict:
@@ -3814,7 +3926,8 @@ def main() -> None:
         paths["probe_dw"] = p1.pop("launched")
         p2 = phase_chain(dev)
         paths["probe_exp"] = p2.pop("launched")
-        lap("serving and probes")
+        ln = phase_layer_norm(dev)
+        lap("serving, probes and LayerNorm")
         phase_finetune_step(dev)
         paths.update(phase_transfer(fa, dev, tmp, ssl_ckpt))
         lap("transfer")
@@ -3903,6 +4016,17 @@ def main() -> None:
          "ms_is": "sum over the 4 ops x 2 working types of one call at n = 516 on "
                   "896x6272; library: none, no single PyTorch call applies an n-step "
                   "chain"},
+        {"name": "layer_norm_fwd", "route": "cuda", "source": LN_SOURCE,
+         "replaces": LN_REPLACES, "launches": paths["train_ssl_mae"]["layer_norm_fwd"],
+         "launches_by_path": by_path("layer_norm_fwd"), **ln["fwd"],
+         "ms_is": "bf16 in and out, one call at each LN_SHAPES row; plain: x.float(), "
+                  "torch's fp32 layer_norm, .to(bf16); library: torch's fp32 layer_norm "
+                  "on the fp32 copy"},
+        {"name": "layer_norm_bwd", "route": "cuda", "source": LN_SOURCE,
+         "replaces": LN_REPLACES, "launches": paths["train_ssl_mae"]["layer_norm_bwd"],
+         "launches_is": "calls, each launching the row kernel and the reduction",
+         "launches_by_path": by_path("layer_norm_bwd"), **ln["bwd"],
+         "ms_is": "as layer_norm_fwd's, backward (autograd.grad for plain and library)"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})

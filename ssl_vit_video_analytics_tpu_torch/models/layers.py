@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention_packed
+from ..ops.layer_norm import layer_norm
 from ..parallel.collectives import (all_gather_cat, all_gather_own, all_reduce,
                                     copy_to_group, reduce_from_group)
 from ..utils import tracing
@@ -700,8 +701,7 @@ class TransformerBlock(nn.Module):
         self.dtype = dtype
 
     def _norm(self, x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-        return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                            ln.eps).to(self.dtype)
+        return layer_norm(x, ln.weight, ln.bias, ln.eps, self.dtype)
 
     def draw_drop_path(self, n: int, generator: torch.Generator, device=None):
         if not self.drop_path.rate:

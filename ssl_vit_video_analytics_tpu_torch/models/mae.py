@@ -27,9 +27,9 @@ gradient through the unmasked tokens of the decoder's input.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layer_norm import layer_norm
 from .layers import TransformerEncoder, adaptive_avg_pool_nhwc, linear
 from .tiny_vit import TinyViT
 
@@ -91,8 +91,8 @@ class TinyVideoMAE(nn.Module):
     def predict_pixels(self, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm + pixel head."""
         ln = self.decoder_norm
-        x = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
-        return linear(x.to(self.dtype), self.decoder_pred, self.dtype)
+        x = layer_norm(x, ln.weight, ln.bias, ln.eps, self.dtype)
+        return linear(x, self.decoder_pred, self.dtype)
 
     def forward(self, clip: torch.Tensor, mask: torch.Tensor,
                 drop: list | None = None, with_aux: bool = False, frame_offset: int = 0):

@@ -52,6 +52,13 @@ LIBRARIES: dict[str, tuple[str, dict[str, tuple[list, object]]]] = {
     "unary_chain": ("unary_chain.cu", {
         "ssl_vit_unary_chain": ([_i32, _i32, _vp, _vp, _i64, _i32, _vp], _i32),
         "ssl_vit_unary_chain_error_string": _ERROR_STRING}),
+    "layer_norm": ("layer_norm.cu", {
+        "ssl_vit_layer_norm_fwd": ([_i32, _i32, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _i64,
+                                    _i32, _f32, _vp], _i32),
+        "ssl_vit_layer_norm_bwd_grid": ([_i32, _i32, _i64, _i32], _i32),
+        "ssl_vit_layer_norm_bwd": ([_i32, _i32, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp,
+                                    _i32, _vp, _i64, _i32, _vp], _i32),
+        "ssl_vit_layer_norm_error_string": _ERROR_STRING}),
 }
 
 

@@ -21,7 +21,9 @@ of every 3x3 depthwise conv (cuDNN's, forward and backward, by input shape,
 with the kernels each launched). The port's spans are on while it profiles
 (``utils/tracing.py``): it also prints each span's calls and the device time
 of the kernels launched inside it a step (``train.update``: the optimizer;
-``attn.bwd``: K2 and what the backward launches around it), the
+``attn.bwd``: K2 and what the backward launches around it;
+``layer_norm``, ``layer_norm.bwd``: every LayerNorm's forward and backward),
+with each span's kernels that take the most, the
 ``host_syncs`` reads a step, and the host-clock ms of the unprofiled
 steps before, taken in turns with the spans on and off a whole update at
 a time, so that each side holds as many updates (their on cost).
@@ -92,24 +94,28 @@ def depthwise_3x3(events, steps: int) -> list[dict]:
             for r in sorted(rows.values(), key=lambda r: -r["us"])]
 
 
-def spans(events, steps: int) -> dict[str, dict]:
+def spans(events, steps: int, top: int = 6) -> dict[str, dict]:
     """Calls and device ms per step of each of the port's spans, by name
     (the host's ``ssl_vit.<name>`` ranges, attrs left out): the kernels
-    launched inside a range, those of the spans inside it included, and of
-    them K1's and K2's."""
+    launched inside a range, those of the spans inside it included, of them
+    K1's and K2's, and the ``top`` kernels by device ms."""
     rows: dict[str, dict] = {}
     for e in events:
         if e.device_type != DeviceType.CPU or not e.name.startswith(tracing.PREFIX):
             continue
         name = e.name[len(tracing.PREFIX):].split("(", 1)[0]
         row = rows.setdefault(name, {"calls_per_step": 0.0, "device_ms_per_step": 0.0,
-                                     **{g: 0.0 for g in GROUPS}})
+                                     **{g: 0.0 for g in GROUPS}, "kernels": {}})
         row["calls_per_step"] += 1 / steps
         for kernel, us in _kernels(e).items():
             row["device_ms_per_step"] += us / 1e3 / steps
+            row["kernels"][kernel] = row["kernels"].get(kernel, 0.0) + us / 1e3 / steps
             for g, prefixes in GROUPS.items():
                 if any(p in kernel for p in prefixes):
                     row[g] += us / 1e3 / steps
+    for row in rows.values():
+        row["kernels"] = {k[:120]: ms for k, ms in sorted(row["kernels"].items(),
+                                                          key=lambda kv: -kv[1])[:top]}
     return dict(sorted(rows.items()))
 
 

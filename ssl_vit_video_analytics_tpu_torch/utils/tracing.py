@@ -34,6 +34,8 @@ What the port records:
 - ``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine`` and
   ``moe.bwd`` (``models/layers.MoeMlp``; the backward's range as
   ``attn.bwd``'s, by :class:`BackwardRange`);
+- ``layer_norm`` and ``layer_norm.bwd`` (``ops/layer_norm.py``: each
+  LayerNorm call and its backward, by :class:`BackwardRange`);
 - counters ``host_syncs``, ``train.steps``, ``early_exit.batches``,
   ``early_exit.frames``, ``early_exit.graph_replays``,
   ``early_exit.graph_captures``, ``early_exit.graph_capture_us``,
@@ -41,8 +43,9 @@ What the port records:
   ``moe.kept``, the kernels' ``*.launches`` (launch counters), and
   ``models/layers``' ``weights.prepared_calls`` and ``weights.cast_calls``
   (launch counters: a conv or linear call on prepared weights or on the
-  per-call casts) and ``weights.prepares`` (a module's prepared weights
-  made or remade).
+  per-call casts), ``weights.prepares`` (a module's prepared weights
+  made or remade), and ``ops/layer_norm``'s ``layer_norm.plain_calls``
+  (a launch counter: a call of the plain version).
 """
 from __future__ import annotations
 

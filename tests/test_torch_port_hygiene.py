@@ -135,10 +135,11 @@ def test_probe_wrappers_on_cpu_run_plain_versions_without_building(wrapper, tmp_
 
 
 def test_kernel_build_registers_every_kernel_source():
-    """kernel_build compiles the four kernel sources of the port in one
+    """kernel_build compiles the five kernel sources of the port in one
     batch, each listed with the C functions its wrapper calls."""
     sources = kernel_build.sources()
-    assert set(sources) == {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain"}
+    assert set(sources) == {"flash_fwd", "flash_bwd", "dw3x3", "unary_chain",
+                            "layer_norm"}
     for name, path in sources.items():
         assert path.is_file() and path.parent == PORT / "ops" / "csrc", name
     assert set(kernel_build.LIBRARIES) == set(sources)

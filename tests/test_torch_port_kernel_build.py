@@ -37,8 +37,8 @@ def test_failed_build_raises_and_leaves_no_compiler_running(tmp_path, monkeypatc
     with pytest.raises(RuntimeError, match="stand-in failure"):
         kernel_build._build(tmp_path / "kernels")
     assert time.perf_counter() - t0 < 30  # the other compiles were not awaited
-    assert len(started) == len(kernel_build.sources()) == 4
-    assert [p.returncode for p in started] == [2, -9, -9, -9]
+    assert len(started) == len(kernel_build.sources()) == 5
+    assert [p.returncode for p in started] == [2, -9, -9, -9, -9]
     assert not list((tmp_path / "kernels").glob("*.so"))
 
 

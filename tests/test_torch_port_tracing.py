@@ -27,7 +27,7 @@ torch.set_num_threads(2)  # six test workers share the host
 
 B, T, S, K = 3, 16, 4, 5
 SPANS = {"train.step", "train.forward", "train.backward", "train.update", "attn.fwd",
-         "attn.bwd", "store.gather"}
+         "attn.bwd", "store.gather", "layer_norm", "layer_norm.bwd"}
 
 
 @pytest.fixture
@@ -285,7 +285,7 @@ def test_profile_step_reads_each_span(tracer):
     rows = profile_step.spans(prof.events(), steps=2)
     assert {k: r["calls_per_step"] for k, r in rows.items()} == {
         "attn.bwd": 3, "attn.fwd": 3, "train.backward": 1, "train.forward": 1,
-        "train.step": 1, "train.update": 1}
+        "train.step": 1, "train.update": 1, "layer_norm": 7, "layer_norm.bwd": 7}
     # no kernel on the CPU
     assert all(r["device_ms_per_step"] == r["K2 flash_bwd"] == 0 for r in rows.values())
 
